@@ -9,15 +9,20 @@ Phases, each of which raises (non-zero exit) on failure:
      ``merging_gym_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel);
   2. run each kernel and its plain version on the same inputs on the card,
      at the main path's shapes, and compare at the JAX tests' tolerances;
-  3. the main path, with every launch count set to 0 just before it and
-     read just after: the env rollout at 4,096 envs as ``bench.py`` drives
-     it (K1 trajectories, K2 counters), then ``eval --fused`` of
-     model_zoo/L2 vs L1 at 4,096 envs x 2,600 steps (K6) and plain
-     ``eval`` at 256 envs (K3 per step), through the port's CLI;
+  3. the two main paths, each with every launch count set to 0 just before
+     it and read just after.  Evaluation: the env rollout at 4,096 envs as
+     ``bench.py`` drives it (K1 trajectories, K2 counters), then ``eval
+     --fused`` of model_zoo/L2 vs L1 at 4,096 envs x 2,600 steps (K6) and
+     plain ``eval`` at 256 envs (K3 per step), through the port's CLI.
+     Training, through the CLI at its defaults (1,024 envs, 200-step
+     chunks): ``train --algo dqn --fused-kernel`` (K5), ``levelk --algo dqn
+     --fused-kernel --levels 2``, ``eval --fused`` of the trained L2 vs L1
+     (K6), and the step-loop ``train --algo dqn --opponent selfplay`` (K4
+     for both seats, twice per step);
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version, the
-     least time the card could take (``bound_ms``) and, for K3, the three
-     ``torch.addmm`` + ReLU library calls.
+     least time the card could take (``bound_ms``) and, for K3 and K4, the
+     three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``).
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -27,6 +32,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -41,6 +47,11 @@ T_POLICY = 768         # K6 check and timing length: Phi-greedy L2 vs L1
 T_EVAL = 2600          # evaluate_fused's default length
 B_MLP = 4096
 B_RAGGED = 1001
+N_TRAIN = 1024         # the training CLI's default env count
+N_TRAIN_WIDE = 4096
+T_CHUNK = 200          # the training CLI's default chunk length
+T_PLAIN = 6            # K5 plain-version timing length (steps)
+BIG = "1000000000"     # --episodes that never stops a run early
 
 # Published H100 SXM peaks at the full 700 W (NVIDIA H100 datasheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -58,6 +69,18 @@ OBS_FLOPS = 8          # the 8 differences of the observation
 def mlp_flops(d_in, h1, h2, a):
     """One row of the Q-net: multiply-adds, bias adds, ReLUs, argmax."""
     return 2 * (d_in * h1 + h1 * h2 + h2 * a) + (h1 + h2 + a) + (h1 + h2) + a
+
+
+def learn_flops(d_in, h1, h2, a):
+    """One sampled lane of K5's learner: three forwards (x; x' on the
+    online and the target net), the TD error, and the backward of
+    learn_math (dz2, dz1, the six gradients)."""
+    backward = (2 * h2 * a + h2) + (2 * h1 * h2 + h1) + (
+        2 * (d_in * h1 + h1 * h2 + h2 * a) + h1 + h2 + a)
+    return 3 * mlp_flops(d_in, h1, h2, a) + 2 * a + 8 + backward
+
+
+ADAM_FLOPS = 14        # per parameter: two moments, bias-corrected update
 
 
 def bound(bytes_, flops):
@@ -112,6 +135,171 @@ class Checks:
             self.close(kernel, f"{what} {k}", got[k], want[k], rtol, atol)
 
 
+def race_carry(torch, FT, lon2coord, cfg, ep, n, dev, seed=0, **kw):
+    """A K5 carry with small centred weights (a decisive argmax) and
+    mid-race starts, so that a short run crosses wins, collisions and
+    resets (tests/test_fused_trainer_e2e.py:57-75)."""
+    import numpy as np
+    carry = FT.fused_dqn_init(seed, cfg, ep, n, device=dev, **kw)
+    for k in ("p", "tp"):
+        carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
+    carry["opp"] = carry["p"]
+    rng = np.random.default_rng(seed + 100)
+    pos = torch.tensor(rng.uniform(870.0, 948.0, (2, n)),
+                       dtype=torch.float32, device=dev)
+    vel = torch.tensor(rng.uniform(5.0, 40.0, (2, n)), dtype=torch.float32,
+                       device=dev)
+    env = carry["env"].clone()
+    env[0:2], env[2:4] = pos, vel
+    env[4:6] = torch.stack(lon2coord(pos[0], 1.0))
+    env[6:8] = torch.stack(lon2coord(pos[1], -1.0))
+    carry["env"] = env
+    return carry
+
+
+def compare_k5(checks, torch, what, got, want):
+    """The tolerances of tests/test_fused_trainer_e2e.py:_check: events,
+    learns and counters exact; env and ring to 1e-4; params, target and
+    Adam moments to rtol 2e-3, atol 2e-4; the loss to rtol 1e-3."""
+    checks.equal("K5", f"{what} winner/t", got["env"][8:10],
+                  want["env"][8:10])
+    checks.close("K5", f"{what} env", got["env"], want["env"], 0.0, 1e-4)
+    checks.close("K5", f"{what} ring", got["ring"], want["ring"], 1e-4, 1e-4)
+    for k in ("p", "tp", "m", "v"):
+        for i, (a, b) in enumerate(zip(got[k], want[k])):
+            checks.close("K5", f"{what} {k}[{i}]", a, b, 2e-3, 2e-4)
+    for k in ("learns", "steps", "episodes", "collisions", "wins"):
+        if got[k] != want[k]:
+            raise AssertionError(f"K5 {what} {k}: {got[k]} != {want[k]}")
+    for k, rtol, atol in (("sum_ep_reward", 1e-4, 1e-3),
+                          ("last_loss", 1e-3, 1e-6)):
+        checks.close("K5", f"{what} {k}", torch.tensor(got[k]),
+                     torch.tensor(want[k]), rtol, atol)
+    if not (got["learns"] > 0 and got["episodes"] > 0):
+        raise AssertionError(f"K5 {what}: nothing learned or finished")
+
+
+def check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev):
+    """K5 against its plain version at 1,024 envs, R = 4; returns the
+    first case, run once more for the determinism check."""
+    n = N_TRAIN
+    sp = D.DQNConfig(lr=1e-3, target_sync=7, memory_capacity=4 * n,
+                     opponent="selfplay")
+    ep60 = EnvParams(max_steps=60)
+    # (cfg, env, init kwargs, chunk lengths, greedy, race start).  The
+    # 2-step first chunks stop short of the R-1 = 3 step warm-up, so the
+    # global-step learn gate is held across launches.  learn_rounds = 4
+    # needs learn_batch % 512 == 0 (the JAX validation, kept).
+    cases = {
+        "greedy selfplay, cold + warm": (sp, ep60, {}, (2, 30), True, True),
+        "greedy L0, learn_batch 512 in 4 windows": (
+            sp.replace(opponent="L0", target_sync=5), ep60,
+            dict(learn_batch=512, learn_rounds=4), (30,), True, True),
+        "greedy selfplay bf16": (sp.replace(compute_dtype="bfloat16"), ep60,
+                                 {}, (2, 20), True, True),
+        "phi-greedy random_start": (sp, EnvParams(random_start=True,
+                                                  max_steps=30), {}, (32,),
+                                    False, False),
+    }
+    for what, (cfg, ep, kw, chunks, greedy, race) in cases.items():
+        c0 = (race_carry(torch, FT, lon2coord, cfg, ep, n, dev, **kw) if race
+              else FT.fused_dqn_init(0, cfg, ep, n, device=dev, **kw))
+        got = want = c0
+        for seed, T in enumerate(chunks):
+            got = FT.fused_dqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+            want = FT.fused_dqn_chunk_plain(cfg, ep, want, T, seed,
+                                            greedy=greedy)
+        compare_k5(checks, torch, what, got, want)
+        print(f"K5 {what}: {got['learns']} learns, {int(got['episodes'])} "
+              f"episodes, {int(got['wins'])} wins, "
+              f"{int(got['collisions'])} collisions agree", flush=True)
+        if what.startswith("greedy selfplay, cold"):
+            first = (cfg, ep, c0, chunks, got)
+    cfg, ep, c0, chunks, got = first
+    again = c0
+    for seed, T in enumerate(chunks):
+        again = FT.fused_dqn_chunk(cfg, ep, again, T, seed, greedy=True)
+    same = all(torch.equal(got[k], again[k]) for k in ("env", "ring")) and all(
+        torch.equal(a, b) for k in ("p", "tp", "m", "v")
+        for a, b in zip(got[k], again[k]))
+    if not same or got["last_loss"] != again["last_loss"]:
+        raise AssertionError("K5 run twice on the same inputs differs")
+    print("K5: two runs on the same inputs give the same bits", flush=True)
+
+
+def check_k4(checks, torch, FA, FM, params, dev, rng):
+    """K4 against its plain version (exact), and its kept-greedy share."""
+    for b in (B_MLP, B_RAGGED):
+        x = torch.as_tensor(rng.standard_normal((b, 10)) * 100,
+                            dtype=torch.float32, device=dev)
+        for cd in ("float32", "bfloat16"):
+            checks.equal("K4", f"B={b} {cd}",
+                         FA.fused_eps_greedy_actions(params, x, 5, 0.7, cd),
+                         FA.fused_eps_greedy_actions_plain(params, x, 5, 0.7,
+                                                           cd))
+    # Share of rows where the greedy arm was kept, from the kernel's
+    # actions: match = kept + (1 - kept) / A over 8 seeds x 4,096 rows.
+    x = torch.as_tensor(rng.standard_normal((B_MLP, 10)) * 100,
+                        dtype=torch.float32, device=dev)
+    greedy = FM.qnet_apply_fused(params, x).argmax(dim=1)
+    match = sum((FA.fused_eps_greedy_actions(params, x, s) == greedy)
+                .float().mean().item() for s in range(8)) / 8
+    a = 5
+    kept = (match - 1.0 / a) / (1.0 - 1.0 / a)
+    if abs(kept - FA.phi(0.7)) > 0.01:
+        raise AssertionError(f"K4 greedy share {kept:.4f}, expected "
+                             f"{FA.phi(0.7):.4f} +- 0.01")
+    print(f"K4: B=4096 and B=1001, f32 and bf16 agree; greedy share "
+          f"{kept:.4f} (Phi(0.7) = {FA.phi(0.7):.4f})", flush=True)
+    return kept
+
+
+def train_path(cli, tmp):
+    """The training main path through the port's CLI; returns the run
+    directories and the ``eval --fused`` result of the trained nets."""
+    fused, levelk, loop = (os.path.join(tmp, d) for d in
+                           ("fused", "levelk", "loop"))
+    cli.main(["train", "--algo", "dqn", "--fused-kernel", "--max-chunks", "5",
+              "--episodes", BIG, "--out", fused])
+    cli.main(["levelk", "--algo", "dqn", "--fused-kernel", "--levels", "2",
+              "--max-chunks", "3", "--episodes", BIG, "--out", levelk])
+    res = cli.main(["eval", "--fused",
+                    "--p1", os.path.join(levelk, "L2", "params.npz"),
+                    "--p2", os.path.join(levelk, "L1", "params.npz"),
+                    "--num-envs", str(N_ENVS)])
+    cli.main(["train", "--algo", "dqn", "--opponent", "selfplay",
+              "--max-chunks", "2", "--episodes", BIG, "--out", loop])
+    runs = {"train --fused-kernel": (fused, 5),
+            "levelk L1": (os.path.join(levelk, "L1"), 3),
+            "levelk L2": (os.path.join(levelk, "L2"), 3),
+            "train (step loop)": (loop, 2)}
+    return runs, res
+
+
+def check_runs(np, runs, load_params_npz):
+    """Every logged chunk finite and in range, learning under way, and the
+    saved params finite."""
+    for what, (out, chunks) in runs.items():
+        with open(os.path.join(out, "scalars.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        if len(rows) != chunks:
+            raise AssertionError(f"{what}: {len(rows)} chunks logged")
+        for row in rows:
+            if not np.isfinite(list(row.values())).all():
+                raise AssertionError(f"{what}: non-finite scalars {row}")
+            for k in ("collision_rate", "win_rate"):
+                if not 0.0 <= row[k] <= 1.0:
+                    raise AssertionError(f"{what}: {k} {row[k]}")
+        last = rows[-1]
+        if last["learns"] <= 0 or last["env_steps"] != chunks * T_CHUNK * N_TRAIN:
+            raise AssertionError(f"{what}: {last}")
+        params = load_params_npz(os.path.join(out, "params.npz"))
+        if not all(np.isfinite(v).all() for layer in params.values()
+                   for v in layer.values()):
+            raise AssertionError(f"{what}: non-finite params")
+        print(f"{what}: {json.dumps(last)}", flush=True)
+
+
 def main():
     import torch
 
@@ -122,14 +310,18 @@ def main():
     import numpy as np
 
     from merging_gym_tpu_torch import cli, kernels
+    from merging_gym_tpu_torch.agents import dqn as D
     from merging_gym_tpu_torch.agents import policies as P
     from merging_gym_tpu_torch.agents.evaluate import evaluate, evaluate_fused
     from merging_gym_tpu_torch.core.env import EnvParams
+    from merging_gym_tpu_torch.core.geometry import lon2coord
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
     from merging_gym_tpu_torch.nn.mlp import qnet_apply, qnet_params_from_numpy
+    from merging_gym_tpu_torch.ops import fused_actor as FA
     from merging_gym_tpu_torch.ops import fused_mlp as FM
     from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
     from merging_gym_tpu_torch.ops import fused_rollout as FR
+    from merging_gym_tpu_torch.ops import fused_trainer as FT
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -217,7 +409,10 @@ def main():
         print(f"K6 {what}: {int(got['done'].sum())} episodes agree",
               flush=True)
 
-    # ---- 3. the main path ------------------------------------------------
+    k4_kept = check_k4(checks, torch, FA, FM, p_l2, dev, rng)
+    check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev)
+
+    # ---- 3. the main paths -----------------------------------------------
     phase_s = {}
 
     def timed(name, fn):
@@ -238,19 +433,37 @@ def main():
          "--num-envs", str(N_ENVS)]))
     loop = timed("eval", lambda: cli.main(
         ["eval", "--p1", ZOO_L2, "--p2", ZOO_L1, "--num-envs", "256"]))
-    launches = dict(kernels.launch_counts)
-    main_s = sum(phase_s.values())
-    print(f"main path: {main_s:.2f} s {phase_s}, launches {launches}",
-          flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    eval_launches = dict(kernels.launch_counts)
+    print(f"evaluation path: {sum(phase_s.values()):.2f} s {phase_s}, "
+          f"launches {eval_launches}", flush=True)
+    missing = [k for k in ("env_rollout", "env_counters", "qnet_mlp",
+                           "policy_rollout") if eval_launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
+        raise AssertionError(f"evaluation path launched no {missing}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        runs, trained = timed("training path", lambda: train_path(cli, tmp))
+        train_launches = dict(kernels.launch_counts)
+        print(f"training path: {phase_s['training path']:.2f} s, launches "
+              f"{train_launches}", flush=True)
+        missing = [k for k in ("fused_actor", "dqn_act_env_store",
+                               "dqn_learn_partials", "dqn_adam",
+                               "policy_rollout") if train_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"training path launched no {missing}")
+        check_runs(np, runs, load_params_npz)
+    launches = {k: eval_launches[k] + train_launches[k]
+                for k in kernels.launch_counts}
+    launches["dqn_trainer"] = sum(train_launches[k] for k in (
+        "dqn_act_env_store", "dqn_learn_partials", "dqn_adam"))
     assert traj["obs"].shape == (T_ROLLOUT, 10, N_ENVS)
     assert torch.isfinite(traj["obs"]).all() and torch.isfinite(
         cnt["reward_sum"]).all()
     assert (cnt["wins1"] + cnt["wins2"] <= cnt["episodes"]).all()
     assert int(cnt["episodes"].sum()) > N_ENVS
-    for res, min_eps in ((fused, N_ENVS), (loop, 512)):
+    for res, min_eps in ((fused, N_ENVS), (loop, 512),
+                         (trained, N_ENVS)):
         assert res["episodes"] >= min_eps, res
         for k in ("p1_first_rate", "p2_first_rate", "collision_rate",
                   "timeout_rate"):
@@ -354,10 +567,77 @@ def main():
     full_bound, _ = bound(T_EVAL * N_ENVS * FPR.K6_BYTES_PER_ENV_STEP,
                           T_EVAL * N_ENVS * per_step)
 
+    # K4 at B = 4096, f32, as the step-loop actor calls it
+    acts = torch.empty(B_MLP, dtype=torch.int32, device=dev)
+    ms = cuda_ms(torch, lambda: FA.launch_actor(w, x, acts, 5, 0.7), 20)
+    plain = cuda_ms(torch, lambda: FA.fused_eps_greedy_actions_plain(
+        p_l2, x, 5), 5)
+    lib = cuda_ms(torch, lambda: library().argmax(dim=1), 20)
+    b_ms, b_by = bound(B_MLP * (10 + 1) * 4 + w_bytes,
+                       B_MLP * mlp_flops(*dims))
+    results.append(("K4 fused_actor", "fused_actor", "fused_actor.cu",
+                    "merging_gym_tpu/ops/fused_actor.py:33", "K4",
+                    ms, plain, b_ms, b_by, lib))
+
+    # K5: one training step at the CLI's defaults (L0, 1,024 envs, R = 4,
+    # B = 1,024), timed over a 200-step chunk of a warm carry (every step
+    # learns); the plain version per step over a short chunk.
+    k5 = {}
+    for label, n_envs, kw in (
+            ("1024 envs, B 1024", N_TRAIN, {}),
+            ("4096 envs, B 512 in 4 windows", N_TRAIN_WIDE,
+             dict(learn_batch=512, learn_rounds=4))):
+        cfg = D.DQNConfig(memory_capacity=4 * n_envs)
+        carry = FT.fused_dqn_init(0, cfg, ep, n_envs, device=dev, **kw)
+        carry = FT.fused_dqn_chunk(cfg, ep, carry, T_CHUNK, 0)
+        st = FT.working_state(carry, torch.float32)
+        r = np.random.default_rng(1)
+        rounds = r.integers(0, carry["R"], T_CHUNK * carry["K"])
+        cols = r.integers(0, carry["K"] * n_envs // carry["B"],
+                          T_CHUNK * carry["K"])
+        chunk_ms = cuda_ms(torch, lambda: FT.launch_trainer(
+            st, carry, cfg, ep, T_CHUNK, 1, False, rounds, cols), 3)
+        step_plain = cuda_ms(torch, lambda: FT.fused_dqn_chunk_plain(
+            cfg, ep, carry, T_PLAIN, 1), 1, warmup=0) / T_PLAIN
+        B = carry["B"]
+        P = sum(t.numel() for t in carry["p"])
+        step_bytes = (n_envs * (2 * 11 + 24 + 2 * 4) * 4 + B * 24 * 4
+                      + 28 * P)
+        step_flops = (n_envs * (mlp_flops(*dims) + ENV_STEP_FLOPS + OBS_FLOPS)
+                      + B * learn_flops(*dims) + P * ADAM_FLOPS)
+        sb_ms, sb_by = bound(step_bytes, step_flops)
+        k5[label] = {"chunk_ms": chunk_ms, "step_ms": chunk_ms / T_CHUNK,
+                     "env_steps_per_s": T_CHUNK * n_envs / (chunk_ms / 1e3),
+                     "plain_step_ms": step_plain, "bound_step_ms": sb_ms,
+                     "bound_by": sb_by}
+        if n_envs == N_TRAIN:
+            results.append(("K5 dqn_trainer", "dqn_trainer", "dqn_trainer.cu",
+                            "merging_gym_tpu/ops/fused_trainer.py:237", "K5",
+                            chunk_ms / T_CHUNK, step_plain, sb_ms, sb_by,
+                            None))
+
+    # The step-loop trainer (K4 actor, autograd learner) per step, as
+    # context for K5: host clock around synchronised chunks.
+    cfg = D.DQNConfig(memory_capacity=max(2000, 2 * N_TRAIN))
+    carry = D.train_chunk(cfg, ep, D.train_init(0, cfg, ep, N_TRAIN,
+                                                device=dev), 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    carry = D.train_chunk(cfg, ep, carry, 20)
+    torch.cuda.synchronize()
+    loop_step_ms = (time.perf_counter() - t) * 1e3 / 20
+
     print(json.dumps({
         "card": card,
         "shapes": {"K1": [T_ROLLOUT, N_ENVS], "K2": [T_ROLLOUT, N_ENVS],
-                   "K3": [B_MLP, 10], "K6": [T_POLICY, N_ENVS]},
+                   "K3": [B_MLP, 10], "K4": [B_MLP, 10],
+                   "K5": "one step: L0, 1,024 envs, R 4, B 1,024",
+                   "K6": [T_POLICY, N_ENVS]},
+        "k4_greedy_share": k4_kept,
+        "k5_chunks": k5,
+        "step_loop_train_step_ms": loop_step_ms,
+        "launches_by_path": {"evaluation": eval_launches,
+                             "training": train_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": long_ms, "bound_ms": long_bound,
                            "env_steps_per_s": k2_rate},

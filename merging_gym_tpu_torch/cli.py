@@ -1,13 +1,22 @@
 """Command-line entry point of the PyTorch / CUDA port.
 
+  python -m merging_gym_tpu_torch.cli [--cpu] train --algo dqn \\
+      [--fused-kernel] [--opponent L0|selfplay|<params.npz>] ...
+  python -m merging_gym_tpu_torch.cli [--cpu] levelk --algo dqn --levels 3 ...
   python -m merging_gym_tpu_torch.cli [--cpu] eval --p1 SPEC --p2 SPEC \\
       [--fused] [--num-envs N] [--episodes E] [--seed S] [env flags]
 
 SPEC is ``random``, ``l0``, ``const:<a>`` or a Q-net ``params.npz`` (the
 JAX package's format, e.g. ``model_zoo/L2/params.npz``).  Runs on the card
 unless ``--cpu`` is given; without a card and without ``--cpu`` it fails.
-``eval --fused`` plays the whole match as one launch of the policy-rollout
-kernel; plain ``eval`` steps the env in a loop with the Q-net kernel.
+
+``train --algo dqn --fused-kernel`` runs the single-kernel trainer (K5,
+``ops.fused_trainer``), plain ``train --algo dqn`` the step-loop trainer
+(``agents.dqn``, its actor K4); both write ``params.npz`` in the JAX key
+format and log ``scalars.jsonl``/``scalars.csv``.  ``levelk`` trains L1
+against L0, then each level against the frozen one before it.  The other
+algorithms, ``--resume``/``--checkpoint-every``, ``--plot-every`` and the
+Rainbow/h-DQN options are not ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import torch
 
@@ -67,6 +77,180 @@ def _policy_from_spec(spec: str, device):
     return P.q_policy(qnet_apply, _load_qnet(spec, device), greedy=False)
 
 
+# Flags of the JAX CLI whose code paths are not ported yet: a run that
+# sets one exits instead of ignoring it.
+_NOT_PORTED = ("--resume", "--checkpoint-every", "--plot-every", "--per",
+               "--per-alpha", "--per-beta", "--n-step", "--obs-scale",
+               "--goal-memory-capacity")
+
+
+def _train_args(p):
+    _add_env_args(p)
+    p.add_argument("--algo", choices=["dqn", "hdqn", "rainbow", "drqn"],
+                   default="dqn", help="only dqn is ported so far")
+    p.add_argument("--opponent", default="L0",
+                   help='"L0", "selfplay", or a params.npz (frozen)')
+    p.add_argument("--num-envs", type=int, default=1024)
+    p.add_argument("--episodes", type=int, default=2000,
+                   help="stop once this many episodes completed (main.py:170)")
+    p.add_argument("--max-chunks", type=int, default=10000)
+    p.add_argument("--chunk-steps", type=int, default=200)
+    p.add_argument("--memory-capacity", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--gamma", type=float, default=None,
+                   help="discount (default 0.90, main.py:15)")
+    p.add_argument("--epsilon", type=float, default=None,
+                   help="Phi(eps)-greedy exploration threshold (main.py:105;"
+                        " default 0.7)")
+    p.add_argument("--hidden", type=int, nargs=2, default=None,
+                   metavar=("H1", "H2"),
+                   help="Q-net hidden widths (default 200 100)")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="forward-pass dtype (master params stay f32)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=None,
+                   help="run directory (default: reference-style name)")
+    p.add_argument("--fused-kernel", action="store_true",
+                   help="run the whole trainer on the card as the K5 kernel "
+                        "sequence (ops.fused_trainer; learner batch = "
+                        "num-envs unless --learn-batch)")
+    p.add_argument("--learn-batch", type=int, default=None,
+                   help="with --fused-kernel: lanes per learn (multiple of "
+                        "128 dividing num-envs; default num-envs)")
+    p.add_argument("--learn-rounds", type=int, default=1,
+                   help="with --fused-kernel: compose each learn batch from "
+                        "K independent (round, lane-window) draws of "
+                        "learn-batch/K lanes (needs learn-batch %% (128*K) "
+                        "== 0)")
+    p.add_argument("--greedy-actor", action="store_true",
+                   help="with --fused-kernel: pure-argmax actor "
+                        "(deterministic, no Philox draws)")
+    for flag in _NOT_PORTED:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help="not yet ported")
+
+
+def _refuse_unported(args):
+    if args.algo != "dqn":
+        raise SystemExit(f"--algo {args.algo} is not yet ported to the "
+                         "PyTorch package (dqn only)")
+    for flag in _NOT_PORTED:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            raise SystemExit(f"{flag} is not yet ported to the PyTorch "
+                             "package")
+
+
+def cmd_train(args) -> str:
+    """Train one DQN agent; returns the run directory."""
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.device import resolve_device
+    from merging_gym_tpu_torch.io.checkpoint import (run_dir_name,
+                                                     save_params_npz)
+    from merging_gym_tpu_torch.io.metrics import (MetricsWriter,
+                                                  rates_from_counters)
+    from merging_gym_tpu_torch.ops import fused_trainer as FT
+
+    _refuse_unported(args)
+    device = resolve_device("cpu" if args.cpu else None)
+    env_params = _env_params(args)
+    mode = {"L0": D.OPP_L0, "selfplay": D.OPP_SELFPLAY}.get(args.opponent,
+                                                            D.OPP_FROZEN)
+    opp = _load_qnet(args.opponent, device) if mode == D.OPP_FROZEN else None
+    out = args.out or run_dir_name(f" {args.algo}", args.opponent,
+                                   env_params.reward_tuple())
+    os.makedirs(out, exist_ok=True)
+    writer = MetricsWriter(out)
+    common = dict(
+        opponent=mode, lr=args.lr or 0.01,
+        gamma=args.gamma if args.gamma is not None else 0.90,
+        epsilon=args.epsilon if args.epsilon is not None else 0.7,
+        hidden=tuple(args.hidden) if args.hidden else (200, 100),
+        compute_dtype=args.compute_dtype)
+
+    if args.fused_kernel:
+        if env_params.random_start and args.greedy_actor:
+            raise SystemExit("--random-start draws from the actor's Philox "
+                             "stream, which --greedy-actor skips; drop one "
+                             "of the two")
+        cfg = D.DQNConfig(
+            memory_capacity=args.memory_capacity or 4 * args.num_envs,
+            **common)
+        carry = FT.fused_dqn_init(args.seed, cfg, env_params, args.num_envs,
+                                  opp, learn_batch=args.learn_batch,
+                                  learn_rounds=args.learn_rounds,
+                                  device=device)
+
+        def chunk(c):
+            # Seed = run seed + global step count, as in the JAX CLI.
+            return FT.fused_dqn_chunk(cfg, env_params, c, args.chunk_steps,
+                                      seed=args.seed + c["steps"],
+                                      greedy=args.greedy_actor)
+
+        def scalars_of(c):
+            eps = max(c["episodes"], 1.0)
+            return {"env_steps": c["env_steps"], "episodes": c["episodes"],
+                    "collision_rate": c["collisions"] / eps,
+                    "win_rate": c["wins"] / eps,
+                    "reward": c["sum_ep_reward"] / eps,
+                    "loss": c["last_loss"], "learns": c["learns"]}
+
+        def params_of(c):
+            return FT.t_to_params(c["p"])
+    else:
+        cfg = D.DQNConfig(
+            memory_capacity=(args.memory_capacity
+                             or max(2000, 2 * args.num_envs)),
+            batch_size=args.batch_size or 128, **common)
+        carry = D.train_init(args.seed, cfg, env_params, args.num_envs, opp,
+                             device=device)
+
+        def chunk(c):
+            return D.train_chunk(cfg, env_params, c, args.chunk_steps)
+
+        def scalars_of(c):
+            return {**rates_from_counters(c.metrics),
+                    "loss": float(c.dqn.last_loss),
+                    "learns": int(c.dqn.learn_counter)}
+
+        def params_of(c):
+            return c.dqn.params
+
+    t0 = time.time()
+    for i in range(args.max_chunks):
+        carry = chunk(carry)
+        scalars = scalars_of(carry)
+        scalars["env_steps_per_sec"] = (scalars["env_steps"]
+                                        / (time.time() - t0))
+        writer.log(i, scalars)
+        print(f"chunk {i}: {json.dumps(scalars)}", flush=True)
+        if scalars["episodes"] >= args.episodes:
+            break
+    save_params_npz(os.path.join(out, "params.npz"), params_of(carry))
+    writer.close()
+    print(f"run saved to {out}")
+    return out
+
+
+def cmd_levelk(args) -> list:
+    """Level-k curriculum (main.py:161-168): L1 trains vs L0, L2 vs frozen
+    L1, ..., each level in its own run directory; returns them."""
+    if args.algo != "dqn":
+        raise SystemExit(f"levelk --algo {args.algo} is not yet ported to "
+                         "the PyTorch package (dqn only)")
+    prev, runs = "L0", []
+    for level in range(1, args.levels + 1):
+        sub = argparse.Namespace(**vars(args))
+        sub.opponent = prev if level == 1 else os.path.join(prev,
+                                                            "params.npz")
+        sub.out = os.path.join(args.out or "levelk_runs", f"L{level}")
+        print(f"=== training L{level} vs {sub.opponent} ===", flush=True)
+        prev = cmd_train(sub)
+        runs.append(prev)
+    return runs
+
+
 def cmd_eval(args) -> dict:
     from merging_gym_tpu_torch.agents.evaluate import evaluate, evaluate_fused
     from merging_gym_tpu_torch.device import resolve_device
@@ -97,6 +281,15 @@ def main(argv=None):
                    help="run the plain PyTorch versions on the CPU "
                         "(default: the CUDA kernels on the card)")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="train one agent")
+    _train_args(pt)
+    pt.set_defaults(fn=cmd_train)
+
+    pl = sub.add_parser("levelk", help="level-k opponent curriculum")
+    _train_args(pl)
+    pl.add_argument("--levels", type=int, default=2)
+    pl.set_defaults(fn=cmd_levelk)
 
     pe = sub.add_parser("eval", help="head-to-head policy evaluation")
     _add_env_args(pe)

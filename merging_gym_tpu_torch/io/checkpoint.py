@@ -1,7 +1,8 @@
-"""Flat ``.npz`` param files, numpy only.
+"""Flat ``.npz`` param files and run directory names, numpy only.
 
-Counterpart of ``save_params_npz`` / ``load_params_npz`` in
-``merging_gym_tpu/io/checkpoint.py``.  Keys are the JAX package's
+Counterpart of ``save_params_npz`` / ``load_params_npz`` and
+``run_dir_name`` in ``merging_gym_tpu/io/checkpoint.py`` (which imports
+JAX and orbax, so they are copied, not imported).  Keys are the JAX package's
 ``jax.tree_util.keystr`` names of a nested dict (``"['fc0']['w']"``), so
 ``model_zoo/*/params.npz`` loads unchanged and files written here load in
 the JAX package.
@@ -9,11 +10,21 @@ the JAX package.
 
 from __future__ import annotations
 
+import datetime
+import os
 import re
 
 import numpy as np
 
 _KEY = re.compile(r"\['([^']*)'\]")
+
+
+def run_dir_name(label: str, strategy: str, reward_tuple,
+                 root: str = ".") -> str:
+    """Reference-style run directory name (main.py:239)."""
+    stamp = datetime.datetime.now().strftime("%Y--%m--%d %H:%M:%S")
+    return os.path.join(root,
+                        f"{stamp}{label} with OP:{strategy}{tuple(reward_tuple)}")
 
 
 def _flatten(tree, prefix=""):

@@ -24,14 +24,18 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-LIBRARIES = ("env_rollout", "qnet_mlp", "policy_rollout")
+LIBRARIES = ("env_rollout", "qnet_mlp", "policy_rollout", "fused_actor",
+             "dqn_trainer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 SMEM_LIMIT = 232448  # dynamic shared memory one block can use on sm_90
 
 launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
-                 "policy_rollout": 0}
+                 "policy_rollout": 0, "fused_actor": 0,
+                 # K5's three per-step kernels
+                 "dqn_act_env_store": 0, "dqn_learn_partials": 0,
+                 "dqn_adam": 0}
 
 _libs: dict = {}
 _funcs: dict = {}

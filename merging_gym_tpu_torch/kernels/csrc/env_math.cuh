@@ -1,7 +1,7 @@
 // One env step of the two-player merging game, for one env in registers.
 //
-// Shared by the rollout kernels (env_rollout.cu: K1, K2) and the policy
-// rollout (policy_rollout.cu: K6).  Mirrors core/env.py:step of the port op
+// Shared by the rollout kernels (env_rollout.cu: K1, K2), the policy
+// rollout (policy_rollout.cu: K6) and the DQN trainer (dqn_trainer.cu: K5).  Mirrors core/env.py:step of the port op
 // for op, and through it merging_gym_tpu/ops/fused_rollout.py:_env_step_math.
 // Built with -fmad=false and without fast math: every add and multiply is
 // rounded on its own and sinf is the accurate library function, as in the
@@ -13,6 +13,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace mgt {
 
@@ -118,6 +119,30 @@ __device__ __forceinline__ StepOut env_step(EnvState& s, int a1, int a2,
 __device__ __forceinline__ void start_state(EnvState& s) {
   s.pos1 = s.pos2 = kStartPoint;
   s.vel1 = s.vel2 = kStartVel;
+  s.winner = 0;
+  s.t = 0;
+}
+
+// Randomised start from Philox stream 1 at (step, env): the Box-Muller
+// construction of ops/fused_rollout.py:random_reset_vals on 24-bit
+// uniforms.  pos1 ~ N(50, 5), vel1 ~ N(20, 3), pos2 ~ U(46, 54),
+// vel2 ~ U(15, 30).
+__device__ __forceinline__ void random_start(EnvState& s, uint32_t step,
+                                             uint32_t env, uint32_t k0,
+                                             uint32_t k1) {
+  Bits4 b = draw(step, env, kStreamReset, k0, k1);
+  const float scale = 1.0f / 16777216.0f;
+  float u0 = static_cast<float>(b.x >> 8) * scale;
+  float u1 = static_cast<float>(b.y >> 8) * scale;
+  float u2 = static_cast<float>(b.z >> 8) * scale;
+  float u3 = static_cast<float>(b.w >> 8) * scale;
+  float r = sqrtf(-2.0f * logf(fmaxf(u0, (float)1e-7)));
+  float theta = (float)(2.0 * 3.14159265358979) * u1;
+  float z1 = r * cosf(theta), z2 = r * sinf(theta);
+  s.pos1 = kStartPoint + 5.0f * z1;
+  s.pos2 = kStartPoint + (u2 * kVehicleH - kVehicleH / 2.0f);
+  s.vel1 = kStartVel + 3.0f * z2;
+  s.vel2 = (kStartVel - 5.0f) + 15.0f * u3;
   s.winner = 0;
   s.t = 0;
 }

@@ -1,7 +1,8 @@
 // The Q-net forward of a tile of rows, for all threads of a block.
 //
-// Shared by K3 (qnet_mlp.cu) and K6 (policy_rollout.cu), so a greedy
-// evaluation through K3 and one through K6 pick the same actions.  Each
+// Shared by K3 (qnet_mlp.cu), K4 (fused_actor.cu), K5 (dqn_trainer.cu)
+// and K6 (policy_rollout.cu), so a greedy evaluation through K3 and one
+// through K6 pick the same actions, and the trainer's actor is K4's.  Each
 // output of a layer is one thread's sum over the inputs in order, in f32,
 // with one rounding per multiply and per add (__fmul_rn/__fadd_rn are never
 // contracted into an FMA) -- the arithmetic of ops/fused_mlp.py:mlp_plain.
@@ -12,6 +13,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -99,6 +102,17 @@ __device__ __forceinline__ int argmax0(const float* q, int a) {
     }
   }
   return best;
+}
+
+// The Phi(eps)-greedy pick shared by K4, K5 and K6 (the reference's
+// "randn() <= eps" rule, main.py:105, as one uniform draw): keep the
+// greedy action iff the mask word is below Phi(eps) * 2^32, else take the
+// random word modulo the action count (ops/fused_actor.py:select).
+__device__ __forceinline__ int phi_select(int greedy_a, uint32_t mask,
+                                          uint32_t rand, uint32_t threshold,
+                                          int a) {
+  return mask < threshold ? greedy_a
+                          : static_cast<int>(rand % static_cast<uint32_t>(a));
 }
 
 template <typename Kernel>

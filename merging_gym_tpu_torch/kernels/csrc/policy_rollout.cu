@@ -30,27 +30,6 @@ struct PolicyCfg {
   uint32_t threshold, k0, k1;
 };
 
-// Reset values from Philox stream 1 (ops/fused_rollout.py:random_reset_vals).
-__device__ __forceinline__ void random_start(EnvState& s, uint32_t step,
-                                             uint32_t env, uint32_t k0,
-                                             uint32_t k1) {
-  Bits4 b = draw(step, env, kStreamReset, k0, k1);
-  const float scale = 1.0f / 16777216.0f;
-  float u0 = static_cast<float>(b.x >> 8) * scale;
-  float u1 = static_cast<float>(b.y >> 8) * scale;
-  float u2 = static_cast<float>(b.z >> 8) * scale;
-  float u3 = static_cast<float>(b.w >> 8) * scale;
-  float r = sqrtf(-2.0f * logf(fmaxf(u0, (float)1e-7)));
-  float theta = (float)(2.0 * 3.14159265358979) * u1;
-  float z1 = r * cosf(theta), z2 = r * sinf(theta);
-  s.pos1 = kStartPoint + 5.0f * z1;
-  s.pos2 = kStartPoint + (u2 * kVehicleH - kVehicleH / 2.0f);
-  s.vel1 = kStartVel + 3.0f * z2;
-  s.vel2 = (kStartVel - 5.0f) + 15.0f * u3;
-  s.winner = 0;
-  s.t = 0;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kPolicyThreads)
 policy_kernel(Net<T> net1, Net<T> net2, int32_t* __restrict__ act_o,
@@ -106,8 +85,8 @@ policy_kernel(Net<T> net1, Net<T> net2, int32_t* __restrict__ act_o,
     if (!pc.greedy) {
       Bits4 b = draw(static_cast<uint32_t>(t), env, kStreamActions, pc.k0,
                      pc.k1);
-      if (b.x >= pc.threshold) a1 = static_cast<int>(b.y % d.a);
-      if (pc.p2_mlp && b.z >= pc.threshold) a2 = static_cast<int>(b.w % d.a);
+      a1 = phi_select(a1, b.x, b.y, pc.threshold, d.a);
+      if (pc.p2_mlp) a2 = phi_select(a2, b.z, b.w, pc.threshold, d.a);
     }
     StepOut o = env_step(s, a1, a2, cfg);
 

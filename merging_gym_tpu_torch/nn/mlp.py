@@ -4,7 +4,9 @@ Counterpart of ``merging_gym_tpu/nn/mlp.py``.  Params keep the JAX
 package's nested-dict layout ``{fc0, fc1, fc2: {w: [in, out], b: [out]}}``
 so that ``model_zoo/*/params.npz`` and JAX params carry across unchanged.
 ``qnet_apply`` is the hand-written fused kernel K3 on the card
-(``ops.fused_mlp``) and its plain version on the CPU.
+(``ops.fused_mlp``) and its plain version on the CPU; it has no gradient.
+The learner of ``agents.dqn`` differentiates :func:`qnet_apply_autograd`
+instead, as the JAX learner differentiates its plain ``qnet_apply``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from torch import nn
 
 from merging_gym_tpu_torch.device import resolve_device
 from merging_gym_tpu_torch.nn.init import linear_params
-from merging_gym_tpu_torch.ops.fused_mlp import qnet_apply_fused
+from merging_gym_tpu_torch.ops.fused_mlp import (compute_dtype_of,
+                                                 qnet_apply_fused)
 
 HIDDEN = (200, 100)  # main.py:34-38
 
@@ -41,6 +44,30 @@ def qnet_apply(params: dict, x: torch.Tensor,
     return qnet_apply_fused(params, x, compute_dtype)
 
 
+def qnet_apply_autograd(params: dict, x: torch.Tensor,
+                        compute_dtype: str = "float32") -> torch.Tensor:
+    """Differentiable forward ``x: f[..., in] -> f32[..., out]`` with
+    ``torch.matmul``, for the learner of ``agents.dqn``.
+
+    The JAX learner differentiates ``merging_gym_tpu/nn/mlp.py:qnet_apply``
+    (an XLA computation, no Pallas kernel); this is its counterpart, with
+    the same compute-dtype contract: params and activations cast to
+    ``compute_dtype``, products accumulated in f32 and cast back to
+    ``compute_dtype`` before each bias add, Q-values returned as f32.
+    The matmuls run in full f32 (TF32 stays off).
+    """
+    dtype = compute_dtype_of(compute_dtype)
+    h = x.to(dtype)
+    n = len(params)
+    for i in range(n):
+        w = params[f"fc{i}"]["w"].to(dtype)
+        b = params[f"fc{i}"]["b"].to(dtype)
+        h = torch.matmul(h.float(), w.float()).to(dtype) + b
+        if i < n - 1:
+            h = torch.relu(h)
+    return h.float()
+
+
 def qnet_params_from_numpy(params: dict, device=None,
                            dtype=torch.float32) -> dict:
     """JAX/numpy nested param dict -> the port's params on ``device``."""
@@ -54,7 +81,9 @@ def qnet_params_from_numpy(params: dict, device=None,
 class QNet(nn.Module):
     """``nn.Module`` holding one Q-net's params; ``forward`` is
     :func:`qnet_apply`.  On the card the forward is the K3 kernel, which
-    has no backward yet: call it under ``torch.no_grad()``."""
+    has no backward, as the JAX K3 has none: call it under
+    ``torch.no_grad()``.  The learner differentiates
+    :func:`qnet_apply_autograd`."""
 
     def __init__(self, params: dict):
         super().__init__()

@@ -49,9 +49,12 @@ def cast_weights(params: dict, dtype: torch.dtype, device=None) -> list:
     return out
 
 
-def mlp_plain(weights: list, x: torch.Tensor, dtype: torch.dtype):
-    """Plain version of the kernels' MLP: ``x`` f[B, in] -> f32[B, A]."""
+def mlp_plain_layers(weights: list, x: torch.Tensor,
+                     dtype: torch.dtype) -> list:
+    """The kernels' MLP, keeping every layer: ``[x, h1, h2]`` in ``dtype``
+    (the input cast and the two ReLU outputs), then q f32[B, A]."""
     h = x.to(torch.float32).to(dtype)
+    layers = [h]
     for i in range(3):
         w, b = weights[2 * i], weights[2 * i + 1]
         wf = w.to(torch.float32)
@@ -61,7 +64,14 @@ def mlp_plain(weights: list, x: torch.Tensor, dtype: torch.dtype):
         h = acc.to(dtype) + b
         if i < 2:
             h = torch.clamp_min(h, 0.0)
-    return h.to(torch.float32)
+        layers.append(h)
+    layers[-1] = h.to(torch.float32)
+    return layers
+
+
+def mlp_plain(weights: list, x: torch.Tensor, dtype: torch.dtype):
+    """Plain version of the kernels' MLP: ``x`` f[B, in] -> f32[B, A]."""
+    return mlp_plain_layers(weights, x, dtype)[-1]
 
 
 def qnet_apply_plain(params: dict, x: torch.Tensor,

@@ -17,8 +17,7 @@ two agree bit for bit.
 Modes, as in the JAX kernel:
 * ``greedy=True``: first-occurrence argmax; else Phi(eps)-greedy with the
   bits of Philox stream 0 at ``(step, env)``: words 0/1 for player 1's
-  mask/random action, 2/3 for player 2's (``mask < min(int(p*2**32),
-  2**32-1)`` keeps the greedy action, else ``rand % A``);
+  mask/random action, 2/3 for player 2's (``ops.fused_actor.select``);
 * ``params2=None``: player 2 is the L0 opponent (action -1); otherwise
   its net acts on the half-swapped observation;
 * ``env_params.random_start``: starts and resets from Philox stream 1
@@ -29,7 +28,6 @@ Modes, as in the JAX kernel:
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import replace
 
 import torch
@@ -40,6 +38,7 @@ from merging_gym_tpu_torch.core.env import EnvParams, observe, swap_obs
 from merging_gym_tpu_torch.core.vector import autoreset_step, reset_batch
 from merging_gym_tpu_torch.device import tensor_device
 from merging_gym_tpu_torch.ops import philox
+from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, select
 from merging_gym_tpu_torch.ops.fused_mlp import (cast_weights,
                                                  compute_dtype_of, mlp_plain)
 from merging_gym_tpu_torch.ops.fused_rollout import (as_events,
@@ -57,23 +56,6 @@ _ROLLOUT_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_void_p] * 5
                     ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
                  + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-
-
-def phi(x: float) -> float:
-    return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
-
-
-def greedy_threshold(epsilon: float) -> int:
-    """uint32 threshold below which a Phi(eps)-greedy draw stays greedy."""
-    return min(int(phi(epsilon) * 4294967296.0), 4294967295)
-
-
-def _select(q, mask_bits, rand_bits, greedy, threshold):
-    a = torch.argmax(q, dim=-1).to(torch.int32)
-    if greedy:
-        return a
-    rand = (rand_bits % q.shape[-1]).to(torch.int32)
-    return torch.where(mask_bits < threshold, a, rand)
 
 
 def fused_policy_rollout_plain(num_steps: int, num_envs: int, params1,
@@ -102,11 +84,11 @@ def fused_policy_rollout_plain(num_steps: int, num_envs: int, params1,
         obs = observe(state)
         bits = ((None,) * 4 if greedy else
                 philox.draw(s, N, philox.STREAM_ACTIONS, key, dev))
-        a1 = _select(mlp_plain(w1, obs, dtype), bits[0], bits[1], greedy, thr)
+        a1 = select(mlp_plain(w1, obs, dtype), bits[0], bits[1], greedy, thr)
         if w2 is None:
             a2 = torch.full_like(a1, C.ACTION_NONE)
         else:
-            a2 = _select(mlp_plain(w2, swap_obs(obs), dtype), bits[2],
+            a2 = select(mlp_plain(w2, swap_obs(obs), dtype), bits[2],
                          bits[3], greedy, thr)
         actions = torch.stack([a1, a2], dim=-1)
         state, ts = autoreset_step(det, state, actions)

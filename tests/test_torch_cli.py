@@ -1,6 +1,7 @@
 """The port's CLI on the CPU, its refusal to fall back without a card, and
 import hygiene: neither the port nor chip_smoke.py imports JAX or the JAX
-package."""
+package.  The ``params.npz`` that ``train`` writes loads in the JAX
+package and in the port's ``eval``."""
 
 import ast
 import json
@@ -61,6 +62,60 @@ def test_eval_const_policies_and_bad_spec():
     r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "eval",
               "--p1", "no_such_file.npz"], timeout=120)
     assert r.returncode != 0 and "cannot load" in r.stderr
+
+
+def _load_in_jax(path):
+    import jax
+    from merging_gym_tpu.io.checkpoint import load_params_npz as jax_load
+    from merging_gym_tpu.nn.mlp import qnet_init as jax_qnet_init
+    return jax_load(path, jax_qnet_init(jax.random.key(0), 10, 5))
+
+
+@pytest.mark.parametrize("trainer", [["--fused-kernel", "--greedy-actor"],
+                                     []], ids=["fused", "step_loop"])
+def test_train_writes_params_that_both_packages_load(tmp_path, trainer):
+    out = tmp_path / "run"
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", "--algo",
+              "dqn", *trainer, "--num-envs", "128", "--chunk-steps", "10",
+              "--max-chunks", "2", "--memory-capacity", "512",
+              "--out", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = [json.loads(ln) for ln in
+             (out / "scalars.jsonl").read_text().splitlines()]
+    assert [ln["step"] for ln in lines] == [0, 1]
+    assert lines[-1]["env_steps"] == 128 * 20 and lines[-1]["learns"] > 0
+    params = _load_in_jax(str(out / "params.npz"))
+    assert params["fc0"]["w"].shape == (10, 200)
+    import numpy as np
+    assert all(np.isfinite(np.asarray(v)).all()
+               for layer in params.values() for v in layer.values())
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "eval",
+              "--p1", str(out / "params.npz"), "--p2", "l0",
+              "--num-envs", "16", "--episodes", "16", "--max-steps", "100"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert _result(r.stdout)["episodes"] >= 16
+
+
+def test_levelk_chains_two_levels(tmp_path):
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "levelk",
+              "--algo", "dqn", "--levels", "2", "--fused-kernel",
+              "--greedy-actor", "--num-envs", "128", "--chunk-steps", "8",
+              "--max-chunks", "1", "--out", str(tmp_path)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "training L2 vs " + str(tmp_path / "L1" / "params.npz") in r.stdout
+    for level in ("L1", "L2"):
+        _load_in_jax(str(tmp_path / level / "params.npz"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--algo", "rainbow"], ["--resume", "some_run"], ["--plot-every", "1"],
+    ["--per"], ["--checkpoint-every", "2"]], ids=lambda f: f[0])
+def test_unported_options_exit(tmp_path, flags):
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", *flags,
+              "--num-envs", "128", "--max-chunks", "1",
+              "--out", str(tmp_path / "run")], timeout=120)
+    assert r.returncode != 0 and "not yet ported" in r.stderr
+    assert not (tmp_path / "run").exists()
 
 
 def test_no_silent_cpu_fallback():

@@ -13,12 +13,16 @@ import pytest
 import torch
 
 from merging_gym_tpu_torch import kernels
+from merging_gym_tpu_torch.agents import dqn as D
 from merging_gym_tpu_torch.core.env import EnvParams
+from merging_gym_tpu_torch.core.geometry import lon2coord
 from merging_gym_tpu_torch.io.checkpoint import load_params_npz
 from merging_gym_tpu_torch.nn.mlp import qnet_init, qnet_params_from_numpy
+from merging_gym_tpu_torch.ops import fused_actor as FA
 from merging_gym_tpu_torch.ops import fused_mlp as FM
 from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
 from merging_gym_tpu_torch.ops import fused_rollout as FR
+from merging_gym_tpu_torch.ops import fused_trainer as FT
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +89,75 @@ def test_k6_equals_plain(cuda, case):
     other = None if case == "greedy_l0" else p2
     _equal(FPR.fused_policy_rollout(120, 200, p1, other, **kw),
            FPR.fused_policy_rollout_plain(120, 200, p1, other, **kw))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 77, 4096])
+def test_k4_equals_plain(cuda, compute_dtype, batch):
+    p = qnet_init(torch.Generator(device=cuda).manual_seed(2), 10, 5)
+    x = torch.randn(batch, 10, device=cuda) * 100
+    before = kernels.launch_counts["fused_actor"]
+    got = FA.fused_eps_greedy_actions(p, x, 11, 0.7, compute_dtype)
+    assert kernels.launch_counts["fused_actor"] == before + 1
+    assert torch.equal(got, FA.fused_eps_greedy_actions_plain(
+        p, x, 11, 0.7, compute_dtype))
+
+
+def _race_carry(cfg, ep, n, cuda, **kw):
+    carry = FT.fused_dqn_init(0, cfg, ep, n, device=cuda, **kw)
+    for k in ("p", "tp"):  # small centred weights: decisive argmax
+        carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
+    if cfg.opponent != "frozen":
+        carry["opp"] = carry["p"]
+    rng = np.random.default_rng(1)
+    pos = torch.tensor(rng.uniform(870, 948, (2, n)), dtype=torch.float32,
+                       device=cuda)
+    vel = torch.tensor(rng.uniform(5, 40, (2, n)), dtype=torch.float32,
+                       device=cuda)
+    env = carry["env"].clone()
+    env[0:2], env[2:4] = pos, vel
+    env[4:6] = torch.stack(lon2coord(pos[0], 1.0))
+    env[6:8] = torch.stack(lon2coord(pos[1], -1.0))
+    carry["env"] = env
+    return carry
+
+
+@pytest.mark.parametrize("case", ["selfplay_greedy", "l0_windows", "bf16",
+                                  "phi_random_start", "frozen_opponent"])
+def test_k5_equals_plain_and_repeats(cuda, case):
+    n = 256
+    cfg = D.DQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                      opponent="selfplay")
+    ep, kw, greedy = EnvParams(max_steps=40), {}, True
+    if case == "l0_windows":
+        cfg = cfg.replace(opponent="L0")
+        kw = dict(learn_batch=256, learn_rounds=2)
+    elif case == "bf16":
+        cfg = cfg.replace(compute_dtype="bfloat16")
+    elif case == "phi_random_start":
+        ep, greedy = EnvParams(max_steps=20, random_start=True), False
+    elif case == "frozen_opponent":
+        cfg = cfg.replace(opponent="frozen")
+        kw = dict(opp_params=qnet_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+    carry = _race_carry(cfg, ep, n, cuda, **kw)
+    got = want = again = carry
+    before = kernels.launch_counts["dqn_adam"]
+    for seed, T in enumerate((1, 15)):  # the first chunk is below warm-up
+        got = FT.fused_dqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+        want = FT.fused_dqn_chunk_plain(cfg, ep, want, T, seed,
+                                        greedy=greedy)
+        again = FT.fused_dqn_chunk(cfg, ep, again, T, seed, greedy=greedy)
+    assert kernels.launch_counts["dqn_adam"] - before == 2 * got["learns"]
+    assert got["learns"] == 14 and got["episodes"] > 0
+    for k in ("env", "ring"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("p", "tp", "m", "v"):
+        for a, b, c in zip(got[k], want[k], again[k]):
+            assert torch.equal(a, b) and torch.equal(a, c), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
 
 
 def test_kernels_refuse_mixed_devices(cuda):

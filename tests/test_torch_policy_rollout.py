@@ -30,6 +30,7 @@ from merging_gym_tpu_torch.agents import policies as P
 from merging_gym_tpu_torch.core import constants as C
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.nn.mlp import qnet_apply, qnet_params_from_numpy
+from merging_gym_tpu_torch.ops import fused_actor as FA
 from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
 from merging_gym_tpu_torch.ops import fused_rollout as FR
 from merging_gym_tpu_torch.ops import philox
@@ -149,7 +150,7 @@ def test_phi_greedy_fraction():
     q = torch.zeros(n, C.NUM_ACTIONS)
     q[:, 3] = 1.0
     w = philox.draw(0, n, philox.STREAM_ACTIONS, philox.seed_key(1), CPU)
-    a = FPR._select(q, w[0], w[1], False, FPR.greedy_threshold(0.7))
+    a = FA.select(q, w[0], w[1], False, FA.greedy_threshold(0.7))
     expect = PHI + (1 - PHI) / C.NUM_ACTIONS
     assert abs((a == 3).float().mean().item() - expect) < 0.01
     others = np.bincount(a.numpy(), minlength=5)[[0, 1, 2, 4]] / n

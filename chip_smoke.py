@@ -18,7 +18,11 @@ Phases, each of which raises (non-zero exit) on failure:
      chunks): ``train --algo dqn --fused-kernel`` (K5), ``levelk --algo dqn
      --fused-kernel --levels 2``, ``eval --fused`` of the trained L2 vs L1
      (K6), and the step-loop ``train --algo dqn --opponent selfplay`` (K4
-     for both seats, twice per step);
+     for both seats, twice per step).  h-DQN training, through the CLI at
+     its defaults: ``train --algo hdqn --fused-kernel`` (K7), ``levelk
+     --algo hdqn --fused-kernel --levels 2``, the step-loop ``train --algo
+     hdqn --opponent selfplay`` (K4 five times per step), and ``evaluate``
+     of ``hdqn_policy`` L2 vs L1 on the trained nets (K3);
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version, the
      least time the card could take (``bound_ms``) and, for K3 and K4, the
@@ -49,8 +53,10 @@ B_MLP = 4096
 B_RAGGED = 1001
 N_TRAIN = 1024         # the training CLI's default env count
 N_TRAIN_WIDE = 4096
+N_ENVS_HDQN = 256      # envs of the evaluate(hdqn_policy) main path
 T_CHUNK = 200          # the training CLI's default chunk length
 T_PLAIN = 6            # K5 plain-version timing length (steps)
+T_PLAIN_K7 = 4         # K7 plain-version timing length (steps)
 BIG = "1000000000"     # --episodes that never stops a run early
 
 # Published H100 SXM peaks at the full 700 W (NVIDIA H100 datasheet).
@@ -81,6 +87,9 @@ def learn_flops(d_in, h1, h2, a):
 
 
 ADAM_FLOPS = 14        # per parameter: two moments, bias-corrected update
+
+K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_lower", "hdqn_adam_lower",
+             "hdqn_learn_upper", "hdqn_adam_upper")
 
 
 def bound(bytes_, flops):
@@ -135,25 +144,32 @@ class Checks:
             self.close(kernel, f"{what} {k}", got[k], want[k], rtol, atol)
 
 
-def race_carry(torch, FT, lon2coord, cfg, ep, n, dev, seed=0, **kw):
-    """A K5 carry with small centred weights (a decisive argmax) and
-    mid-race starts, so that a short run crosses wins, collisions and
-    resets (tests/test_fused_trainer_e2e.py:57-75)."""
+def race_rows(torch, lon2coord, rows, n, dev, seed):
+    """Env rows ``rows`` (pos 2, vel 2, xy 4, ...) with mid-race starts, so
+    that a short run crosses wins, collisions and resets
+    (tests/test_fused_trainer_e2e.py:57-75)."""
     import numpy as np
-    carry = FT.fused_dqn_init(seed, cfg, ep, n, device=dev, **kw)
-    for k in ("p", "tp"):
-        carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
-    carry["opp"] = carry["p"]
-    rng = np.random.default_rng(seed + 100)
+    rng = np.random.default_rng(seed)
     pos = torch.tensor(rng.uniform(870.0, 948.0, (2, n)),
                        dtype=torch.float32, device=dev)
     vel = torch.tensor(rng.uniform(5.0, 40.0, (2, n)), dtype=torch.float32,
                        device=dev)
-    env = carry["env"].clone()
-    env[0:2], env[2:4] = pos, vel
-    env[4:6] = torch.stack(lon2coord(pos[0], 1.0))
-    env[6:8] = torch.stack(lon2coord(pos[1], -1.0))
-    carry["env"] = env
+    rows = rows.clone()
+    rows[0:2], rows[2:4] = pos, vel
+    rows[4:6] = torch.stack(lon2coord(pos[0], 1.0))
+    rows[6:8] = torch.stack(lon2coord(pos[1], -1.0))
+    return rows
+
+
+def race_carry(torch, FT, lon2coord, cfg, ep, n, dev, seed=0, **kw):
+    """A K5 carry with small centred weights (a decisive argmax) and
+    mid-race starts."""
+    carry = FT.fused_dqn_init(seed, cfg, ep, n, device=dev, **kw)
+    for k in ("p", "tp"):
+        carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
+    carry["opp"] = carry["p"]
+    carry["env"] = race_rows(torch, lon2coord, carry["env"], n, dev,
+                             seed + 100)
     return carry
 
 
@@ -227,16 +243,142 @@ def check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev):
     print("K5: two runs on the same inputs give the same bits", flush=True)
 
 
-def check_k4(checks, torch, FA, FM, params, dev, rng):
-    """K4 against its plain version (exact), and its kept-greedy share."""
-    for b in (B_MLP, B_RAGGED):
-        x = torch.as_tensor(rng.standard_normal((b, 10)) * 100,
-                            dtype=torch.float32, device=dev)
-        for cd in ("float32", "bfloat16"):
-            checks.equal("K4", f"B={b} {cd}",
-                         FA.fused_eps_greedy_actions(params, x, 5, 0.7, cd),
-                         FA.fused_eps_greedy_actions_plain(params, x, 5, 0.7,
-                                                           cd))
+def hdqn_race_carry(torch, FH, lon2coord, cfg, ep, n, dev, seed=0, **kw):
+    """A K7 carry with small centred weights and mid-race starts (the
+    ``_mk`` of tests/test_fused_hdqn_e2e.py:59-75)."""
+    carry = FH.fused_hdqn_init(seed, cfg, ep, n, device=dev, **kw)
+    for k in ("u_p", "u_tp", "l_p", "l_tp"):
+        carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
+    if cfg.opponent != "frozen":
+        carry["opp_u"], carry["opp_l"] = carry["u_p"], carry["l_p"]
+    carry["state"] = race_rows(torch, lon2coord, carry["state"], n, dev,
+                               seed + 200)
+    return carry
+
+
+def compare_k7(checks, torch, FH, what, got, want):
+    """The tolerances of tests/test_fused_hdqn_e2e.py:225-254: winner, t,
+    goals, option flags, the upper learn counter (row 15), lo_learns and
+    the metrics exact; state and rings to 1e-4; the eight learner sets to
+    rtol 2e-3, atol 2e-4; the loss to rtol 1e-3."""
+    for row in (8, 9, 11, 12, 14):
+        checks.equal("K7", f"{what} state row {row}", got["state"][row],
+                     want["state"][row])
+    g_up, w_up = FH.upper_learns(got["state"]), FH.upper_learns(want["state"])
+    if g_up != w_up:
+        raise AssertionError(f"K7 {what} upper learns: {g_up} != {w_up}")
+    checks.close("K7", f"{what} state", got["state"][:15], want["state"][:15],
+                 0.0, 1e-4)
+    for k in ("lo_ring", "up_ring"):
+        checks.close("K7", f"{what} {k}", got[k], want[k], 1e-4, 1e-4)
+    for k in FH.SETS[:8]:
+        for i, (a, b) in enumerate(zip(got[k], want[k])):
+            checks.close("K7", f"{what} {k}[{i}]", a, b, 2e-3, 2e-4)
+    for k in ("lo_learns", "steps", "episodes", "collisions", "wins"):
+        if got[k] != want[k]:
+            raise AssertionError(f"K7 {what} {k}: {got[k]} != {want[k]}")
+    for k, rtol, atol in (("sum_ep_reward", 1e-4, 1e-3),
+                          ("last_loss", 1e-3, 1e-6)):
+        checks.close("K7", f"{what} {k}", torch.tensor(got[k]),
+                     torch.tensor(want[k]), rtol, atol)
+    if not (got["lo_learns"] > 0 and g_up > 0 and got["episodes"] > 0):
+        raise AssertionError(f"K7 {what}: a learner never fired or no "
+                             "episode ended")
+    return g_up
+
+
+def check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev):
+    """K7 against its plain version at 1,024 envs, R_lo = 4, R_up = 2,
+    B = 1,024 (the CLI defaults); every case from race starts but the
+    Phi-greedy one; then the first case run again for the same bits."""
+    n = N_TRAIN
+    l0 = H.HDQNConfig(lr=1e-3, target_sync=7, memory_capacity=4 * n,
+                      goal_memory_capacity=2 * n, opponent="L0")
+    ep60 = EnvParams(max_steps=60)
+    g = torch.Generator(device=dev).manual_seed(9)
+    frozen = dict(opp_upper=qnet_init(g, 10, 3), opp_lower=qnet_init(g, 11, 5))
+    # (cfg, env, init kwargs, chunk lengths, greedy, race start).  The
+    # 1-step first chunk stops short of both rings' warm-up.
+    cases = {
+        "greedy L0, cold + warm": (l0, ep60, {}, (1, 30), True, True),
+        "greedy selfplay": (l0.replace(opponent="selfplay"), ep60, {},
+                            (2, 20), True, True),
+        "greedy frozen opponent": (l0.replace(opponent="frozen"), ep60,
+                                   frozen, (20,), True, True),
+        "greedy L0, learn_batch 512": (l0, ep60, dict(learn_batch=512),
+                                       (20,), True, True),
+        "greedy selfplay bf16": (l0.replace(opponent="selfplay",
+                                            compute_dtype="bfloat16"),
+                                 ep60, {}, (2, 20), True, True),
+        "phi-greedy selfplay random_start": (
+            l0.replace(opponent="selfplay"),
+            EnvParams(random_start=True, max_steps=30), {}, (32,), False,
+            False),
+    }
+    for what, (cfg, ep, kw, chunks, greedy, race) in cases.items():
+        c0 = (hdqn_race_carry(torch, FH, lon2coord, cfg, ep, n, dev, **kw)
+              if race else FH.fused_hdqn_init(0, cfg, ep, n, device=dev,
+                                              **kw))
+        got = want = c0
+        for seed, T in enumerate(chunks):
+            got = FH.fused_hdqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+            want = FH.fused_hdqn_chunk_plain(cfg, ep, want, T, seed,
+                                             greedy=greedy)
+        up = compare_k7(checks, torch, FH, what, got, want)
+        print(f"K7 {what}: {got['lo_learns']} lower and {up} upper learns, "
+              f"{int(got['episodes'])} episodes, {int(got['wins'])} wins, "
+              f"{int(got['collisions'])} collisions agree", flush=True)
+        if what.startswith("greedy L0, cold"):
+            first = (cfg, ep, c0, chunks, got)
+    cfg, ep, c0, chunks, got = first
+    again = c0
+    for seed, T in enumerate(chunks):
+        again = FH.fused_hdqn_chunk(cfg, ep, again, T, seed, greedy=True)
+    same = all(torch.equal(got[k], again[k])
+               for k in ("state", "lo_ring", "up_ring")) and all(
+        torch.equal(a, b) for k in FH.SETS[:8]
+        for a, b in zip(got[k], again[k]))
+    if not same or got["last_loss"] != again["last_loss"]:
+        raise AssertionError("K7 run twice on the same inputs differs")
+    print("K7: two runs on the same inputs give the same bits", flush=True)
+
+
+def mlp_cases(params, hdqn_nets, b_hdqn):
+    """(label, params, input width, batches) of a Q-net kernel's checks:
+    the zoo net at the evaluation shapes, and the h-DQN meta (10 -> 3) and
+    low (11 -> 5) nets at the h-DQN path's batch."""
+    meta, low = hdqn_nets
+    return [("10->5", params, 10, (B_MLP, B_RAGGED)),
+            ("10->3", meta, 10, (b_hdqn,)), ("11->5", low, 11, (b_hdqn,))]
+
+
+def check_k3(checks, torch, FM, params, hdqn_nets, dev, rng):
+    """K3 against its plain version (exact); 256 envs is the batch of the
+    ``evaluate(hdqn_policy)`` main path."""
+    for what, p, d_in, batches in mlp_cases(params, hdqn_nets, N_ENVS_HDQN):
+        for b in batches:
+            x = torch.as_tensor(rng.standard_normal((b, d_in)) * 100,
+                                dtype=torch.float32, device=dev)
+            for cd in ("float32", "bfloat16"):
+                checks.equal("K3", f"{what} B={b} {cd}",
+                             FM.qnet_apply_fused(p, x, cd),
+                             FM.qnet_apply_plain(p, x, cd))
+    print("K3: 10->5 at B=4096 and 1001, h-DQN 10->3 and 11->5 at B=256, "
+          "f32 and bf16 equal", flush=True)
+
+
+def check_k4(checks, torch, FA, FM, params, hdqn_nets, dev, rng):
+    """K4 against its plain version (exact), and its kept-greedy share;
+    1,024 envs is the batch of the step-loop h-DQN main path."""
+    for what, p, d_in, batches in mlp_cases(params, hdqn_nets, N_TRAIN):
+        for b in batches:
+            x = torch.as_tensor(rng.standard_normal((b, d_in)) * 100,
+                                dtype=torch.float32, device=dev)
+            for cd in ("float32", "bfloat16"):
+                checks.equal("K4", f"{what} B={b} {cd}",
+                             FA.fused_eps_greedy_actions(p, x, 5, 0.7, cd),
+                             FA.fused_eps_greedy_actions_plain(p, x, 5, 0.7,
+                                                               cd))
     # Share of rows where the greedy arm was kept, from the kernel's
     # actions: match = kept + (1 - kept) / A over 8 seeds x 4,096 rows.
     x = torch.as_tensor(rng.standard_normal((B_MLP, 10)) * 100,
@@ -249,7 +391,8 @@ def check_k4(checks, torch, FA, FM, params, dev, rng):
     if abs(kept - FA.phi(0.7)) > 0.01:
         raise AssertionError(f"K4 greedy share {kept:.4f}, expected "
                              f"{FA.phi(0.7):.4f} +- 0.01")
-    print(f"K4: B=4096 and B=1001, f32 and bf16 agree; greedy share "
+    print(f"K4: 10->5 at B=4096 and 1001, h-DQN 10->3 and 11->5 at B=1024, "
+          f"f32 and bf16 equal; greedy share "
           f"{kept:.4f} (Phi(0.7) = {FA.phi(0.7):.4f})", flush=True)
     return kept
 
@@ -269,17 +412,53 @@ def train_path(cli, tmp):
                     "--num-envs", str(N_ENVS)])
     cli.main(["train", "--algo", "dqn", "--opponent", "selfplay",
               "--max-chunks", "2", "--episodes", BIG, "--out", loop])
-    runs = {"train --fused-kernel": (fused, 5),
-            "levelk L1": (os.path.join(levelk, "L1"), 3),
-            "levelk L2": (os.path.join(levelk, "L2"), 3),
-            "train (step loop)": (loop, 2)}
+    runs = {"train --fused-kernel": (fused, 5, "learns"),
+            "levelk L1": (os.path.join(levelk, "L1"), 3, "learns"),
+            "levelk L2": (os.path.join(levelk, "L2"), 3, "learns"),
+            "train (step loop)": (loop, 2, "learns")}
+    return runs, res
+
+
+def hdqn_path(cli, tmp, evaluate, hdqn_policy, EnvParams, load_params_npz,
+              qnet_params_from_numpy, torch, dev):
+    """The h-DQN training path through the port's CLI, then ``evaluate``
+    of the trained L2 vs L1 as ``hdqn_policy``; returns the run
+    directories (with the scalar that shows learning) and the result."""
+    fused, levelk, loop = (os.path.join(tmp, d) for d in
+                           ("hdqn_fused", "hdqn_levelk", "hdqn_loop"))
+    cli.main(["train", "--algo", "hdqn", "--fused-kernel", "--max-chunks",
+              "5", "--episodes", BIG, "--out", fused])
+    cli.main(["levelk", "--algo", "hdqn", "--fused-kernel", "--levels", "2",
+              "--max-chunks", "3", "--episodes", BIG, "--out", levelk])
+    cli.main(["train", "--algo", "hdqn", "--opponent", "selfplay",
+              "--max-chunks", "2", "--episodes", BIG, "--out", loop])
+
+    def policy(level):
+        nets = load_params_npz(os.path.join(levelk, level, "params.npz"))
+        return hdqn_policy(qnet_params_from_numpy(nets["upper"], dev),
+                           qnet_params_from_numpy(nets["lower"], dev))
+
+    # Phi(0.7)-greedy L2 vs L1, 512 steps x 2 at 256 envs; a 400-step cap
+    # makes every env finish at least two episodes.
+    res = evaluate(policy("L2"), policy("L1"), EnvParams(max_steps=400),
+                   torch.Generator(device=dev).manual_seed(0),
+                   num_envs=N_ENVS_HDQN,
+                   min_episodes=512, chunk_steps=512, max_chunks=2)
+    runs = {"hdqn train --fused-kernel": (fused, 5, "lower_learns"),
+            "hdqn levelk L1": (os.path.join(levelk, "L1"), 3, "lower_learns"),
+            "hdqn levelk L2": (os.path.join(levelk, "L2"), 3, "lower_learns"),
+            "hdqn train (step loop)": (loop, 2, "loss")}
     return runs, res
 
 
 def check_runs(np, runs, load_params_npz):
     """Every logged chunk finite and in range, learning under way, and the
     saved params finite."""
-    for what, (out, chunks) in runs.items():
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    for what, (out, chunks, learned) in runs.items():
         with open(os.path.join(out, "scalars.jsonl")) as f:
             rows = [json.loads(ln) for ln in f]
         if len(rows) != chunks:
@@ -291,11 +470,11 @@ def check_runs(np, runs, load_params_npz):
                 if not 0.0 <= row[k] <= 1.0:
                     raise AssertionError(f"{what}: {k} {row[k]}")
         last = rows[-1]
-        if last["learns"] <= 0 or last["env_steps"] != chunks * T_CHUNK * N_TRAIN:
+        if (last[learned] <= 0
+                or last["env_steps"] != chunks * T_CHUNK * N_TRAIN):
             raise AssertionError(f"{what}: {last}")
         params = load_params_npz(os.path.join(out, "params.npz"))
-        if not all(np.isfinite(v).all() for layer in params.values()
-                   for v in layer.values()):
+        if not all(np.isfinite(v).all() for v in leaves(params)):
             raise AssertionError(f"{what}: non-finite params")
         print(f"{what}: {json.dumps(last)}", flush=True)
 
@@ -311,13 +490,16 @@ def main():
 
     from merging_gym_tpu_torch import cli, kernels
     from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import hdqn as H
     from merging_gym_tpu_torch.agents import policies as P
     from merging_gym_tpu_torch.agents.evaluate import evaluate, evaluate_fused
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.core.geometry import lon2coord
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
-    from merging_gym_tpu_torch.nn.mlp import qnet_apply, qnet_params_from_numpy
+    from merging_gym_tpu_torch.nn.mlp import (qnet_apply, qnet_init,
+                                              qnet_params_from_numpy)
     from merging_gym_tpu_torch.ops import fused_actor as FA
+    from merging_gym_tpu_torch.ops import fused_hdqn as FH
     from merging_gym_tpu_torch.ops import fused_mlp as FM
     from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
     from merging_gym_tpu_torch.ops import fused_rollout as FR
@@ -381,13 +563,9 @@ def main():
               f"{int(k2['collisions'].sum())} collisions in "
               f"{T_ROLLOUT} x {N_ENVS}", flush=True)
 
-    for b in (B_MLP, B_RAGGED):
-        x = torch.as_tensor(rng.standard_normal((b, 10)) * 100,
-                            dtype=torch.float32, device=dev)
-        for cd in ("float32", "bfloat16"):
-            checks.close("K3", f"B={b} {cd}", FM.qnet_apply_fused(p_l2, x, cd),
-                         FM.qnet_apply_plain(p_l2, x, cd), 1e-5, 1e-3)
-    print("K3: B=4096 and B=1001, f32 and bf16 agree", flush=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    hdqn_nets = (qnet_init(g, 10, 3), qnet_init(g, 11, 5))
+    check_k3(checks, torch, FM, p_l2, hdqn_nets, dev, rng)
 
     policy_cases = {
         "greedy vs L0": (p_l2, None, dict(greedy=True)),
@@ -409,8 +587,9 @@ def main():
         print(f"K6 {what}: {int(got['done'].sum())} episodes agree",
               flush=True)
 
-    k4_kept = check_k4(checks, torch, FA, FM, p_l2, dev, rng)
+    k4_kept = check_k4(checks, torch, FA, FM, p_l2, hdqn_nets, dev, rng)
     check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev)
+    check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev)
 
     # ---- 3. the main paths -----------------------------------------------
     phase_s = {}
@@ -453,17 +632,32 @@ def main():
         if missing:
             raise AssertionError(f"training path launched no {missing}")
         check_runs(np, runs, load_params_npz)
-    launches = {k: eval_launches[k] + train_launches[k]
+
+        kernels.reset_launch_counts()
+        runs, hdqn_eval = timed("h-DQN training path", lambda: hdqn_path(
+            cli, tmp, evaluate, P.hdqn_policy, EnvParams, load_params_npz,
+            qnet_params_from_numpy, torch, dev))
+        hdqn_launches = dict(kernels.launch_counts)
+        print(f"h-DQN training path: {phase_s['h-DQN training path']:.2f} s, "
+              f"launches {hdqn_launches}", flush=True)
+        missing = [k for k in (*K7_COUNTS, "fused_actor", "qnet_mlp")
+                   if hdqn_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"h-DQN training path launched no {missing}")
+        check_runs(np, runs, load_params_npz)
+        print("hdqn_policy L2 vs L1:", json.dumps(hdqn_eval), flush=True)
+    launches = {k: eval_launches[k] + train_launches[k] + hdqn_launches[k]
                 for k in kernels.launch_counts}
     launches["dqn_trainer"] = sum(train_launches[k] for k in (
         "dqn_act_env_store", "dqn_learn_partials", "dqn_adam"))
+    launches["hdqn_trainer"] = sum(hdqn_launches[k] for k in K7_COUNTS)
     assert traj["obs"].shape == (T_ROLLOUT, 10, N_ENVS)
     assert torch.isfinite(traj["obs"]).all() and torch.isfinite(
         cnt["reward_sum"]).all()
     assert (cnt["wins1"] + cnt["wins2"] <= cnt["episodes"]).all()
     assert int(cnt["episodes"].sum()) > N_ENVS
     for res, min_eps in ((fused, N_ENVS), (loop, 512),
-                         (trained, N_ENVS)):
+                         (trained, N_ENVS), (hdqn_eval, 512)):
         assert res["episodes"] >= min_eps, res
         for k in ("p1_first_rate", "p2_first_rate", "collision_rate",
                   "timeout_rate"):
@@ -616,6 +810,66 @@ def main():
                             chunk_ms / T_CHUNK, step_plain, sb_ms, sb_by,
                             None))
 
+    # K7: one training step at the CLI's defaults (L0, 1,024 envs, R_lo 4,
+    # R_up 2, B 1,024), timed over a 200-step chunk of a warm carry (the
+    # lower learner learns every step, the upper one where an option
+    # ended); the plain version per step over a short chunk.
+    cfg = H.HDQNConfig(memory_capacity=4 * N_TRAIN,
+                       goal_memory_capacity=2 * N_TRAIN)
+    carry = FH.fused_hdqn_init(0, cfg, ep, N_TRAIN, device=dev)
+    carry = FH.fused_hdqn_chunk(cfg, ep, carry, T_CHUNK, 0)
+    r = np.random.default_rng(2)
+    streams = (r.integers(0, carry["R_lo"], T_CHUNK),
+               r.integers(0, carry["R_up"], T_CHUNK),
+               np.zeros(2 * T_CHUNK, np.int64))
+    st = FH.working_state(carry, torch.float32)
+    up0 = FH.upper_learns(st["state"])
+    before = dict(kernels.launch_counts)
+    FH.launch_hdqn(st, carry, cfg, ep, T_CHUNK, 1, False, *streams)
+    torch.cuda.synchronize()
+    k7_fired = (FH.upper_learns(st["state"]) - up0) / T_CHUNK
+    k7_launches = sum(kernels.launch_counts[k] - before[k]
+                      for k in K7_COUNTS) / T_CHUNK
+    k7_chunk_ms = cuda_ms(torch, lambda: FH.launch_hdqn(
+        st, carry, cfg, ep, T_CHUNK, 1, False, *streams), 3)
+    k7_plain = cuda_ms(torch, lambda: FH.fused_hdqn_chunk_plain(
+        cfg, ep, carry, T_PLAIN_K7, 1), 1, warmup=0) / T_PLAIN_K7
+    dims_up, dims_lo = (10, 200, 100, 3), (11, 200, 100, 5)
+    P_up = sum(t.numel() for t in carry["u_p"])
+    P_lo = sum(t.numel() for t in carry["l_p"])
+    B = carry["B"]
+    # Bytes: state rows in and out, the lower slab stored, the upper slab
+    # where an option ended, the sampled slabs read, and per learn p,
+    # target and moments read, p and moments written (7 x 4 B a parameter).
+    k7_bytes = (N_TRAIN * (2 * FH.ROWS + FH.LO_F + k7_fired * FH.UP_F) * 4
+                + B * (FH.LO_F + k7_fired * FH.UP_F) * 4
+                + 28 * (P_lo + k7_fired * P_up))
+    k7_flops = (N_TRAIN * (2 * mlp_flops(*dims_up) + mlp_flops(*dims_lo)
+                           + ENV_STEP_FLOPS + OBS_FLOPS)
+                + B * (learn_flops(*dims_lo) + k7_fired
+                       * learn_flops(*dims_up))
+                + ADAM_FLOPS * (P_lo + k7_fired * P_up))
+    k7_b_ms, k7_b_by = bound(k7_bytes, k7_flops)
+    k7 = {"chunk_ms": k7_chunk_ms, "step_ms": k7_chunk_ms / T_CHUNK,
+          "env_steps_per_s": T_CHUNK * N_TRAIN / (k7_chunk_ms / 1e3),
+          "plain_step_ms": k7_plain, "bound_step_ms": k7_b_ms,
+          "bound_by": k7_b_by, "upper_fired_share": k7_fired,
+          "launches_per_warm_step": k7_launches}
+    results.append(("K7 hdqn_trainer", "hdqn_trainer", "hdqn_trainer.cu",
+                    "merging_gym_tpu/ops/fused_hdqn.py:86", "K7",
+                    k7_chunk_ms / T_CHUNK, k7_plain, k7_b_ms, k7_b_by, None))
+
+    # The step-loop h-DQN trainer (K4 actors, two autograd learners) per
+    # step, as context for K7: host clock around synchronised chunks.
+    hcfg = H.HDQNConfig(memory_capacity=max(2000, 2 * N_TRAIN))
+    hcarry = H.hdqn_train_chunk(hcfg, ep, H.hdqn_init(
+        0, hcfg, ep, N_TRAIN, device=dev), 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hcarry = H.hdqn_train_chunk(hcfg, ep, hcarry, 20)
+    torch.cuda.synchronize()
+    hdqn_loop_step_ms = (time.perf_counter() - t) * 1e3 / 20
+
     # The step-loop trainer (K4 actor, autograd learner) per step, as
     # context for K5: host clock around synchronised chunks.
     cfg = D.DQNConfig(memory_capacity=max(2000, 2 * N_TRAIN))
@@ -632,12 +886,17 @@ def main():
         "shapes": {"K1": [T_ROLLOUT, N_ENVS], "K2": [T_ROLLOUT, N_ENVS],
                    "K3": [B_MLP, 10], "K4": [B_MLP, 10],
                    "K5": "one step: L0, 1,024 envs, R 4, B 1,024",
+                   "K7": "one step: L0, 1,024 envs, R_lo 4, R_up 2, "
+                         "B 1,024",
                    "K6": [T_POLICY, N_ENVS]},
         "k4_greedy_share": k4_kept,
         "k5_chunks": k5,
+        "k7_chunk": k7,
         "step_loop_train_step_ms": loop_step_ms,
+        "step_loop_hdqn_train_step_ms": hdqn_loop_step_ms,
         "launches_by_path": {"evaluation": eval_launches,
-                             "training": train_launches},
+                             "training": train_launches,
+                             "h-DQN training": hdqn_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": long_ms, "bound_ms": long_bound,
                            "env_steps_per_s": k2_rate},

@@ -20,6 +20,7 @@ import torch
 
 from merging_gym_tpu_torch.core import constants as C
 from merging_gym_tpu_torch.core.env import swap_obs
+from merging_gym_tpu_torch.nn.mlp import qnet_apply
 
 EPSILON = 0.7  # main.py:16 ("EPISILO")
 
@@ -81,6 +82,29 @@ def q_policy(apply_fn, params, greedy: bool = False,
     """Epsilon-greedy (or purely greedy) policy over a Q-net ``apply_fn``."""
     return Policy(act=functools.partial(_q_act, apply_fn, greedy, epsilon),
                   params=params)
+
+
+def _hdqn_act(greedy, epsilon, params, obs, generator):
+    from merging_gym_tpu_torch.agents.hdqn import goal_obs  # imports us
+
+    # The goal is re-chosen from the current obs on every step, as the
+    # argmax of the meta-controller and never epsilon-greedy: the
+    # reference's goal-drift quirk (hdqn.py:303), which the trainers keep.
+    goal = torch.argmax(qnet_apply(params["upper"], obs), dim=-1)
+    q = qnet_apply(params["lower"], goal_obs(goal, obs))
+    if greedy:
+        return torch.argmax(q, dim=-1).to(torch.int32)
+    return eps_greedy_from_q(q, generator, epsilon, q.shape[-1])
+
+
+def hdqn_policy(upper_params, lower_params, greedy: bool = False,
+                epsilon: float = EPSILON) -> Policy:
+    """Hierarchical policy (hdqn.py:283-292): the goal from the
+    meta-controller, the action from the goal-conditioned lower net on
+    ``[goal] + obs``; only the action is Phi(eps)-greedy.  On the card each
+    forward is K3."""
+    return Policy(act=functools.partial(_hdqn_act, greedy, epsilon),
+                  params={"upper": upper_params, "lower": lower_params})
 
 
 def two_player(policy1: Policy, policy2: Policy):

@@ -1,8 +1,9 @@
 """Command-line entry point of the PyTorch / CUDA port.
 
-  python -m merging_gym_tpu_torch.cli [--cpu] train --algo dqn \\
+  python -m merging_gym_tpu_torch.cli [--cpu] train --algo dqn|hdqn \\
       [--fused-kernel] [--opponent L0|selfplay|<params.npz>] ...
-  python -m merging_gym_tpu_torch.cli [--cpu] levelk --algo dqn --levels 3 ...
+  python -m merging_gym_tpu_torch.cli [--cpu] levelk --algo dqn|hdqn \\
+      --levels 3 ...
   python -m merging_gym_tpu_torch.cli [--cpu] eval --p1 SPEC --p2 SPEC \\
       [--fused] [--num-envs N] [--episodes E] [--seed S] [env flags]
 
@@ -12,11 +13,16 @@ unless ``--cpu`` is given; without a card and without ``--cpu`` it fails.
 
 ``train --algo dqn --fused-kernel`` runs the single-kernel trainer (K5,
 ``ops.fused_trainer``), plain ``train --algo dqn`` the step-loop trainer
-(``agents.dqn``, its actor K4); both write ``params.npz`` in the JAX key
-format and log ``scalars.jsonl``/``scalars.csv``.  ``levelk`` trains L1
-against L0, then each level against the frozen one before it.  The other
-algorithms, ``--resume``/``--checkpoint-every``, ``--plot-every`` and the
-Rainbow/h-DQN options are not ported yet and exit with an error.
+(``agents.dqn``, its actor K4).  ``train --algo hdqn --fused-kernel`` runs
+the h-DQN trainer K7 (``ops.fused_hdqn``), plain ``train --algo hdqn`` the
+step loop of ``agents.hdqn`` (its actors K4); an h-DQN run writes its
+meta-controller and low net as ``{"upper", "lower"}`` and a frozen h-DQN
+opponent is such a ``params.npz``.  Every run writes ``params.npz`` in the
+JAX key format and logs ``scalars.jsonl``/``scalars.csv``.  ``levelk``
+trains L1 against L0, then each level against the frozen one before it.
+Rainbow and DRQN, ``--resume``/``--checkpoint-every``, ``--plot-every``,
+the Rainbow options and a reference ``.pth`` opponent are not ported yet
+and exit with an error.
 """
 
 from __future__ import annotations
@@ -80,22 +86,25 @@ def _policy_from_spec(spec: str, device):
 # Flags of the JAX CLI whose code paths are not ported yet: a run that
 # sets one exits instead of ignoring it.
 _NOT_PORTED = ("--resume", "--checkpoint-every", "--plot-every", "--per",
-               "--per-alpha", "--per-beta", "--n-step", "--obs-scale",
-               "--goal-memory-capacity")
+               "--per-alpha", "--per-beta", "--n-step", "--obs-scale")
 
 
 def _train_args(p):
     _add_env_args(p)
     p.add_argument("--algo", choices=["dqn", "hdqn", "rainbow", "drqn"],
-                   default="dqn", help="only dqn is ported so far")
+                   default="dqn", help="dqn and hdqn are ported so far")
     p.add_argument("--opponent", default="L0",
-                   help='"L0", "selfplay", or a params.npz (frozen)')
+                   help='"L0", "selfplay", or a params.npz (frozen; for '
+                        'hdqn the {upper, lower} nets of an hdqn run)')
     p.add_argument("--num-envs", type=int, default=1024)
     p.add_argument("--episodes", type=int, default=2000,
                    help="stop once this many episodes completed (main.py:170)")
     p.add_argument("--max-chunks", type=int, default=10000)
     p.add_argument("--chunk-steps", type=int, default=200)
     p.add_argument("--memory-capacity", type=int, default=None)
+    p.add_argument("--goal-memory-capacity", type=int, default=None,
+                   help="hdqn: the meta-controller's replay (default 200; "
+                        "with --fused-kernel 2 x num-envs)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--gamma", type=float, default=None,
@@ -113,9 +122,10 @@ def _train_args(p):
     p.add_argument("--out", default=None,
                    help="run directory (default: reference-style name)")
     p.add_argument("--fused-kernel", action="store_true",
-                   help="run the whole trainer on the card as the K5 kernel "
-                        "sequence (ops.fused_trainer; learner batch = "
-                        "num-envs unless --learn-batch)")
+                   help="run the whole trainer on the card as a kernel "
+                        "sequence: K5 for dqn (ops.fused_trainer), K7 for "
+                        "hdqn (ops.fused_hdqn); learner batch = num-envs "
+                        "unless --learn-batch")
     p.add_argument("--learn-batch", type=int, default=None,
                    help="with --fused-kernel: lanes per learn (multiple of "
                         "128 dividing num-envs; default num-envs)")
@@ -133,47 +143,67 @@ def _train_args(p):
 
 
 def _refuse_unported(args):
-    if args.algo != "dqn":
+    if args.algo not in ("dqn", "hdqn"):
         raise SystemExit(f"--algo {args.algo} is not yet ported to the "
-                         "PyTorch package (dqn only)")
+                         "PyTorch package (dqn and hdqn only)")
+    if args.algo == "hdqn" and args.hidden:
+        raise SystemExit("--hidden is wired into the dqn trainer only")
+    if args.algo == "hdqn" and args.learn_rounds != 1:
+        raise SystemExit("--learn-rounds is a dqn-only option (hdqn "
+                         "supports --learn-batch)")
     for flag in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise SystemExit(f"{flag} is not yet ported to the PyTorch "
                              "package")
 
 
-def cmd_train(args) -> str:
-    """Train one DQN agent; returns the run directory."""
+def _opponent_mode(opponent: str) -> str:
+    """``--opponent`` -> mode (main.py:161-168's Strategy_OP switch)."""
     from merging_gym_tpu_torch.agents import dqn as D
-    from merging_gym_tpu_torch.device import resolve_device
-    from merging_gym_tpu_torch.io.checkpoint import (run_dir_name,
-                                                     save_params_npz)
-    from merging_gym_tpu_torch.io.metrics import (MetricsWriter,
-                                                  rates_from_counters)
+    return {"L0": D.OPP_L0, "selfplay": D.OPP_SELFPLAY}.get(opponent,
+                                                            D.OPP_FROZEN)
+
+
+def _load_frozen_hdqn(path, device):
+    """A frozen hierarchical opponent: the ``{"upper", "lower"}`` nets of a
+    ``params.npz`` that an h-DQN run wrote.  The JAX CLI also reads a
+    reference ``.pth`` run directory (``io/torch_import``), not ported yet."""
+    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.nn.mlp import qnet_params_from_numpy
+
+    if os.path.isdir(path):
+        raise SystemExit(f"{path!r}: a reference .pth run directory as an "
+                         "h-DQN opponent is not yet ported to the PyTorch "
+                         "package (pass a params.npz)")
+    if not (path.endswith(".npz") and os.path.exists(path)):
+        raise SystemExit(f"cannot load a frozen h-DQN opponent from {path!r} "
+                         "(expected the params.npz of an h-DQN run)")
+    nets = load_params_npz(path)
+    if set(nets) != {"upper", "lower"}:
+        raise SystemExit(f"{path!r} holds {sorted(nets)}, not the "
+                         "{upper, lower} nets of an h-DQN run")
+    return (qnet_params_from_numpy(nets["upper"], device),
+            qnet_params_from_numpy(nets["lower"], device))
+
+
+def _fused_scalars(c, learns_key, learns_name):
+    eps = max(c["episodes"], 1.0)
+    return {"env_steps": c["env_steps"], "episodes": c["episodes"],
+            "collision_rate": c["collisions"] / eps,
+            "win_rate": c["wins"] / eps,
+            "reward": c["sum_ep_reward"] / eps,
+            "loss": c["last_loss"], learns_name: c[learns_key]}
+
+
+def _dqn_trainer(args, env_params, common, device):
+    """``(carry, chunk, scalars_of, params_of)`` of a DQN run."""
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.io.metrics import rates_from_counters
     from merging_gym_tpu_torch.ops import fused_trainer as FT
 
-    _refuse_unported(args)
-    device = resolve_device("cpu" if args.cpu else None)
-    env_params = _env_params(args)
-    mode = {"L0": D.OPP_L0, "selfplay": D.OPP_SELFPLAY}.get(args.opponent,
-                                                            D.OPP_FROZEN)
-    opp = _load_qnet(args.opponent, device) if mode == D.OPP_FROZEN else None
-    out = args.out or run_dir_name(f" {args.algo}", args.opponent,
-                                   env_params.reward_tuple())
-    os.makedirs(out, exist_ok=True)
-    writer = MetricsWriter(out)
-    common = dict(
-        opponent=mode, lr=args.lr or 0.01,
-        gamma=args.gamma if args.gamma is not None else 0.90,
-        epsilon=args.epsilon if args.epsilon is not None else 0.7,
-        hidden=tuple(args.hidden) if args.hidden else (200, 100),
-        compute_dtype=args.compute_dtype)
-
+    opp = (_load_qnet(args.opponent, device)
+           if common["opponent"] == D.OPP_FROZEN else None)
     if args.fused_kernel:
-        if env_params.random_start and args.greedy_actor:
-            raise SystemExit("--random-start draws from the actor's Philox "
-                             "stream, which --greedy-actor skips; drop one "
-                             "of the two")
         cfg = D.DQNConfig(
             memory_capacity=args.memory_capacity or 4 * args.num_envs,
             **common)
@@ -188,35 +218,103 @@ def cmd_train(args) -> str:
                                       seed=args.seed + c["steps"],
                                       greedy=args.greedy_actor)
 
-        def scalars_of(c):
-            eps = max(c["episodes"], 1.0)
-            return {"env_steps": c["env_steps"], "episodes": c["episodes"],
-                    "collision_rate": c["collisions"] / eps,
-                    "win_rate": c["wins"] / eps,
-                    "reward": c["sum_ep_reward"] / eps,
-                    "loss": c["last_loss"], "learns": c["learns"]}
+        return (carry, chunk,
+                lambda c: _fused_scalars(c, "learns", "learns"),
+                lambda c: FT.t_to_params(c["p"]))
+    cfg = D.DQNConfig(
+        memory_capacity=args.memory_capacity or max(2000, 2 * args.num_envs),
+        batch_size=args.batch_size or 128, **common)
+    carry = D.train_init(args.seed, cfg, env_params, args.num_envs, opp,
+                         device=device)
 
-        def params_of(c):
-            return FT.t_to_params(c["p"])
-    else:
-        cfg = D.DQNConfig(
-            memory_capacity=(args.memory_capacity
-                             or max(2000, 2 * args.num_envs)),
-            batch_size=args.batch_size or 128, **common)
-        carry = D.train_init(args.seed, cfg, env_params, args.num_envs, opp,
-                             device=device)
+    def scalars_of(c):
+        return {**rates_from_counters(c.metrics),
+                "loss": float(c.dqn.last_loss),
+                "learns": int(c.dqn.learn_counter)}
+
+    return (carry, lambda c: D.train_chunk(cfg, env_params, c,
+                                           args.chunk_steps),
+            scalars_of, lambda c: c.dqn.params)
+
+
+def _hdqn_trainer(args, env_params, common, device):
+    """``(carry, chunk, scalars_of, params_of)`` of an h-DQN run: the K7
+    trainer with ``--fused-kernel``, else the step loop (cli.py:278-340,
+    479-497 of the JAX package, with its defaults)."""
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import hdqn as H
+    from merging_gym_tpu_torch.io.metrics import rates_from_counters
+    from merging_gym_tpu_torch.ops import fused_hdqn as FH
+    from merging_gym_tpu_torch.ops import fused_trainer as FT
+
+    opp_u = opp_l = None
+    if common["opponent"] == D.OPP_FROZEN:
+        opp_u, opp_l = _load_frozen_hdqn(args.opponent, device)
+    if args.fused_kernel:
+        cfg = H.HDQNConfig(
+            memory_capacity=args.memory_capacity or 4 * args.num_envs,
+            goal_memory_capacity=(args.goal_memory_capacity
+                                  or 2 * args.num_envs),
+            **common)
+        carry = FH.fused_hdqn_init(args.seed, cfg, env_params, args.num_envs,
+                                   opp_u, opp_l,
+                                   learn_batch=args.learn_batch,
+                                   device=device)
 
         def chunk(c):
-            return D.train_chunk(cfg, env_params, c, args.chunk_steps)
+            return FH.fused_hdqn_chunk(cfg, env_params, c, args.chunk_steps,
+                                       seed=args.seed + c["steps"],
+                                       greedy=args.greedy_actor)
 
-        def scalars_of(c):
-            return {**rates_from_counters(c.metrics),
-                    "loss": float(c.dqn.last_loss),
-                    "learns": int(c.dqn.learn_counter)}
+        return (carry, chunk,
+                lambda c: _fused_scalars(c, "lo_learns", "lower_learns"),
+                lambda c: {"upper": FT.t_to_params(c["u_p"]),
+                           "lower": FT.t_to_params(c["l_p"])})
+    cfg = H.HDQNConfig(
+        memory_capacity=args.memory_capacity or max(2000, 2 * args.num_envs),
+        goal_memory_capacity=args.goal_memory_capacity or 200,
+        batch_size=args.batch_size or 128, **common)
+    carry = H.hdqn_init(args.seed, cfg, env_params, args.num_envs, opp_u,
+                        opp_l, device=device)
 
-        def params_of(c):
-            return c.dqn.params
+    def scalars_of(c):
+        return {**rates_from_counters(c.metrics),
+                "loss": float(c.lower.last_loss),
+                "meta_loss": float(c.upper.last_loss)}
 
+    return (carry, lambda c: H.hdqn_train_chunk(cfg, env_params, c,
+                                                args.chunk_steps),
+            scalars_of, lambda c: {"upper": c.upper.params,
+                                   "lower": c.lower.params})
+
+
+def cmd_train(args) -> str:
+    """Train one DQN or h-DQN agent; returns the run directory."""
+    from merging_gym_tpu_torch.device import resolve_device
+    from merging_gym_tpu_torch.io.checkpoint import (run_dir_name,
+                                                     save_params_npz)
+    from merging_gym_tpu_torch.io.metrics import MetricsWriter
+
+    _refuse_unported(args)
+    device = resolve_device("cpu" if args.cpu else None)
+    env_params = _env_params(args)
+    if args.fused_kernel and env_params.random_start and args.greedy_actor:
+        raise SystemExit("--random-start draws from the actor's Philox "
+                         "stream, which --greedy-actor skips; drop one of "
+                         "the two")
+    common = dict(
+        opponent=_opponent_mode(args.opponent), lr=args.lr or 0.01,
+        gamma=args.gamma if args.gamma is not None else 0.90,
+        epsilon=args.epsilon if args.epsilon is not None else 0.7,
+        hidden=tuple(args.hidden) if args.hidden else (200, 100),
+        compute_dtype=args.compute_dtype)
+    trainer = _hdqn_trainer if args.algo == "hdqn" else _dqn_trainer
+    carry, chunk, scalars_of, params_of = trainer(args, env_params, common,
+                                                  device)
+    out = args.out or run_dir_name(f" {args.algo}", args.opponent,
+                                   env_params.reward_tuple())
+    os.makedirs(out, exist_ok=True)
+    writer = MetricsWriter(out)
     t0 = time.time()
     for i in range(args.max_chunks):
         carry = chunk(carry)
@@ -236,9 +334,9 @@ def cmd_train(args) -> str:
 def cmd_levelk(args) -> list:
     """Level-k curriculum (main.py:161-168): L1 trains vs L0, L2 vs frozen
     L1, ..., each level in its own run directory; returns them."""
-    if args.algo != "dqn":
+    if args.algo not in ("dqn", "hdqn"):
         raise SystemExit(f"levelk --algo {args.algo} is not yet ported to "
-                         "the PyTorch package (dqn only)")
+                         "the PyTorch package (dqn and hdqn only)")
     prev, runs = "L0", []
     for level in range(1, args.levels + 1):
         sub = argparse.Namespace(**vars(args))

@@ -25,7 +25,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 LIBRARIES = ("env_rollout", "qnet_mlp", "policy_rollout", "fused_actor",
-             "dqn_trainer")
+             "dqn_trainer", "hdqn_trainer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,7 +35,12 @@ launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
                  "policy_rollout": 0, "fused_actor": 0,
                  # K5's three per-step kernels
                  "dqn_act_env_store": 0, "dqn_learn_partials": 0,
-                 "dqn_adam": 0}
+                 "dqn_adam": 0,
+                 # K7's five: its act/env/store kernel and the learner
+                 # kernels of dqn_trainer.cu for its lower and upper nets
+                 "hdqn_act_env_store": 0, "hdqn_learn_lower": 0,
+                 "hdqn_adam_lower": 0, "hdqn_learn_upper": 0,
+                 "hdqn_adam_upper": 0}
 
 _libs: dict = {}
 _funcs: dict = {}

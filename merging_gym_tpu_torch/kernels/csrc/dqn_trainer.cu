@@ -42,6 +42,16 @@
 // (refreshed by dqn_adam), products are exact in f32 and sums are f32;
 // masters, gradients, the TD math and Adam stay f32.
 //
+// The learner (kernels 2 and 3) is shared with K7, the h-DQN trainer
+// (hdqn_trainer.cu), which runs it twice per step: on its lower ring (11
+// inputs, 32 fields per round) and on its upper ring (10 inputs, 24
+// fields).  A ring round holds obs at fields [0, in), next obs at
+// [in, 2 in), then action, reward and done; num_f is the fields per round.
+// K7's upper learner learns only on steps where some option ended, so its
+// learn count, target sync and Adam step depend on the data: it passes a
+// device gate (DevGate), and both kernels read the per-step flags that its
+// act kernel raised and count the learns before this one themselves.
+//
 // Bound on an H100: per step 2 actor forwards per env and, on a learning
 // step, 3 forwards and a backward (about 5 x 22,500 multiply-adds) per
 // sampled lane, all f32 on the CUDA cores; the ring, the env rows and the
@@ -57,29 +67,8 @@
 namespace mgt {
 
 constexpr int kTrainThreads = 256;
-constexpr int kNumF = 24;  // ring fields per round: obs 10, next obs 10,
-                           // action, reward, done, pad
-
-// Offsets of the six tensors in a flat parameter buffer.
-struct Offsets {
-  int w0, b0, w1, b1, w2, b2, P;
-  __host__ __device__ explicit Offsets(MlpDims d) {
-    w0 = 0;
-    b0 = w0 + d.in * d.h1;
-    w1 = b0 + d.h1;
-    b1 = w1 + d.h1 * d.h2;
-    w2 = b1 + d.h2;
-    b2 = w2 + d.h2 * d.a;
-    P = b2 + d.a;
-  }
-};
-
-template <typename T>
-Net<T> net_at(const void* flat, MlpDims d) {
-  const T* f = static_cast<const T*>(flat);
-  Offsets o(d);
-  return Net<T>{f + o.w0, f + o.b0, f + o.w1, f + o.b1, f + o.w2, f + o.b2};
-}
+constexpr int kNumF = 24;  // K5's ring fields per round: obs 10, next obs
+                           // 10, action, reward, done, pad
 
 struct ActCfg {
   int n, r_cur, opp, greedy, random_start;
@@ -196,9 +185,33 @@ act_env_store_kernel(Net<T> pnet, Net<T> onet, float* __restrict__ env,
 }
 
 struct LearnCfg {
-  int n, W, mask_terminal;
+  int n, W, num_f, mask_terminal;
   float gamma, two_over_b;
 };
+
+// The device-side learn gate of K7's upper learner.  It learns on step
+// `step` iff any_end[step] != 0, and its learn count there is `prior` plus
+// the number of steps j in [first_open, step) with any_end[j] != 0 (the
+// host gate is open from first_open on).  bias[2k], bias[2k + 1] are Adam's
+// bias corrections for count prior + k, computed on the host.  any_end ==
+// nullptr: no device gate (K5, K7's lower learner); the host decides.
+struct DevGate {
+  const int32_t* any_end;
+  const float* bias;
+  int step, first_open, prior, target_sync;
+};
+
+// -1 where the gate is shut, else the learns of this chunk before this one.
+__device__ __forceinline__ int gate_count(const DevGate& g) {
+  if (g.any_end[g.step] == 0) return -1;
+  int k = 0;
+  for (int j = g.first_open; j < g.step; ++j) k += g.any_end[j] != 0 ? 1 : 0;
+  return k;
+}
+
+__device__ __forceinline__ bool gate_syncs(const DevGate& g, int k) {
+  return (static_cast<long long>(g.prior) + k) % g.target_sync == 0;
+}
 
 __device__ __forceinline__ float madd(float acc, float x, float y) {
   return __fadd_rn(acc, __fmul_rn(x, y));
@@ -210,7 +223,12 @@ learn_partials_kernel(Net<T> pnet, Net<T> tnet, const float* __restrict__ ring,
                       const int32_t* __restrict__ rounds,
                       const int32_t* __restrict__ cols,
                       float* __restrict__ work, int tile, MlpDims d,
-                      LearnCfg lc) {
+                      LearnCfg lc, DevGate g) {
+  if (g.any_end != nullptr) {  // the same decision in every thread
+    const int k = gate_count(g);
+    if (k < 0) return;
+    if (gate_syncs(g, k)) tnet = pnet;  // the sync comes before the update
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   const int A = d.a, H1 = d.h1, H2 = d.h2, IN = d.in;
   float* x = reinterpret_cast<float*>(smem);  // [tile][in]
@@ -237,18 +255,19 @@ learn_partials_kernel(Net<T> pnet, Net<T> tnet, const float* __restrict__ ring,
   const size_t sN = static_cast<size_t>(lc.n);
 
   // Gather the tile's lanes: lane b of the batch is column b % W of draw
-  // k = b / W, i.e. ring round rounds[k], env cols[k] * W + b % W.
-  for (int i = tid; i < kNumF * tile; i += nt) {
+  // k = b / W, i.e. ring round rounds[k], env cols[k] * W + b % W.  The
+  // fields past done (padding) are not read.
+  for (int i = tid; i < (2 * IN + 3) * tile; i += nt) {
     const int f = i / tile, r = i - f * tile, b = b0 + r;
     const int k = b / lc.W;
     const int src = cols[k] * lc.W + (b - k * lc.W);
-    const float val = ring[(static_cast<size_t>(rounds[k]) * kNumF + f) * sN
-                           + src];
-    if (f < 10) x[r * IN + f] = val;
-    else if (f < 20) xn[r * IN + f - 10] = val;
-    else if (f == 20) act[r] = val;
-    else if (f == 21) rew[r] = val;
-    else if (f == 22) done[r] = val;
+    const float val =
+        ring[(static_cast<size_t>(rounds[k]) * lc.num_f + f) * sN + src];
+    if (f < IN) x[r * IN + f] = val;
+    else if (f < 2 * IN) xn[r * IN + f - IN] = val;
+    else if (f == 2 * IN) act[r] = val;
+    else if (f == 2 * IN + 1) rew[r] = val;
+    else done[r] = val;
   }
   mlp_tile<T>(xn, tile, d, pnet, s_in, s_h1, s_h2, qne);
   mlp_tile<T>(xn, tile, d, tnet, s_in, s_h1, s_h2, qnt);
@@ -338,9 +357,17 @@ __global__ void adam_kernel(const float* __restrict__ work,
                             float* __restrict__ m, float* __restrict__ v,
                             __nv_bfloat16* __restrict__ pb,
                             __nv_bfloat16* __restrict__ tpb,
-                            float* __restrict__ loss, AdamCfg c) {
+                            float* __restrict__ loss, AdamCfg c,
+                            DevGate gate) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i > c.P) return;
+  if (gate.any_end != nullptr) {
+    const int k = gate_count(gate);
+    if (k < 0) return;
+    c.sync = gate_syncs(gate, k) ? 1 : 0;
+    c.c1 = gate.bias[2 * k];
+    c.c2 = gate.bias[2 * k + 1];
+  }
   float g = 0.0f;
   for (int j = 0; j < c.tiles; ++j)
     g = __fadd_rn(g, work[static_cast<size_t>(j) * (c.P + 1) + i]);
@@ -384,7 +411,7 @@ template <typename T>
 cudaError_t launch_learn(const void* p, const void* tgt, const float* ring,
                          const int32_t* rounds, const int32_t* cols,
                          float* work, int B, int tile, MlpDims d, LearnCfg lc,
-                         cudaStream_t stream) {
+                         DevGate g, cudaStream_t stream) {
   size_t smem =
       static_cast<size_t>(tile) *
           (2 * d.in + 4 * d.a + d.h1 + d.h2 + 4) * sizeof(float) +
@@ -394,7 +421,7 @@ cudaError_t launch_learn(const void* p, const void* tgt, const float* ring,
   if (err != cudaSuccess) return err;
   learn_partials_kernel<T><<<B / tile, kTrainThreads, smem, stream>>>(
       net_at<T>(p, d), net_at<T>(tgt, d), ring, rounds, cols, work, tile, d,
-      lc);
+      lc, g);
   return cudaGetLastError();
 }
 
@@ -427,21 +454,24 @@ extern "C" int mgt_dqn_act(const void* p, const void* opp, float* env,
 
 extern "C" int mgt_dqn_learn(const void* p, const void* tgt, const float* ring,
                              const int32_t* rounds, const int32_t* cols,
-                             float* work, int n, int B, int K, int in, int h1,
-                             int h2, int a, int tile, int bf16,
+                             float* work, int n, int B, int K, int num_f,
+                             int in, int h1, int h2, int a, int tile, int bf16,
                              int mask_terminal, float gamma, float two_over_b,
+                             const int32_t* any_end, int step, int first_open,
+                             int prior, int target_sync,
                              cudaStream_t stream) {
   using namespace mgt;
   if (B <= 0 || K <= 0 || tile <= 0 || B % tile != 0 || tile > kTrainThreads
-      || in != 10)
+      || num_f < 2 * in + 3 || (any_end != nullptr && target_sync <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims d{in, h1, h2, a};
-  LearnCfg lc{n, B / K, mask_terminal, gamma, two_over_b};
+  LearnCfg lc{n, B / K, num_f, mask_terminal, gamma, two_over_b};
+  DevGate g{any_end, nullptr, step, first_open, prior, target_sync};
   cudaError_t err =
       bf16 ? launch_learn<__nv_bfloat16>(p, tgt, ring, rounds, cols, work, B,
-                                         tile, d, lc, stream)
+                                         tile, d, lc, g, stream)
            : launch_learn<float>(p, tgt, ring, rounds, cols, work, B, tile, d,
-                                 lc, stream);
+                                 lc, g, stream);
   return static_cast<int>(err);
 }
 
@@ -449,12 +479,17 @@ extern "C" int mgt_dqn_adam(const float* work, float* p, float* tp, float* m,
                             float* v, void* pb, void* tpb, float* loss, int P,
                             int tiles, int B, int sync, float lr, float b1,
                             float b2, float omb1, float omb2, float eps,
-                            float c1, float c2, cudaStream_t stream) {
+                            float c1, float c2, const int32_t* any_end,
+                            const float* bias, int step, int first_open,
+                            int prior, int target_sync, cudaStream_t stream) {
   using namespace mgt;
+  if (any_end != nullptr && (bias == nullptr || target_sync <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   AdamCfg c{P, tiles, B, sync, lr, b1, b2, omb1, omb2, eps, c1, c2};
+  DevGate g{any_end, bias, step, first_open, prior, target_sync};
   const int threads = 256;
   adam_kernel<<<(P + threads) / threads, threads, 0, stream>>>(
       work, p, tp, m, v, static_cast<__nv_bfloat16*>(pb),
-      static_cast<__nv_bfloat16*>(tpb), loss, c);
+      static_cast<__nv_bfloat16*>(tpb), loss, c, g);
   return static_cast<int>(cudaGetLastError());
 }

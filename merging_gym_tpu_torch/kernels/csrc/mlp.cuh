@@ -1,11 +1,12 @@
 // The Q-net forward of a tile of rows, for all threads of a block.
 //
-// Shared by K3 (qnet_mlp.cu), K4 (fused_actor.cu), K5 (dqn_trainer.cu)
-// and K6 (policy_rollout.cu), so a greedy evaluation through K3 and one
-// through K6 pick the same actions, and the trainer's actor is K4's.  Each
-// output of a layer is one thread's sum over the inputs in order, in f32,
-// with one rounding per multiply and per add (__fmul_rn/__fadd_rn are never
-// contracted into an FMA) -- the arithmetic of ops/fused_mlp.py:mlp_plain.
+// Shared by K3 (qnet_mlp.cu), K4 (fused_actor.cu), K5 (dqn_trainer.cu),
+// K6 (policy_rollout.cu) and K7 (hdqn_trainer.cu), so a greedy evaluation
+// through K3 and one through K6 pick the same actions, and the trainer's
+// actor is K4's.  Each output of a layer is one thread's sum over the
+// inputs in order, in f32, with one rounding per multiply and per add
+// (__fmul_rn/__fadd_rn are never contracted into an FMA) -- the arithmetic
+// of ops/fused_mlp.py:mlp_plain.
 // No tensor cores: TF32 would break f32 agreement with the plain version.
 // In bf16 (T = __nv_bfloat16) weights and activations are stored in bf16,
 // products are exact in f32, each layer's sum is rounded to bf16 and the
@@ -48,6 +49,28 @@ struct Net {
 struct MlpDims {
   int in, h1, h2, a;
 };
+
+// Offsets of the six tensors in one flat parameter buffer (the trainers'
+// layout): w0 [in][h1], b0 [h1], w1 [h1][h2], b1 [h2], w2 [h2][a], b2 [a].
+struct Offsets {
+  int w0, b0, w1, b1, w2, b2, P;
+  __host__ __device__ explicit Offsets(MlpDims d) {
+    w0 = 0;
+    b0 = w0 + d.in * d.h1;
+    w1 = b0 + d.h1;
+    b1 = w1 + d.h1 * d.h2;
+    w2 = b1 + d.h2;
+    b2 = w2 + d.h2 * d.a;
+    P = b2 + d.a;
+  }
+};
+
+template <typename T>
+Net<T> net_at(const void* flat, MlpDims d) {
+  const T* f = static_cast<const T*>(flat);
+  Offsets o(d);
+  return Net<T>{f + o.w0, f + o.b0, f + o.w1, f + o.b1, f + o.w2, f + o.b2};
+}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {

@@ -14,6 +14,8 @@ struct Bits4 {
 
 constexpr uint32_t kStreamActions = 0;
 constexpr uint32_t kStreamReset = 1;
+constexpr uint32_t kStreamOpponent = 2;  // K7: the opponent's goal and action
+constexpr uint32_t kStreamGoal = 3;      // K7: the goal re-chosen after a step
 
 __device__ __forceinline__ Bits4 philox4x32_10(Bits4 c, uint32_t k0,
                                                uint32_t k1) {

@@ -87,10 +87,12 @@ K5_TILE = 16
 _ACT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
              + [ctypes.c_uint32, ctypes.c_int] + [ctypes.c_uint32] * 3
              + [ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-_LEARN_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-               + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_LEARN_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+               + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _ADAM_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-              + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+              + [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +284,39 @@ def learn_math(p, tp, m, v, batch, t, *, gamma, lr, mask_terminal=False,
     np_, nm, nv = _adam_plain(fp, _flat(m), _flat(v), g, t, lr)
     return (_transposed(np_, dims), _transposed(nm, dims),
             _transposed(nv, dims), loss)
+
+
+def ring_batch(ring, rounds, cols, W: int, num_f: int, d_in: int) -> dict:
+    """The learner's batch, env-last, gathered from a slab ring as the
+    learner kernel gathers it: draw k is lane window ``cols[k]`` (``W``
+    lanes) of round ``rounds[k]``; a round of ``num_f`` fields holds obs
+    at ``[0, d_in)``, next obs at ``[d_in, 2 d_in)``, then action, reward
+    and done."""
+    s = torch.cat([ring[int(r) * num_f:(int(r) + 1) * num_f,
+                        int(c) * W:(int(c) + 1) * W]
+                   for r, c in zip(rounds, cols)], dim=1)
+    return {"obs": s[0:d_in], "next_obs": s[d_in:2 * d_in],
+            "action": s[2 * d_in].to(torch.int64),
+            "reward": s[2 * d_in + 1], "done": s[2 * d_in + 2] > 0.5}
+
+
+def learn_plain(st, prefix: str, batch, sync: bool, t: int, cfg, dims):
+    """One learn of the flat set ``prefix`` (``p``, ``tp``, ``m``, ``v``
+    and the compute-dtype copies ``pc``, ``tpc``) of the working state
+    ``st``, in place, as the learner kernels do it: the target sync
+    first, then :func:`learn_math`.  Returns the loss."""
+    k = {name: prefix + name for name in ("p", "tp", "m", "v", "pc", "tpc")}
+    if sync:  # the target sync comes before the update
+        st[k["tp"]], st[k["tpc"]] = st[k["p"]], st[k["pc"]]
+    p, tp, m, v = (_transposed(st[k[n]], dims) for n in ("p", "tp", "m", "v"))
+    p, m, v, loss = learn_math(p, tp, m, v, batch, t, gamma=cfg.gamma,
+                               lr=cfg.lr, mask_terminal=cfg.mask_terminal,
+                               compute_dtype=cfg.compute_dtype)
+    st[k["p"]], st[k["m"]], st[k["v"]] = _flat(p), _flat(m), _flat(v)
+    dtype = st[k["pc"]].dtype
+    st[k["pc"]] = (st[k["p"]].to(dtype) if dtype != torch.float32
+                   else st[k["p"]])
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -537,24 +572,10 @@ def fused_dqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
         st["ring"][rows] = torch.where(stored[None], slab, st["ring"][rows])
 
         if learn:
-            draws = range(i * K, (i + 1) * K)
-            sampled = torch.cat([
-                st["ring"][rounds[k] * NUM_F:(rounds[k] + 1) * NUM_F,
-                           cols[k] * W:(cols[k] + 1) * W] for k in draws],
-                dim=1)
-            batch = {"obs": sampled[0:10], "next_obs": sampled[10:20],
-                     "action": sampled[20].to(torch.int64),
-                     "reward": sampled[21], "done": sampled[22] > 0.5}
-            if sync:  # the target sync comes before the update
-                st["tp"], st["tpc"] = st["p"], st["pc"]
-            p, tp, m, v = (_transposed(st[k], dims)
-                           for k in ("p", "tp", "m", "v"))
-            p, m, v, st["loss"] = learn_math(
-                p, tp, m, v, batch, t,
-                gamma=cfg.gamma, lr=cfg.lr, mask_terminal=cfg.mask_terminal,
-                compute_dtype=cfg.compute_dtype)
-            st["p"], st["m"], st["v"] = _flat(p), _flat(m), _flat(v)
-            st["pc"] = st["p"].to(dtype) if dtype != f32 else st["p"]
+            draws = slice(i * K, (i + 1) * K)
+            batch = ring_batch(st["ring"], rounds[draws], cols[draws], W,
+                               NUM_F, dims[0])
+            st["loss"] = learn_plain(st, "", batch, sync, t, cfg, dims)
 
         # Metrics: the win is tested on the pre-step obs.
         ep = env[10] + torch.where(stored, r1, 0.0)
@@ -621,18 +642,14 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
         "met", "loss")))
     dims = _dims(carry["p"])
     d_in, h1, h2, a = dims
-    P = st["p"].numel()
     act_tile = kernels.tile_size(K5_TILE, (20 + 2 * a) * 4,
                                  (d_in + h1 + h2) * elem)
-    tile = learn_tile(dims, elem)
-    work = torch.empty(B // tile, P + 1, dtype=torch.float32, device=dev)
-    rounds_d = torch.as_tensor(rounds, device=dev)
-    cols_d = torch.as_tensor(cols, device=dev)
+    learner = Learner(st, "", dims, B, K, cfg, dev)
+    rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
+    cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
     k0, k1 = philox.seed_key(seed)
     stream = kernels.stream_ptr(dev)
     act_fn = kernels.function("dqn_trainer", "mgt_dqn_act", _ACT_ARGS)
-    learn_fn = kernels.function("dqn_trainer", "mgt_dqn_learn", _LEARN_ARGS)
-    adam_fn = kernels.function("dqn_trainer", "mgt_dqn_adam", _ADAM_ARGS)
     ptr = kernels.ptr
     opp_net = cfg.opponent != OPP_L0
     opp = st["oppc"] if cfg.opponent == OPP_FROZEN else st["pc"]
@@ -640,7 +657,6 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
                 int(greedy), int(env_params.random_start))
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
     thr = greedy_threshold(cfg.epsilon)
-    pb, tpb = (ptr(st["pc"]), ptr(st["tpc"])) if bf16 else (ptr(None),) * 2
     for i, r_cur, learn, sync, t in _schedule(
             launch_cfg(carry, env_params, seed), carry["R"], num_steps,
             cfg.target_sync):
@@ -650,20 +666,65 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
                     *env_args, stream)
         kernels.check("dqn_trainer", rc, "dqn_act_env_store launch")
         kernels.launch_counts["dqn_act_env_store"] += 1
-        if not learn:
-            continue
-        rc = learn_fn(ptr(st["pc"]), ptr(st["pc"] if sync else st["tpc"]),
-                      ptr(st["ring"]),
-                      ctypes.c_void_p(rounds_d.data_ptr() + 4 * i * K),
-                      ctypes.c_void_p(cols_d.data_ptr() + 4 * i * K),
-                      ptr(work), n, B, K, d_in, h1, h2, a, tile, int(bf16),
-                      int(cfg.mask_terminal), cfg.gamma, 2.0 / B, stream)
+        if learn:
+            learner.launch(st["ring"], NUM_F, rounds_d[i * K:],
+                           cols_d[i * K:], st["loss"],
+                           ("dqn_learn_partials", "dqn_adam"), sync=sync, t=t)
+
+
+class Learner:
+    """Launches of the learner kernels (``dqn_learn_partials`` and
+    ``dqn_adam``) for the flat set ``prefix`` of the working state ``st``
+    (see :func:`learn_plain`), with a workspace of per-block partial sums.
+    K5 runs one, K7 two (its lower and upper learners)."""
+
+    def __init__(self, st, prefix, dims, B, K, cfg, dev):
+        self.st, self.prefix, self.dims = st, prefix, dims
+        self.B, self.K, self.cfg = B, K, cfg
+        self.bf16 = st[prefix + "pc"].dtype == torch.bfloat16
+        self.tile = learn_tile(dims, st[prefix + "pc"].element_size())
+        self.P = st[prefix + "p"].numel()
+        self.work = torch.empty(B // self.tile, self.P + 1,
+                                dtype=torch.float32, device=dev)
+        self.stream = kernels.stream_ptr(dev)
+        self.learn_fn = kernels.function("dqn_trainer", "mgt_dqn_learn",
+                                         _LEARN_ARGS)
+        self.adam_fn = kernels.function("dqn_trainer", "mgt_dqn_adam",
+                                        _ADAM_ARGS)
+
+    def launch(self, ring, num_f, rounds, cols, loss, counts, *,
+               sync=False, t=1, gate=None):
+        """One learn on ``ring`` (``num_f`` fields per round) from the
+        first K draws of the i32 device streams ``rounds``/``cols``; the
+        loss goes to the 0-d ``loss``, the launches to the two
+        ``launch_counts`` keys ``counts``.  ``gate``: ``None`` (the host
+        decided: ``sync`` and Adam's step ``t``), or ``(any_end, bias,
+        step, first_open, prior)`` for the device gate of K7's upper
+        learner (``dqn_trainer.cu:DevGate``)."""
+        st, pre, ptr, cfg = self.st, self.prefix, kernels.ptr, self.cfg
+        d_in, h1, h2, a = self.dims
+        if gate is None:
+            dev_gate = (ptr(None), ptr(None), 0, 0, 0)
+            c1, c2 = adam_bias_corrections(t)
+        else:
+            any_end, bias, step, first_open, prior = gate
+            dev_gate = (ptr(any_end), ptr(bias), step, first_open, prior)
+            sync, c1, c2 = False, 1.0, 1.0  # decided on the device
+        pc, tpc = st[pre + "pc"], st[pre + "tpc"]
+        rc = self.learn_fn(
+            ptr(pc), ptr(pc if sync else tpc), ptr(ring), ptr(rounds),
+            ptr(cols), ptr(self.work), ring.shape[1], self.B, self.K, num_f,
+            d_in, h1, h2, a, self.tile, int(self.bf16),
+            int(cfg.mask_terminal), cfg.gamma, 2.0 / self.B, dev_gate[0],
+            *dev_gate[2:], cfg.target_sync, self.stream)
         kernels.check("dqn_trainer", rc, "dqn_learn_partials launch")
-        kernels.launch_counts["dqn_learn_partials"] += 1
-        c1, c2 = adam_bias_corrections(t)
-        rc = adam_fn(ptr(work), ptr(st["p"]), ptr(st["tp"]), ptr(st["m"]),
-                     ptr(st["v"]), pb, tpb, ptr(st["loss"]), P, B // tile, B,
-                     int(sync), cfg.lr, ADAM_B1, ADAM_B2, 1.0 - ADAM_B1,
-                     1.0 - ADAM_B2, ADAM_EPS, c1, c2, stream)
+        kernels.launch_counts[counts[0]] += 1
+        pb, tpb = (ptr(pc), ptr(tpc)) if self.bf16 else (ptr(None),) * 2
+        rc = self.adam_fn(
+            ptr(self.work), ptr(st[pre + "p"]), ptr(st[pre + "tp"]),
+            ptr(st[pre + "m"]), ptr(st[pre + "v"]), pb, tpb, ptr(loss),
+            self.P, self.B // self.tile, self.B, int(sync), cfg.lr, ADAM_B1,
+            ADAM_B2, 1.0 - ADAM_B1, 1.0 - ADAM_B2, ADAM_EPS, c1, c2,
+            *dev_gate, cfg.target_sync, self.stream)
         kernels.check("dqn_trainer", rc, "dqn_adam launch")
-        kernels.launch_counts["dqn_adam"] += 1
+        kernels.launch_counts[counts[1]] += 1

@@ -11,7 +11,9 @@ pass 2**63 and wrap, but its low 64 bits stay exact, which is all that
 
 Counter layout used by every kernel: ``(step, env, stream, 0)`` under the
 key ``(seed mod 2**32, seed >> 32)``.  Streams: 0 = actions / Phi(eps)
-selection bits, 1 = random-start reset values.
+selection bits, 1 = random-start reset values; the h-DQN trainer (K7)
+adds 2 = the opponent's goal and action, 3 = the goal re-chosen on the
+post-step obs.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
 STREAM_ACTIONS = 0
 STREAM_RESET = 1
+STREAM_OPPONENT = 2
+STREAM_GOAL = 3
 
 
 def seed_key(seed: int) -> tuple[int, int]:

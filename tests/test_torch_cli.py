@@ -107,6 +107,71 @@ def test_levelk_chains_two_levels(tmp_path):
         _load_in_jax(str(tmp_path / level / "params.npz"))
 
 
+def _load_hdqn_in_jax(path):
+    """The template of the JAX CLI's ``_load_frozen_hdqn``
+    (merging_gym_tpu/cli.py:144-150)."""
+    import jax
+    from merging_gym_tpu.io.checkpoint import load_params_npz as jax_load
+    from merging_gym_tpu.nn.mlp import qnet_init as jax_qnet_init
+    like = {"lower": jax_qnet_init(jax.random.key(0), 11, 5),
+            "upper": jax_qnet_init(jax.random.key(0), 10, 3)}
+    return jax_load(path, like)
+
+
+def _check_hdqn_params(path):
+    import numpy as np
+    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    for nets in (_load_hdqn_in_jax(path), load_params_npz(path)):
+        assert np.asarray(nets["upper"]["fc2"]["w"]).shape == (100, 3)
+        assert np.asarray(nets["lower"]["fc0"]["w"]).shape == (11, 200)
+        assert all(np.isfinite(np.asarray(v)).all() for net in nets.values()
+                   for layer in net.values() for v in layer.values())
+
+
+@pytest.mark.parametrize("trainer,n,scalar", [
+    (["--fused-kernel", "--greedy-actor"], 128, "lower_learns"),
+    ([], 16, "meta_loss")], ids=["fused", "step_loop"])
+def test_train_hdqn_writes_params_that_both_packages_load(tmp_path, trainer,
+                                                          n, scalar):
+    out = tmp_path / "run"
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", "--algo",
+              "hdqn", *trainer, "--num-envs", str(n), "--chunk-steps", "10",
+              "--max-chunks", "2", "--out", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = [json.loads(ln) for ln in
+             (out / "scalars.jsonl").read_text().splitlines()]
+    assert [ln["step"] for ln in lines] == [0, 1]
+    assert lines[-1]["env_steps"] == n * 20 and scalar in lines[-1]
+    if trainer:  # R_lo = 4 rounds: the lower learner fires from step 3 on
+        assert lines[-1]["lower_learns"] == 17
+    _check_hdqn_params(str(out / "params.npz"))
+
+
+def test_levelk_hdqn_chains_two_levels(tmp_path):
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "levelk",
+              "--algo", "hdqn", "--levels", "2", "--fused-kernel",
+              "--greedy-actor", "--num-envs", "128", "--chunk-steps", "4",
+              "--max-chunks", "1", "--out", str(tmp_path)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "training L2 vs " + str(tmp_path / "L1" / "params.npz") in r.stdout
+    for level in ("L1", "L2"):
+        _check_hdqn_params(str(tmp_path / level / "params.npz"))
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--hidden", "64", "32"], "--hidden"),
+    (["--opponent", "not_params.txt"], "cannot load"),
+    (["--opponent", "."], "not yet ported"),
+    (["--learn-rounds", "2", "--fused-kernel"], "--learn-rounds")],
+    ids=["hidden", "non_npz_opponent", "pth_run_dir", "learn_rounds"])
+def test_hdqn_refusals(tmp_path, flags, message):
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", "--algo",
+              "hdqn", *flags, "--num-envs", "128", "--max-chunks", "1",
+              "--out", str(tmp_path / "run")], timeout=120)
+    assert r.returncode != 0 and message in r.stderr
+    assert not (tmp_path / "run").exists()
+
+
 @pytest.mark.parametrize("flags", [
     ["--algo", "rainbow"], ["--resume", "some_run"], ["--plot-every", "1"],
     ["--per"], ["--checkpoint-every", "2"]], ids=lambda f: f[0])

@@ -14,11 +14,13 @@ import torch
 
 from merging_gym_tpu_torch import kernels
 from merging_gym_tpu_torch.agents import dqn as D
+from merging_gym_tpu_torch.agents import hdqn as H
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.core.geometry import lon2coord
 from merging_gym_tpu_torch.io.checkpoint import load_params_npz
 from merging_gym_tpu_torch.nn.mlp import qnet_init, qnet_params_from_numpy
 from merging_gym_tpu_torch.ops import fused_actor as FA
+from merging_gym_tpu_torch.ops import fused_hdqn as FH
 from merging_gym_tpu_torch.ops import fused_mlp as FM
 from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
 from merging_gym_tpu_torch.ops import fused_rollout as FR
@@ -103,22 +105,43 @@ def test_k4_equals_plain(cuda, compute_dtype, batch):
         p, x, 11, 0.7, compute_dtype))
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,a", [(10, 3), (11, 5)])
+def test_k3_k4_hdqn_nets_equal_plain(cuda, compute_dtype, d_in, a):
+    """The h-DQN meta (10 -> 3) and low (11 -> 5) nets at the batches of
+    the h-DQN main paths: 256 envs evaluated (K3), 1,024 trained (K4)."""
+    p = qnet_init(torch.Generator(device=cuda).manual_seed(3), d_in, a)
+    x = torch.randn(256, d_in, device=cuda) * 100
+    assert torch.equal(FM.qnet_apply_fused(p, x, compute_dtype),
+                       FM.qnet_apply_plain(p, x, compute_dtype))
+    x = torch.randn(1024, d_in, device=cuda) * 100
+    assert torch.equal(
+        FA.fused_eps_greedy_actions(p, x, 11, 0.7, compute_dtype),
+        FA.fused_eps_greedy_actions_plain(p, x, 11, 0.7, compute_dtype))
+
+
+def _race_rows(rows, n, cuda, seed):
+    """Env rows with mid-race starts: a short run crosses wins,
+    collisions and resets."""
+    rng = np.random.default_rng(seed)
+    pos = torch.tensor(rng.uniform(870, 948, (2, n)), dtype=torch.float32,
+                       device=cuda)
+    vel = torch.tensor(rng.uniform(5, 40, (2, n)), dtype=torch.float32,
+                       device=cuda)
+    rows = rows.clone()
+    rows[0:2], rows[2:4] = pos, vel
+    rows[4:6] = torch.stack(lon2coord(pos[0], 1.0))
+    rows[6:8] = torch.stack(lon2coord(pos[1], -1.0))
+    return rows
+
+
 def _race_carry(cfg, ep, n, cuda, **kw):
     carry = FT.fused_dqn_init(0, cfg, ep, n, device=cuda, **kw)
     for k in ("p", "tp"):  # small centred weights: decisive argmax
         carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
     if cfg.opponent != "frozen":
         carry["opp"] = carry["p"]
-    rng = np.random.default_rng(1)
-    pos = torch.tensor(rng.uniform(870, 948, (2, n)), dtype=torch.float32,
-                       device=cuda)
-    vel = torch.tensor(rng.uniform(5, 40, (2, n)), dtype=torch.float32,
-                       device=cuda)
-    env = carry["env"].clone()
-    env[0:2], env[2:4] = pos, vel
-    env[4:6] = torch.stack(lon2coord(pos[0], 1.0))
-    env[6:8] = torch.stack(lon2coord(pos[1], -1.0))
-    carry["env"] = env
+    carry["env"] = _race_rows(carry["env"], n, cuda, 1)
     return carry
 
 
@@ -157,6 +180,60 @@ def test_k5_equals_plain_and_repeats(cuda, case):
         for a, b, c in zip(got[k], want[k], again[k]):
             assert torch.equal(a, b) and torch.equal(a, c), k
     for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
+
+
+def _hdqn_race_carry(cfg, ep, n, cuda, **kw):
+    carry = FH.fused_hdqn_init(0, cfg, ep, n, device=cuda, **kw)
+    for k in ("u_p", "u_tp", "l_p", "l_tp"):  # decisive argmax
+        carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
+    if cfg.opponent != "frozen":
+        carry["opp_u"], carry["opp_l"] = carry["u_p"], carry["l_p"]
+    carry["state"] = _race_rows(carry["state"], n, cuda, 2)
+    return carry
+
+
+@pytest.mark.parametrize("case", ["l0_greedy", "selfplay_greedy", "frozen",
+                                  "lane_window", "bf16", "phi_random_start"])
+def test_k7_equals_plain_and_repeats(cuda, case):
+    n = 256
+    cfg = H.HDQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                       goal_memory_capacity=2 * n, opponent="selfplay")
+    ep, kw, greedy = EnvParams(max_steps=40), {}, True
+    if case == "l0_greedy":
+        cfg = cfg.replace(opponent="L0")
+    elif case == "frozen":
+        cfg = cfg.replace(opponent="frozen")
+        g = torch.Generator(device=cuda).manual_seed(5)
+        kw = dict(opp_upper=qnet_init(g, 10, 3), opp_lower=qnet_init(g, 11, 5))
+    elif case == "lane_window":
+        kw = dict(learn_batch=128)
+    elif case == "bf16":
+        cfg = cfg.replace(compute_dtype="bfloat16")
+    elif case == "phi_random_start":
+        ep, greedy = EnvParams(max_steps=20, random_start=True), False
+    carry = _hdqn_race_carry(cfg, ep, n, cuda, **kw)
+    got = want = again = carry
+    before = dict(kernels.launch_counts)
+    for seed, T in enumerate((1, 15)):  # the first chunk is below warm-up
+        got = FH.fused_hdqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+        want = FH.fused_hdqn_chunk_plain(cfg, ep, want, T, seed,
+                                         greedy=greedy)
+        again = FH.fused_hdqn_chunk(cfg, ep, again, T, seed, greedy=greedy)
+    counts = {k: kernels.launch_counts[k] - before[k]
+              for k in kernels.launch_counts}
+    assert counts["hdqn_act_env_store"] == 2 * 16
+    assert counts["hdqn_adam_lower"] == 2 * got["lo_learns"] == 2 * 14
+    assert counts["hdqn_adam_upper"] == 2 * 15  # issued from step R_up-1
+    assert FH.upper_learns(got["state"]) > 0 and got["episodes"] > 0
+    for k in ("state", "lo_ring", "up_ring"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in FH.SETS[:8]:
+        for a, b, c in zip(got[k], want[k], again[k]):
+            assert torch.equal(a, b) and torch.equal(a, c), k
+    for k in ("lo_learns", "episodes", "collisions", "wins", "sum_ep_reward",
+              "last_loss"):
         assert got[k] == want[k] == again[k], k
 
 

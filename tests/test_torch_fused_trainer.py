@@ -138,6 +138,50 @@ def test_learn_math_bf16_matches_jax_bf16():
         assert a.dtype == torch.float32
 
 
+@pytest.mark.parametrize("num_f,d_in,num_a", [(32, 11, 5), (24, 10, 3)],
+                         ids=["hdqn_lower", "hdqn_upper"])
+def test_ring_gather_and_learn_math_match_jax_at_hdqn_layouts(num_f, d_in,
+                                                              num_a):
+    """The learner shared with K7 takes the ring's field count and input
+    width: ``ring_batch`` gathers a lane window of one round as the JAX
+    h-DQN kernel slices it (``ops/fused_hdqn.py:212-222``, :261-268), and
+    ``learn_math`` on it equals JAX's by the outlier rule above."""
+    lr, R, n, W = 0.01, 2, 256, 128
+    rng = np.random.default_rng(d_in)
+    ring = (rng.standard_normal((R * num_f, n)) * 20.0).astype(np.float32)
+    for r in range(R):
+        ring[r * num_f + 2 * d_in] = rng.integers(0, num_a, n)
+        ring[r * num_f + 2 * d_in + 2] = rng.random(n) < 0.1
+
+    def mk(s):
+        p = jax_qnet_init(jax.random.key(s), d_in, num_a)
+        return JFT.params_to_t(
+            jax.tree.map(lambda w: (w.astype(jnp.float32) - 0.5) * 0.1, p))
+
+    p, tp = mk(1), mk(2)
+    m = v = tuple(jnp.zeros_like(a) for a in p)
+    p_t, tp_t, m_t, v_t = _t6(p), _t6(tp), _t6(m), _t6(v)
+    for step, (r, c) in enumerate(((1, 0), (0, 1), (1, 1))):
+        s = ring[r * num_f:(r + 1) * num_f, c * W:(c + 1) * W]
+        jbatch = {"obs": s[0:d_in], "next_obs": s[d_in:2 * d_in],
+                  "action": s[2 * d_in].astype(np.int32),
+                  "reward": s[2 * d_in + 1], "done": s[2 * d_in + 2] > 0.5}
+        batch = FT.ring_batch(torch.as_tensor(ring), [r], [c], W, num_f,
+                              d_in)
+        for k, x in jbatch.items():
+            np.testing.assert_array_equal(batch[k].numpy(), x, err_msg=k)
+        p, m, v, loss = JFT.learn_math(
+            p, tp, m, v, jax.tree.map(jnp.asarray, jbatch),
+            jnp.int32(step + 1), gamma=0.9, lr=lr, num_actions=num_a)
+        p_t, m_t, v_t, loss_t = FT.learn_math(p_t, tp_t, m_t, v_t, batch,
+                                              step + 1, gamma=0.9, lr=lr)
+        np.testing.assert_allclose(float(loss_t), float(loss), rtol=1e-5)
+        for k in range(6):
+            _assert_roundoff(p_t[k], p[k], lr, f"p[{k}] step {step}")
+            np.testing.assert_allclose(m_t[k].numpy(), np.asarray(m[k]),
+                                       rtol=1e-3, atol=1e-6)
+
+
 def test_param_layout_roundtrip():
     p = jax_qnet_init(jax.random.key(0), 10, 5)
     pt = FT.params_to_t(p)

@@ -22,11 +22,17 @@ Phases, each of which raises (non-zero exit) on failure:
      its defaults: ``train --algo hdqn --fused-kernel`` (K7), ``levelk
      --algo hdqn --fused-kernel --levels 2``, the step-loop ``train --algo
      hdqn --opponent selfplay`` (K4 five times per step), and ``evaluate``
-     of ``hdqn_policy`` L2 vs L1 on the trained nets (K3);
+     of ``hdqn_policy`` L2 vs L1 on the trained nets (K3).  Rainbow
+     training, through the CLI at its defaults: ``train --algo rainbow
+     --fused-kernel`` (K8), the same with ``--per --n-step 3 --obs-scale
+     0.01``, the step-loop ``train --algo rainbow --opponent selfplay``, and
+     ``evaluate`` of ``rainbow_policy`` (model_zoo/RB_L0_FUSED and the
+     trained net) against L0;
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version, the
      least time the card could take (``bound_ms``) and, for K3 and K4, the
-     three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``).
+     three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``); K8
+     per step and per 200-step chunk.
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -42,6 +48,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 ZOO_L1 = os.path.join(REPO, "model_zoo", "L1", "params.npz")
 ZOO_L2 = os.path.join(REPO, "model_zoo", "L2", "params.npz")
+ZOO_RB = os.path.join(REPO, "model_zoo", "RB_L0_FUSED", "params.npz")
 
 N_ENVS = 4096          # bench.py's headline env count
 T_ROLLOUT = 512        # K1/K2 check and timing length
@@ -57,6 +64,7 @@ N_ENVS_HDQN = 256      # envs of the evaluate(hdqn_policy) main path
 T_CHUNK = 200          # the training CLI's default chunk length
 T_PLAIN = 6            # K5 plain-version timing length (steps)
 T_PLAIN_K7 = 4         # K7 plain-version timing length (steps)
+T_PLAIN_K8 = 4         # K8 plain-version timing length (steps)
 BIG = "1000000000"     # --episodes that never stops a run early
 
 # Published H100 SXM peaks at the full 700 W (NVIDIA H100 datasheet).
@@ -90,6 +98,48 @@ ADAM_FLOPS = 14        # per parameter: two moments, bias-corrected update
 
 K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_lower", "hdqn_adam_lower",
              "hdqn_learn_upper", "hdqn_adam_upper")
+K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn",
+             "rainbow_adam", "rainbow_post")
+
+# The Rainbow net of K8: trunk 10 -> 32 -> 64, noisy value 64 -> 64 -> 51,
+# noisy advantage 64 -> 64 -> 5 x 51 (ranbowdqn.py:498-548).
+RB_LAYERS = ((10, 32), (32, 64), (64, 64), (64, 51), (64, 64), (64, 255))
+RB_MACS = sum(i * o for i, o in RB_LAYERS)              # 30,144
+RB_OUTS = sum(o for _, o in RB_LAYERS)                  # 530
+RB_ELEMS = 28210       # noisy elements of one net (w and b)
+RB_PARAMS = 58884
+
+
+def rb_trunk_flops():
+    """The part of one row of the noisy dueling C51 forward that every
+    use needs: multiply-adds, bias adds, ReLUs and the dueling mean (5 adds,
+    1 multiply per atom)."""
+    return 2 * RB_MACS + RB_OUTS + (32 + 64 + 64 + 64) + 6 * 51
+
+
+def rb_forward_flops():
+    """One row of the acting or target forward (kernels/csrc/
+    rainbow_trainer.cu:rb_forward): the trunk and streams, then for all
+    five actions the dueling combine (2 per atom), the softmax (max,
+    subtract, exp, sum, divide) and E[Z] (2 per atom)."""
+    return rb_trunk_flops() + (2 + 5 + 2) * 5 * 51
+
+
+def rb_learn_flops():
+    """One sampled lane of K8's learner, at what the function needs: the
+    1-step reconstruction; the target forward; the projection in scatter
+    form (15 per atom: Tz, clamp, b, floor, ceil, the faithful mask, the
+    support-weighted mass, two weights and two scatter adds); the online
+    forward with the combine and softmax of the sampled action only and no
+    E[Z]; the clamp, CE and its gradient; the dueling backward; the backward
+    through the four noisy layers and the trunk; and the gradient products."""
+    atoms, a = 51, 5
+    online = rb_trunk_flops() + (2 + 5) * atoms
+    back = (2 * 64 * atoms + 64 + 2 * 64 * a * atoms + 64 + 2 * 2 * 64 * 64
+            + 64 + 2 * 32 * 64 + 32)
+    return (25 + rb_forward_flops() + online + 15 * atoms
+            + 12 * atoms + 3 * atoms + 2 * a * atoms + back
+            + 2 * RB_MACS + RB_OUTS)
 
 
 def bound(bytes_, flops):
@@ -343,6 +393,105 @@ def check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev):
     print("K7: two runs on the same inputs give the same bits", flush=True)
 
 
+def check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev):
+    """K8 against its plain version at 1,024 envs, bit for bit: every
+    field of the carry and every counter; then the first case run again
+    for the same bits."""
+    n = N_TRAIN
+    sp = RB.RainbowConfig(lr=1e-3, gamma=0.9, target_sync_episodes=20,
+                          memory_capacity=8 * n, obs_scale=0.01)
+    ep60 = EnvParams(max_steps=60)
+    # (cfg, env, init kwargs, chunk lengths, greedy, race start).  The
+    # 1-step first chunk stops short of the n_step = 1 warm-up.
+    cases = {
+        "greedy selfplay, cold + warm": (sp, ep60, {}, (1, 30), True, True),
+        "greedy L0": (sp.replace(opponent="L0"), ep60, {}, (20,), True, True),
+        "greedy frozen L1": (sp.replace(opponent="frozen"), ep60,
+                             dict(opp_params=p_l1), (20,), True, True),
+        "greedy L0, learn_batch 512": (sp.replace(opponent="L0"), ep60,
+                                       dict(learn_batch=512), (20,), True,
+                                       True),
+        "greedy PER": (sp.replace(per=True), ep60, {}, (20,), True, True),
+        "greedy 3-step": (sp.replace(n_step=3), ep60, {}, (20,), True, True),
+        "greedy PER 3-step": (sp.replace(per=True, n_step=3), ep60, {},
+                              (3, 20), True, True),
+        "phi-greedy noise random_start": (
+            sp.replace(epsilon=0.7), EnvParams(random_start=True,
+                                               max_steps=20), {}, (24,),
+            False, False),
+    }
+    for what, (cfg, ep, kw, chunks, greedy, race) in cases.items():
+        c0 = FRB.fused_rainbow_init(0, cfg, ep, n, device=dev, **kw)
+        if race:
+            c0["env"] = race_rows(torch, lon2coord, c0["env"], n, dev, 300)
+        got = want = c0
+        for seed, T in enumerate(chunks):
+            got = FRB.fused_rainbow_chunk(cfg, ep, got, T, seed,
+                                          greedy=greedy)
+            want = FRB.fused_rainbow_chunk_plain(cfg, ep, want, T, seed,
+                                                 greedy=greedy)
+        for k in ("p", "tp", "m", "v", "eps", "teps", "env", "ring"):
+            checks.equal("K8", f"{what} {k}", got[k], want[k])
+        for k in ("learns", "steps", "episodes", "collisions", "wins",
+                  "sum_ep_reward", "last_loss"):
+            if got[k] != want[k]:
+                raise AssertionError(f"K8 {what} {k}: {got[k]} != {want[k]}")
+        if not (got["learns"] > 0 and got["episodes"] > 0):
+            raise AssertionError(f"K8 {what}: nothing learned or finished")
+        if not greedy and torch.equal(got["eps"], c0["eps"]):
+            raise AssertionError(f"K8 {what}: the noise was never redrawn")
+        synced = int(got["env"][11, 0])
+        print(f"K8 {what}: {got['learns']} learns, {int(got['episodes'])} "
+              f"episodes, {int(got['wins'])} wins, {int(got['collisions'])} "
+              f"collisions, {synced} target syncs: bit-equal", flush=True)
+        if what.startswith("greedy selfplay, cold"):
+            if synced < 1:
+                raise AssertionError("K8: the episodic target sync never "
+                                     "fired")
+            first = (cfg, ep, c0, chunks, got)
+    cfg, ep, c0, chunks, got = first
+    again = c0
+    for seed, T in enumerate(chunks):
+        again = FRB.fused_rainbow_chunk(cfg, ep, again, T, seed, greedy=True)
+    if not all(torch.equal(got[k], again[k]) for k in (
+            "p", "tp", "m", "v", "eps", "teps", "env", "ring")) or \
+            got["last_loss"] != again["last_loss"]:
+        raise AssertionError("K8 run twice on the same inputs differs")
+    print("K8: two runs on the same inputs give the same bits", flush=True)
+
+
+def rainbow_path(cli, tmp, evaluate, rainbow_policy, l0_policy, EnvParams,
+                 load_params_npz, rainbow_params_from_numpy, torch, dev):
+    """The Rainbow training path through the port's CLI, then ``evaluate``
+    of ``rainbow_policy`` against L0 for the zoo's fused-trained net and
+    the trained one; returns the run directories and the two results."""
+    fused, per, loop = (os.path.join(tmp, d) for d in
+                        ("rb_fused", "rb_per", "rb_loop"))
+    cli.main(["train", "--algo", "rainbow", "--fused-kernel", "--max-chunks",
+              "5", "--episodes", BIG, "--out", fused])
+    cli.main(["train", "--algo", "rainbow", "--fused-kernel", "--per",
+              "--n-step", "3", "--obs-scale", "0.01", "--max-chunks", "2",
+              "--episodes", BIG, "--out", per])
+    cli.main(["train", "--algo", "rainbow", "--opponent", "selfplay",
+              "--max-chunks", "2", "--episodes", BIG, "--out", loop])
+
+    def match(path, scale):
+        pol = rainbow_policy(rainbow_params_from_numpy(
+            load_params_npz(path), dev), obs_scale=scale)
+        return evaluate(pol, l0_policy(), EnvParams(),
+                        torch.Generator(device=dev).manual_seed(0),
+                        num_envs=N_ENVS_HDQN, min_episodes=256,
+                        chunk_steps=512, max_chunks=8)
+
+    zoo = match(ZOO_RB, 0.01)
+    trained = match(os.path.join(fused, "params.npz"), None)
+    runs = {"rainbow train --fused-kernel": (fused, 5, "learns"),
+            "rainbow train --fused-kernel --per --n-step 3": (per, 2,
+                                                              "learns"),
+            "rainbow train (step loop)": (loop, 2, "learns")}
+    return runs, zoo, trained
+
+
 def mlp_cases(params, hdqn_nets, b_hdqn):
     """(label, params, input width, batches) of a Q-net kernel's checks:
     the zoo net at the evaluation shapes, and the h-DQN meta (10 -> 3) and
@@ -492,16 +641,20 @@ def main():
     from merging_gym_tpu_torch.agents import dqn as D
     from merging_gym_tpu_torch.agents import hdqn as H
     from merging_gym_tpu_torch.agents import policies as P
+    from merging_gym_tpu_torch.agents import rainbow as RB
     from merging_gym_tpu_torch.agents.evaluate import evaluate, evaluate_fused
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.core.geometry import lon2coord
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
     from merging_gym_tpu_torch.nn.mlp import (qnet_apply, qnet_init,
                                               qnet_params_from_numpy)
+    from merging_gym_tpu_torch.nn.rainbow_net import \
+        rainbow_params_from_numpy
     from merging_gym_tpu_torch.ops import fused_actor as FA
     from merging_gym_tpu_torch.ops import fused_hdqn as FH
     from merging_gym_tpu_torch.ops import fused_mlp as FM
     from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
+    from merging_gym_tpu_torch.ops import fused_rainbow as FRB
     from merging_gym_tpu_torch.ops import fused_rollout as FR
     from merging_gym_tpu_torch.ops import fused_trainer as FT
 
@@ -590,6 +743,7 @@ def main():
     k4_kept = check_k4(checks, torch, FA, FM, p_l2, hdqn_nets, dev, rng)
     check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev)
     check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev)
+    check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev)
 
     # ---- 3. the main paths -----------------------------------------------
     phase_s = {}
@@ -646,18 +800,43 @@ def main():
             raise AssertionError(f"h-DQN training path launched no {missing}")
         check_runs(np, runs, load_params_npz)
         print("hdqn_policy L2 vs L1:", json.dumps(hdqn_eval), flush=True)
+
+        kernels.reset_launch_counts()
+        runs, rb_zoo, rb_trained = timed("Rainbow training path",
+                                         lambda: rainbow_path(
+            cli, tmp, evaluate, P.rainbow_policy, P.l0_policy, EnvParams,
+            load_params_npz, rainbow_params_from_numpy, torch, dev))
+        rb_launches = dict(kernels.launch_counts)
+        print(f"Rainbow training path: "
+              f"{phase_s['Rainbow training path']:.2f} s, launches "
+              f"{rb_launches}", flush=True)
+        missing = [k for k in K8_COUNTS if rb_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"Rainbow training path launched no "
+                                 f"{missing}")
+        check_runs(np, runs, load_params_npz)
+        print("rainbow_policy RB_L0_FUSED vs L0:", json.dumps(rb_zoo))
+        # The zoo net was trained to beat L0 (model_zoo/RB_L0_FUSED/
+        # meta.json: first on 512 of 512 episodes).
+        if rb_zoo["p1_first_rate"] <= 0.5:
+            raise AssertionError(f"RB_L0_FUSED loses to L0 in the port: "
+                                 f"{rb_zoo}")
+        print("rainbow_policy trained vs L0:", json.dumps(rb_trained),
+              flush=True)
     launches = {k: eval_launches[k] + train_launches[k] + hdqn_launches[k]
-                for k in kernels.launch_counts}
+                + rb_launches[k] for k in kernels.launch_counts}
     launches["dqn_trainer"] = sum(train_launches[k] for k in (
         "dqn_act_env_store", "dqn_learn_partials", "dqn_adam"))
     launches["hdqn_trainer"] = sum(hdqn_launches[k] for k in K7_COUNTS)
+    launches["rainbow_trainer"] = sum(rb_launches[k] for k in K8_COUNTS)
     assert traj["obs"].shape == (T_ROLLOUT, 10, N_ENVS)
     assert torch.isfinite(traj["obs"]).all() and torch.isfinite(
         cnt["reward_sum"]).all()
     assert (cnt["wins1"] + cnt["wins2"] <= cnt["episodes"]).all()
     assert int(cnt["episodes"].sum()) > N_ENVS
     for res, min_eps in ((fused, N_ENVS), (loop, 512),
-                         (trained, N_ENVS), (hdqn_eval, 512)):
+                         (trained, N_ENVS), (hdqn_eval, 512), (rb_zoo, 256),
+                         (rb_trained, 256)):
         assert res["episodes"] >= min_eps, res
         for k in ("p1_first_rate", "p2_first_rate", "collision_rate",
                   "timeout_rate"):
@@ -859,6 +1038,58 @@ def main():
                     "merging_gym_tpu/ops/fused_hdqn.py:86", "K7",
                     k7_chunk_ms / T_CHUNK, k7_plain, k7_b_ms, k7_b_by, None))
 
+    # K8: one training step at the CLI's defaults (L0, 1,024 envs, R 8,
+    # B 1,024, uniform 1-step), timed over a 200-step chunk of a warm carry
+    # (every step learns); the plain version per step over a short chunk.
+    rcfg = RB.RainbowConfig(memory_capacity=8 * N_TRAIN, opponent="L0")
+    rcarry = FRB.fused_rainbow_init(0, rcfg, ep, N_TRAIN, device=dev)
+    rcarry = FRB.fused_rainbow_chunk(rcfg, ep, rcarry, T_CHUNK, 0)
+    r = np.random.default_rng(3)
+    rstreams = (r.integers(0, rcarry["R"], T_CHUNK).astype(np.int32),
+                np.zeros(T_CHUNK, np.int32), np.zeros(T_CHUNK, np.float32))
+    rst = FRB.working_state(rcarry)
+    k8_chunk_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
+        rst, rcarry, rcfg, ep, T_CHUNK, 1, False, *rstreams), 3)
+    k8_step_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
+        rst, rcarry, rcfg, ep, 1, 1, False, *(x[:1] for x in rstreams)), 20)
+    k8_plain = cuda_ms(torch, lambda: FRB.fused_rainbow_chunk_plain(
+        rcfg, ep, rcarry, T_PLAIN_K8, 1), 1, warmup=0) / T_PLAIN_K8
+    # PER 3-step, the CLI's --per --n-step 3 (B 32 draws), for context.
+    pcfg = rcfg.replace(per=True, n_step=3, obs_scale=0.01)
+    pcarry = FRB.fused_rainbow_chunk(pcfg, ep, FRB.fused_rainbow_init(
+        0, pcfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
+    pst = FRB.working_state(pcarry)
+    k8_per_chunk_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
+        pst, pcarry, pcfg, ep, T_CHUNK, 1, False, np.zeros(T_CHUNK, np.int32),
+        np.zeros(T_CHUNK, np.int32),
+        r.random(T_CHUNK).astype(np.float32)), 3)
+    B = rcarry["B"]
+    # Bytes: env rows in and out, the slab stored, the sampled slabs read,
+    # per learn p, target, m, v read and p, m, v written (7 x 4 B a
+    # parameter), both nets' noise read and effective weights written and
+    # read (6 x 4 B an element).  Operations: one forward per env (L0), the
+    # env step, the learner per sampled lane, Adam (14 per parameter and
+    # the sigma products) and the effective weights (2 per element, both
+    # nets).
+    k8_bytes = (N_TRAIN * (2 * FRB.ENV_ROWS + FRB.NUM_F) * 4
+                + B * FRB.NUM_F * 4 + 28 * RB_PARAMS + 6 * 4 * 2 * RB_ELEMS)
+    k8_flops = (N_TRAIN * (rb_forward_flops() + ENV_STEP_FLOPS + OBS_FLOPS)
+                + B * rb_learn_flops() + RB_PARAMS * ADAM_FLOPS
+                + RB_ELEMS + 2 * 2 * RB_ELEMS)
+    k8_b_ms, k8_b_by = bound(k8_bytes, k8_flops)
+    k8 = {"chunk_ms": k8_chunk_ms, "step_ms": k8_chunk_ms / T_CHUNK,
+          "one_step_launch_ms": k8_step_ms,
+          "env_steps_per_s": T_CHUNK * N_TRAIN / (k8_chunk_ms / 1e3),
+          "plain_step_ms": k8_plain, "bound_step_ms": k8_b_ms,
+          "bound_by": k8_b_by, "step_mflop": k8_flops / 1e6,
+          "forward_flops_per_row": rb_forward_flops(),
+          "learn_flops_per_lane": rb_learn_flops(),
+          "per_3step_chunk_ms": k8_per_chunk_ms}
+    results.append(("K8 rainbow_trainer", "rainbow_trainer",
+                    "rainbow_trainer.cu",
+                    "merging_gym_tpu/ops/fused_rainbow.py:545", "K8",
+                    k8_chunk_ms / T_CHUNK, k8_plain, k8_b_ms, k8_b_by, None))
+
     # The step-loop h-DQN trainer (K4 actors, two autograd learners) per
     # step, as context for K7: host clock around synchronised chunks.
     hcfg = H.HDQNConfig(memory_capacity=max(2000, 2 * N_TRAIN))
@@ -888,15 +1119,18 @@ def main():
                    "K5": "one step: L0, 1,024 envs, R 4, B 1,024",
                    "K7": "one step: L0, 1,024 envs, R_lo 4, R_up 2, "
                          "B 1,024",
+                   "K8": "one step: L0, 1,024 envs, R 8, B 1,024, 1-step",
                    "K6": [T_POLICY, N_ENVS]},
         "k4_greedy_share": k4_kept,
         "k5_chunks": k5,
         "k7_chunk": k7,
+        "k8_chunk": k8,
         "step_loop_train_step_ms": loop_step_ms,
         "step_loop_hdqn_train_step_ms": hdqn_loop_step_ms,
         "launches_by_path": {"evaluation": eval_launches,
                              "training": train_launches,
-                             "h-DQN training": hdqn_launches},
+                             "h-DQN training": hdqn_launches,
+                             "Rainbow training": rb_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": long_ms, "bound_ms": long_bound,
                            "env_steps_per_s": k2_rate},

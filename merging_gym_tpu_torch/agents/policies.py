@@ -107,6 +107,29 @@ def hdqn_policy(upper_params, lower_params, greedy: bool = False,
                   params={"upper": upper_params, "lower": lower_params})
 
 
+def _rainbow_act(greedy, epsilon, obs_scale, params, obs, generator):
+    from merging_gym_tpu_torch.nn.rainbow_net import (rainbow_apply,
+                                                      rainbow_q_values)
+
+    # Eval-mode forward (noise=None: the mu weights), argmax of E[Z]
+    # (RainbowDQN.act, ranbowdqn.py:543-548); greedy=False adds the
+    # Phi(eps)-greedy quirk, as q_policy does.
+    x = obs if obs_scale is None else obs * obs_scale
+    q = rainbow_q_values(rainbow_apply(params, x))
+    if greedy:
+        return torch.argmax(q, dim=-1).to(torch.int32)
+    return eps_greedy_from_q(q, generator, epsilon, q.shape[-1])
+
+
+def rainbow_policy(params, greedy: bool = False, epsilon: float = EPSILON,
+                   obs_scale: float | None = None) -> Policy:
+    """Policy over a frozen Rainbow (dueling C51 NoisyNet) checkpoint;
+    ``obs_scale`` must be the value it was trained with (the zoo entry's
+    ``meta.json``)."""
+    return Policy(act=functools.partial(_rainbow_act, greedy, epsilon,
+                                        obs_scale), params=params)
+
+
 def two_player(policy1: Policy, policy2: Policy):
     """Compose two single-player policies into a batched rollout
     ``policy_fn``; its state is the pair of policy params."""

@@ -1,6 +1,6 @@
 """Command-line entry point of the PyTorch / CUDA port.
 
-  python -m merging_gym_tpu_torch.cli [--cpu] train --algo dqn|hdqn \\
+  python -m merging_gym_tpu_torch.cli [--cpu] train --algo dqn|hdqn|rainbow \\
       [--fused-kernel] [--opponent L0|selfplay|<params.npz>] ...
   python -m merging_gym_tpu_torch.cli [--cpu] levelk --algo dqn|hdqn \\
       --levels 3 ...
@@ -17,12 +17,16 @@ unless ``--cpu`` is given; without a card and without ``--cpu`` it fails.
 the h-DQN trainer K7 (``ops.fused_hdqn``), plain ``train --algo hdqn`` the
 step loop of ``agents.hdqn`` (its actors K4); an h-DQN run writes its
 meta-controller and low net as ``{"upper", "lower"}`` and a frozen h-DQN
-opponent is such a ``params.npz``.  Every run writes ``params.npz`` in the
-JAX key format and logs ``scalars.jsonl``/``scalars.csv``.  ``levelk``
-trains L1 against L0, then each level against the frozen one before it.
-Rainbow and DRQN, ``--resume``/``--checkpoint-every``, ``--plot-every``,
-the Rainbow options and a reference ``.pth`` opponent are not ported yet
-and exit with an error.
+opponent is such a ``params.npz``.  ``train --algo rainbow --fused-kernel``
+runs the Rainbow trainer K8 (``ops.fused_rainbow``), plain ``train --algo
+rainbow`` the step loop of ``agents.rainbow``, with ``--per``,
+``--per-alpha``, ``--per-beta``, ``--n-step`` and ``--obs-scale``; its
+frozen opponent is an MLP Q-net ``params.npz``.  Every run writes
+``params.npz`` in the JAX key format and logs
+``scalars.jsonl``/``scalars.csv``.  ``levelk`` trains L1 against L0, then
+each level against the frozen one before it (dqn and hdqn).  DRQN,
+``--resume``/``--checkpoint-every``, ``--plot-every`` and a reference
+``.pth`` opponent are not ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -85,14 +89,14 @@ def _policy_from_spec(spec: str, device):
 
 # Flags of the JAX CLI whose code paths are not ported yet: a run that
 # sets one exits instead of ignoring it.
-_NOT_PORTED = ("--resume", "--checkpoint-every", "--plot-every", "--per",
-               "--per-alpha", "--per-beta", "--n-step", "--obs-scale")
+_NOT_PORTED = ("--resume", "--checkpoint-every", "--plot-every")
 
 
 def _train_args(p):
     _add_env_args(p)
     p.add_argument("--algo", choices=["dqn", "hdqn", "rainbow", "drqn"],
-                   default="dqn", help="dqn and hdqn are ported so far")
+                   default="dqn",
+                   help="dqn, hdqn and rainbow are ported so far")
     p.add_argument("--opponent", default="L0",
                    help='"L0", "selfplay", or a params.npz (frozen; for '
                         'hdqn the {upper, lower} nets of an hdqn run)')
@@ -108,10 +112,23 @@ def _train_args(p):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--gamma", type=float, default=None,
-                   help="discount (default 0.90, main.py:15)")
+                   help="discount (dqn/hdqn default 0.90, main.py:15; "
+                        "rainbow default 0.99, ranbowdqn.py:593)")
     p.add_argument("--epsilon", type=float, default=None,
                    help="Phi(eps)-greedy exploration threshold (main.py:105;"
-                        " default 0.7)")
+                        " default 0.7; rainbow default none: NoisyNet only)")
+    p.add_argument("--per", action="store_true",
+                   help="prioritised replay (rainbow)")
+    p.add_argument("--per-alpha", type=float, default=0.6,
+                   help="PER priority exponent (ranbowdqn.py:344)")
+    p.add_argument("--per-beta", type=float, default=0.4,
+                   help="PER importance-weight exponent")
+    p.add_argument("--n-step", type=int, default=1,
+                   help="n-step returns (rainbow)")
+    p.add_argument("--obs-scale", type=float, default=None,
+                   help="rainbow: multiply observations by this before the "
+                        "net (0.01 keeps the C51 streams alive; default "
+                        "none = the reference's raw obs)")
     p.add_argument("--hidden", type=int, nargs=2, default=None,
                    metavar=("H1", "H2"),
                    help="Q-net hidden widths (default 200 100)")
@@ -124,7 +141,8 @@ def _train_args(p):
     p.add_argument("--fused-kernel", action="store_true",
                    help="run the whole trainer on the card as a kernel "
                         "sequence: K5 for dqn (ops.fused_trainer), K7 for "
-                        "hdqn (ops.fused_hdqn); learner batch = num-envs "
+                        "hdqn (ops.fused_hdqn), K8 for rainbow "
+                        "(ops.fused_rainbow); learner batch = num-envs "
                         "unless --learn-batch")
     p.add_argument("--learn-batch", type=int, default=None,
                    help="with --fused-kernel: lanes per learn (multiple of "
@@ -143,9 +161,18 @@ def _train_args(p):
 
 
 def _refuse_unported(args):
-    if args.algo not in ("dqn", "hdqn"):
+    if args.algo not in ("dqn", "hdqn", "rainbow"):
         raise SystemExit(f"--algo {args.algo} is not yet ported to the "
-                         "PyTorch package (dqn and hdqn only)")
+                         "PyTorch package (dqn, hdqn and rainbow only)")
+    if args.algo == "rainbow" and (args.hidden
+                                   or args.compute_dtype != "float32"):
+        raise SystemExit("--hidden/--compute-dtype are wired into the dqn "
+                         "and hdqn trainers only; --algo rainbow would "
+                         "silently ignore them (drop the flags or switch "
+                         "algo)")
+    if args.algo == "rainbow" and args.learn_rounds != 1:
+        raise SystemExit("--learn-rounds is a dqn-only fused option "
+                         "(rainbow supports --learn-batch)")
     if args.algo == "hdqn" and args.hidden:
         raise SystemExit("--hidden is wired into the dqn trainer only")
     if args.algo == "hdqn" and args.learn_rounds != 1:
@@ -288,8 +315,62 @@ def _hdqn_trainer(args, env_params, common, device):
                                    "lower": c.lower.params})
 
 
+def _rainbow_trainer(args, env_params, common, device):
+    """``(carry, chunk, scalars_of, params_of)`` of a Rainbow run: K8 with
+    ``--fused-kernel``, else the step loop (cli.py:342-399, 516-529 of the
+    JAX package, with its defaults)."""
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import rainbow as RB
+    from merging_gym_tpu_torch.io.metrics import rates_from_counters
+    from merging_gym_tpu_torch.ops import fused_rainbow as FRB
+
+    opp = None
+    if common["opponent"] == D.OPP_FROZEN:
+        if os.path.isdir(args.opponent):
+            raise SystemExit(f"{args.opponent!r}: a reference .pth run "
+                             "directory as an opponent is not yet ported to "
+                             "the PyTorch package (pass a params.npz)")
+        opp = _load_qnet(args.opponent, device)
+    kw = dict(opponent=common["opponent"], per=args.per,
+              per_alpha=args.per_alpha, per_beta=args.per_beta,
+              n_step=args.n_step,
+              gamma=args.gamma if args.gamma is not None else 0.99,
+              epsilon=args.epsilon, obs_scale=args.obs_scale,
+              lr=args.lr or 1e-3)
+    if args.fused_kernel:
+        cfg = RB.RainbowConfig(
+            memory_capacity=args.memory_capacity or 8 * args.num_envs, **kw)
+        carry = FRB.fused_rainbow_init(args.seed, cfg, env_params,
+                                       args.num_envs, opp,
+                                       learn_batch=args.learn_batch,
+                                       device=device)
+
+        def chunk(c):
+            return FRB.fused_rainbow_chunk(cfg, env_params, c,
+                                           args.chunk_steps,
+                                           seed=args.seed + c["steps"],
+                                           greedy=args.greedy_actor)
+
+        return (carry, chunk,
+                lambda c: _fused_scalars(c, "learns", "learns"),
+                lambda c: FRB.flat_to_params(c["p"]))
+    cfg = RB.RainbowConfig(memory_capacity=args.memory_capacity or 10000,
+                           batch_size=args.batch_size or 32, **kw)
+    carry = RB.rainbow_train_init(args.seed, cfg, env_params, args.num_envs,
+                                  opp, device=device)
+
+    def scalars_of(c):
+        return {**rates_from_counters(c.metrics),
+                "loss": float(c.last_loss),
+                "learns": int(c.opt_state.count)}
+
+    return (carry, lambda c: RB.rainbow_train_chunk(cfg, env_params, c,
+                                                    args.chunk_steps),
+            scalars_of, lambda c: c.params)
+
+
 def cmd_train(args) -> str:
-    """Train one DQN or h-DQN agent; returns the run directory."""
+    """Train one DQN, h-DQN or Rainbow agent; returns the run directory."""
     from merging_gym_tpu_torch.device import resolve_device
     from merging_gym_tpu_torch.io.checkpoint import (run_dir_name,
                                                      save_params_npz)
@@ -308,7 +389,8 @@ def cmd_train(args) -> str:
         epsilon=args.epsilon if args.epsilon is not None else 0.7,
         hidden=tuple(args.hidden) if args.hidden else (200, 100),
         compute_dtype=args.compute_dtype)
-    trainer = _hdqn_trainer if args.algo == "hdqn" else _dqn_trainer
+    trainer = {"dqn": _dqn_trainer, "hdqn": _hdqn_trainer,
+               "rainbow": _rainbow_trainer}[args.algo]
     carry, chunk, scalars_of, params_of = trainer(args, env_params, common,
                                                   device)
     out = args.out or run_dir_name(f" {args.algo}", args.opponent,
@@ -334,6 +416,14 @@ def cmd_train(args) -> str:
 def cmd_levelk(args) -> list:
     """Level-k curriculum (main.py:161-168): L1 trains vs L0, L2 vs frozen
     L1, ..., each level in its own run directory; returns them."""
+    if args.algo == "rainbow":
+        raise SystemExit(
+            f"levelk supports --algo dqn or hdqn (got {args.algo!r}): "
+            "the curriculum freezes each rung as the next opponent, and "
+            "only MLP Q-nets can be frozen opponents (rainbow can train "
+            "VS a frozen rung via train --opponent <npz>, but a frozen "
+            "rainbow policy is not a supported opponent; drqn has "
+            "neither mode)")
     if args.algo not in ("dqn", "hdqn"):
         raise SystemExit(f"levelk --algo {args.algo} is not yet ported to "
                          "the PyTorch package (dqn and hdqn only)")

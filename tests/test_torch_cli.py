@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "merging_gym_tpu")
 
 
 def _run(args, timeout=300):
-    env = dict(os.environ)
+    # One torch thread per CLI process: the tests run several at once.
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run([sys.executable, *args], capture_output=True,
                           text=True, timeout=timeout, env=env, cwd=REPO)
@@ -172,9 +173,65 @@ def test_hdqn_refusals(tmp_path, flags, message):
     assert not (tmp_path / "run").exists()
 
 
+def _load_rainbow_in_jax(path):
+    import jax
+    from merging_gym_tpu.io.checkpoint import load_params_npz as jax_load
+    from merging_gym_tpu.nn.rainbow_net import rainbow_init
+    return jax_load(path, rainbow_init(jax.random.key(0), 10, 5))
+
+
+@pytest.mark.parametrize("trainer", [
+    ["--fused-kernel", "--greedy-actor"],
+    ["--fused-kernel", "--greedy-actor", "--per", "--n-step", "3",
+     "--obs-scale", "0.01", "--batch-size", "16", "--opponent",
+     os.path.join(ZOO, "L1", "params.npz")],
+    ["--batch-size", "16"]], ids=["fused", "fused_per_nstep_frozen",
+                                  "step_loop"])
+def test_train_rainbow_writes_params_that_both_packages_load(tmp_path,
+                                                             trainer):
+    import numpy as np
+    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+
+    out = tmp_path / "run"
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", "--algo",
+              "rainbow", *trainer, "--num-envs", "128", "--chunk-steps", "4",
+              "--max-chunks", "2", "--memory-capacity", "512",
+              "--out", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = [json.loads(ln) for ln in
+             (out / "scalars.jsonl").read_text().splitlines()]
+    assert [ln["step"] for ln in lines] == [0, 1]
+    n_step = 3 if "--n-step" in trainer else 1
+    # K8 learns from step n_step on; the step loop once 16 are stored.
+    assert lines[-1]["env_steps"] == 128 * 8
+    assert lines[-1]["learns"] == (8 - n_step if "--fused-kernel" in trainer
+                                   else 8)
+    path = str(out / "params.npz")
+    for params in (_load_rainbow_in_jax(path), load_params_npz(path)):
+        assert np.asarray(params["noisy_advantage2"]["w_mu"]).shape == (64,
+                                                                       255)
+        assert all(np.isfinite(np.asarray(v)).all()
+                   for layer in params.values() for v in layer.values())
+
+
+@pytest.mark.parametrize("cmd,flags,message", [
+    ("train", ["--hidden", "64", "32"], "--hidden"),
+    ("train", ["--learn-rounds", "2", "--fused-kernel"], "--learn-rounds"),
+    ("train", ["--opponent", "."], "not yet ported"),
+    ("levelk", [], "levelk supports --algo dqn or hdqn")],
+    ids=["hidden", "learn_rounds", "pth_run_dir", "levelk"])
+def test_rainbow_refusals(tmp_path, cmd, flags, message):
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", cmd, "--algo",
+              "rainbow", *flags, "--num-envs", "128", "--max-chunks", "1",
+              "--out", str(tmp_path / "run")], timeout=120)
+    assert r.returncode != 0 and message in r.stderr
+    assert not (tmp_path / "run").exists()
+
+
 @pytest.mark.parametrize("flags", [
-    ["--algo", "rainbow"], ["--resume", "some_run"], ["--plot-every", "1"],
-    ["--per"], ["--checkpoint-every", "2"]], ids=lambda f: f[0])
+    ["--algo", "drqn"], ["--resume", "some_run"], ["--plot-every", "1"],
+    ["--per", "--algo", "drqn"], ["--checkpoint-every", "2"]],
+    ids=lambda f: f[0])
 def test_unported_options_exit(tmp_path, flags):
     r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", *flags,
               "--num-envs", "128", "--max-chunks", "1",

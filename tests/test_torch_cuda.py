@@ -15,6 +15,7 @@ import torch
 from merging_gym_tpu_torch import kernels
 from merging_gym_tpu_torch.agents import dqn as D
 from merging_gym_tpu_torch.agents import hdqn as H
+from merging_gym_tpu_torch.agents import rainbow as RB
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.core.geometry import lon2coord
 from merging_gym_tpu_torch.io.checkpoint import load_params_npz
@@ -23,6 +24,7 @@ from merging_gym_tpu_torch.ops import fused_actor as FA
 from merging_gym_tpu_torch.ops import fused_hdqn as FH
 from merging_gym_tpu_torch.ops import fused_mlp as FM
 from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
+from merging_gym_tpu_torch.ops import fused_rainbow as FRB
 from merging_gym_tpu_torch.ops import fused_rollout as FR
 from merging_gym_tpu_torch.ops import fused_trainer as FT
 
@@ -234,6 +236,47 @@ def test_k7_equals_plain_and_repeats(cuda, case):
             assert torch.equal(a, b) and torch.equal(a, c), k
     for k in ("lo_learns", "episodes", "collisions", "wins", "sum_ep_reward",
               "last_loss"):
+        assert got[k] == want[k] == again[k], k
+
+
+@pytest.mark.parametrize("case", ["selfplay_greedy", "l0_textbook_window",
+                                  "per_3step", "frozen_phi_random_start"])
+def test_k8_equals_plain_and_repeats(cuda, case):
+    n = 256
+    cfg = RB.RainbowConfig(lr=1e-3, gamma=0.9, target_sync_episodes=3,
+                           memory_capacity=4 * n, obs_scale=0.01)
+    ep, kw, greedy = EnvParams(max_steps=40), {}, True
+    if case == "l0_textbook_window":
+        cfg = cfg.replace(opponent="L0", faithful_c51=False, obs_scale=None)
+        kw = dict(learn_batch=128)
+    elif case == "per_3step":
+        cfg = cfg.replace(per=True, n_step=3, batch_size=40)
+    elif case == "frozen_phi_random_start":
+        cfg = cfg.replace(opponent="frozen", epsilon=0.5)
+        kw = dict(opp_params=qnet_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+        ep, greedy = EnvParams(max_steps=12, random_start=True), False
+    carry = FRB.fused_rainbow_init(0, cfg, ep, n, device=cuda, **kw)
+    if greedy:
+        carry["env"] = _race_rows(carry["env"], n, cuda, 3)
+    got = want = again = carry
+    before = dict(kernels.launch_counts)
+    for seed, T in enumerate((1, 15)):  # the first chunk is below warm-up
+        got = FRB.fused_rainbow_chunk(cfg, ep, got, T, seed, greedy=greedy)
+        want = FRB.fused_rainbow_chunk_plain(cfg, ep, want, T, seed,
+                                             greedy=greedy)
+        again = FRB.fused_rainbow_chunk(cfg, ep, again, T, seed,
+                                        greedy=greedy)
+    counts = {k: kernels.launch_counts[k] - before[k]
+              for k in kernels.launch_counts}
+    assert got["learns"] == 16 - cfg.n_step and got["episodes"] > 0
+    assert counts["rainbow_act"] == 2 * 16
+    assert counts["rainbow_adam"] == 2 * got["learns"]
+    assert counts["rainbow_per_pick"] == (2 * got["learns"] if cfg.per else 0)
+    for k in ("p", "tp", "m", "v", "eps", "teps", "env", "ring"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
         assert got[k] == want[k] == again[k], k
 
 

@@ -19,6 +19,7 @@ from merging_gym_tpu.nn.mlp import qnet_init as jax_qnet_init
 from merging_gym_tpu_torch.agents import dqn as D
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.nn.mlp import qnet_params_from_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -21,6 +21,7 @@ from merging_gym_tpu_torch.core import constants as C
 from merging_gym_tpu_torch.core import env as tenv
 from merging_gym_tpu_torch.core import geometry as tgeo
 from merging_gym_tpu_torch.core import vector as tvec
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -22,6 +22,7 @@ from merging_gym_tpu.nn.mlp import qnet_init as jax_qnet_init
 from merging_gym_tpu_torch.nn.mlp import qnet_params_from_numpy
 from merging_gym_tpu_torch.ops import fused_actor as FA
 from merging_gym_tpu_torch.ops import philox
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 PHI = 0.5 * (1 + math.erf(0.7 / math.sqrt(2)))

@@ -16,6 +16,7 @@ from merging_gym_tpu_torch.core import constants as C
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.ops import fused_rollout as FR
 from merging_gym_tpu_torch.ops import philox
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -26,6 +26,7 @@ from merging_gym_tpu.ops import fused_trainer as JFT
 from merging_gym_tpu_torch.agents.dqn import DQNConfig
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.ops import fused_trainer as FT
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -33,6 +33,7 @@ from merging_gym_tpu_torch.agents import policies as P
 from merging_gym_tpu_torch.core import env as core_env
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.nn.mlp import qnet_apply, qnet_params_from_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

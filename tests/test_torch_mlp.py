@@ -23,6 +23,7 @@ from merging_gym_tpu.ops import fused_policy_rollout as JFPR
 from merging_gym_tpu_torch.io.checkpoint import load_params_npz, save_params_npz
 from merging_gym_tpu_torch.nn import mlp as M
 from merging_gym_tpu_torch.ops import fused_mlp as FM
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 ZOO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -34,6 +34,7 @@ from merging_gym_tpu_torch.ops import fused_actor as FA
 from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
 from merging_gym_tpu_torch.ops import fused_rollout as FR
 from merging_gym_tpu_torch.ops import philox
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 PHI = 0.5 * (1 + math.erf(0.7 / math.sqrt(2)))

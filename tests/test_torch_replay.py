@@ -14,6 +14,7 @@ import torch
 
 from merging_gym_tpu.ops import replay as jrp
 from merging_gym_tpu_torch.ops import replay as rp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _example(lib):

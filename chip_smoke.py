@@ -27,12 +27,16 @@ Phases, each of which raises (non-zero exit) on failure:
      --fused-kernel`` (K8), the same with ``--per --n-step 3 --obs-scale
      0.01``, the step-loop ``train --algo rainbow --opponent selfplay``, and
      ``evaluate`` of ``rainbow_policy`` (model_zoo/RB_L0_FUSED and the
-     trained net) against L0;
+     trained net) against L0.  DRQN training, through the CLI at its
+     defaults: ``train --algo drqn --fused-kernel`` (K9), the same against
+     the trained net as a frozen opponent, the step-loop ``train --algo drqn
+     --opponent selfplay``, and ``evaluate_drqn`` of the trained net against
+     L0;
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version, the
      least time the card could take (``bound_ms``) and, for K3 and K4, the
      three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``); K8
-     per step and per 200-step chunk.
+     and K9 per step and per 200-step chunk.
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -65,6 +69,7 @@ T_CHUNK = 200          # the training CLI's default chunk length
 T_PLAIN = 6            # K5 plain-version timing length (steps)
 T_PLAIN_K7 = 4         # K7 plain-version timing length (steps)
 T_PLAIN_K8 = 4         # K8 plain-version timing length (steps)
+T_PLAIN_K9 = 2         # K9 plain-version timing length (steps)
 BIG = "1000000000"     # --episodes that never stops a run early
 
 # Published H100 SXM peaks at the full 700 W (NVIDIA H100 datasheet).
@@ -100,6 +105,7 @@ K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_lower", "hdqn_adam_lower",
              "hdqn_learn_upper", "hdqn_adam_upper")
 K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn",
              "rainbow_adam", "rainbow_post")
+K9_COUNTS = ("drqn_act", "drqn_learn", "drqn_adam")
 
 # The Rainbow net of K8: trunk 10 -> 32 -> 64, noisy value 64 -> 64 -> 51,
 # noisy advantage 64 -> 64 -> 5 x 51 (ranbowdqn.py:498-548).
@@ -140,6 +146,76 @@ def rb_learn_flops():
     return (25 + rb_forward_flops() + online + 15 * atoms
             + 12 * atoms + 3 * atoms + 2 * a * atoms + back
             + 2 * RB_MACS + RB_OUTS)
+
+
+# The DRQN of K9 (nn/lstm.py): fc1 10 -> 200 (ReLU), fc2 200 -> 16, an LSTM
+# 16 -> 16 (64 gate columns), fc3 16 -> 16 (ReLU), fc4 16 -> 5.
+DRQN_P = 7949
+
+
+def drqn_forward_flops():
+    """One row of the recurrent forward (kernels/csrc/drqn_trainer.cu:
+    cell_tile): multiply-adds, bias adds and ReLUs of fc1 and fc2, both gate
+    products and their three bias / sum adds, per unit three sigmoids (4
+    each: negate, exp, add, divide), two tanh, the cell (3) and h (1), fc3
+    and fc4, and the argmax."""
+    gates = 2 * (16 * 64 + 16 * 64) + 3 * 64
+    tail = 16 * (3 * 4 + 2 + 3 + 1)
+    return (2 * 10 * 200 + 400 + 2 * 200 * 16 + 16 + gates + tail
+            + 2 * 16 * 16 + 32 + 2 * 16 * 5 + 5 + 5)
+
+
+def drqn_valid(done, burn_in):
+    """Per window (``done``: [..., L] done flags) the last valid step and
+    the number of valid steps: past burn-in, up to the first done."""
+    import numpy as np
+    d = np.asarray(done) > 0
+    L = d.shape[-1]
+    first = np.where(d.any(axis=-1), d.argmax(axis=-1), L)
+    last = np.minimum(first, L - 1)
+    return last, np.maximum(last - burn_in + 1, 0)
+
+
+def drqn_learn_flops(done, burn_in):
+    """K9's learner on one batch of sampled windows, at what the function
+    needs on this data.  ``done``: the windows' done flags, [windows, L].
+
+    A step t is valid past burn-in up to the window's first done; only
+    valid steps reach the loss, and a window without one adds nothing to
+    the gradient.  For every window: its mask (3 per step: 1 - ended, the
+    max, the count).  For a window whose last valid step is ``last``: both
+    nets' fc1, fc2 and LSTM cells over t = 0 .. last + 1 (at t = 0, from
+    zero state, no w_hh product and no forget gate); the eval net's fc3 at
+    burn-in .. last + 1 and its fc4 there for all actions, but at burn-in
+    for the taken action only; the target net's fc3 at burn-in + 1 ..
+    last + 1 and its fc4 for the argmax action only; the TD math per valid
+    step (argmax 5, target 4, diff, 2 / msum scale, square, loss sum); per
+    valid step the head backward for the taken action only (dz3 with its
+    ReLU mask, dh through w3) and the w3, b3, w4 and b4 gradients of that
+    action; per step t <= last the cell backward (22 per unit; 17 at t = 0,
+    where c_{-1} = 0), dh through w_hh (t >= 1), dx2 through w_ih, dz1
+    through w2 with its mask, and the fc1, fc2, w_ih and b_ih gradients,
+    the w_hh gradient at t >= 1 (b_hh's equals b_ih's).  Gradient products
+    count 2 (multiply, add into the batch sum).  fc1's recomputation in
+    the kernel is not counted."""
+    import numpy as np
+    L = np.shape(done)[-1]
+    last, nv = drqn_valid(done, burn_in)
+    fc12 = (2 * 10 * 200 + 200 + 200) + (2 * 200 * 16 + 16)
+    cell = 2 * (16 * 64 + 16 * 64) + 3 * 64 + 16 * (3 * 4 + 2 + 3 + 1)
+    cell0 = 2 * 16 * 48 + 2 * 48 + 16 * (2 * 4 + 2 + 1 + 1)
+    fc3, fc4 = 2 * 16 * 16 + 16 + 16, 2 * 16 + 1   # fc4: per action
+    fwd = 2 * ((last + 2) * fc12 + cell0 + (last + 1) * cell)
+    heads = (nv + 1) * fc3 + fc4 + nv * 5 * fc4 + nv * (fc3 + fc4)
+    head_back = (16 + 16) + 2 * 16 * 16 + 2 * 16 + 1 + 2 * 16 * 16 + 16
+    grads = 2 * 10 * 200 + 200 + 2 * 200 * 16 + 16
+    back_t = (16 * 22 + 2 * 64 * 16 + 2 * 64 * 16 + 2 * 16 * 200 + 200
+              + grads + 2 * 16 * 64 + 64 + 2 * 16 * 64)
+    back_0 = (16 * 17 + 2 * 48 * 16 + 2 * 16 * 200 + 200 + grads
+              + 2 * 16 * 48 + 48)
+    back = nv * head_back + 16 * (nv - 1) + back_0 + last * back_t
+    per = np.where(nv > 0, fwd + heads + 13 * nv + back, 0) + 3 * L
+    return int(per.sum()) + 3   # and once: max(msum, 1), 2 / msum, / msum
 
 
 def bound(bytes_, flops):
@@ -460,6 +536,128 @@ def check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev):
     print("K8: two runs on the same inputs give the same bits", flush=True)
 
 
+def shrink_drqn(FD, flat):
+    """Each of the twelve arrays centred and scaled by 0.05: a decisive
+    argmax (tests/test_fused_drqn_e2e.py:_shrink)."""
+    return FD.drqn_params_to_t({
+        layer: {k: (x - x.mean()) * 0.05 for k, x in p.items()}
+        for layer, p in FD.t_to_drqn_params(flat).items()})
+
+
+def check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev):
+    """K9 against its plain version at 1,024 envs, L 16, R 4, burn-in 4,
+    bit for bit: every field of the carry and every counter.  A cold
+    self-play case of 72 steps in two launches split in the middle of a
+    window runs through the 63-step warm-up into 9 learns (target sync 5:
+    two syncs); the other cases start, on both sides, from the warm carry
+    the kernel reached there; then the first case run again for the same
+    bits."""
+    import numpy as np
+    n = N_TRAIN
+    cfg = DR.DRQNConfig(lr=1e-3, target_sync=5, memory_capacity=4 * n,
+                        opponent="selfplay")
+    ep60 = EnvParams(max_steps=60)
+    c0 = FD.fused_drqn_init(0, cfg, ep60, n, device=dev)
+    c0["p"], c0["tp"] = shrink_drqn(FD, c0["p"]), shrink_drqn(FD, c0["tp"])
+    c0["opp"] = c0["p"]
+    c0["env"] = race_rows(torch, lon2coord, c0["env"], n, dev, 400)
+    c0["win"][0:10] = FD._obs_rows(c0["env"][0:8])
+    frozen = FD.drqn_params_to_t(drqn_init(
+        torch.Generator(device=dev).manual_seed(9), 10, 5, device=dev), dev)
+
+    def half_lanes(c):
+        return {**c, "B": n // 2}
+
+    def with_opp(c):
+        return {**c, "opp": shrink_drqn(FD, frozen)}
+
+    # (cfg, env, carry maker, chunk lengths, greedy, expected learns).
+    cases = {
+        "greedy selfplay, cold: 40 + 32 steps": (cfg, ep60, None, (40, 32),
+                                                 True, 9),
+        "greedy L0, warm": (cfg.replace(opponent="L0"), ep60, dict, (24,),
+                            True, 24),
+        "greedy frozen DRQN, warm": (cfg.replace(opponent="frozen"), ep60,
+                                     with_opp, (24,), True, 24),
+        "greedy selfplay, learn_batch 512, warm": (cfg, ep60, half_lanes,
+                                                   (24,), True, 24),
+        "phi-greedy random_start, warm": (
+            cfg, EnvParams(random_start=True, max_steps=30), dict, (24,),
+            False, 24),
+    }
+    warm = None
+    for what, (c, ep, make, chunks, greedy, learns) in cases.items():
+        start = c0 if make is None else make(warm)
+        got = want = start
+        for seed, T in enumerate(chunks):
+            kw = {}
+            if start["B"] < n:  # both lane windows drawn
+                kw = dict(cols=np.arange(T) % 2)
+            got = FD.fused_drqn_chunk(c, ep, got, T, seed, greedy=greedy,
+                                      **kw)
+            want = FD.fused_drqn_chunk_plain(c, ep, want, T, seed,
+                                             greedy=greedy, **kw)
+        for k in ("p", "tp", "m", "v", "env", "win", "ring"):
+            checks.equal("K9", f"{what} {k}", got[k], want[k])
+        for k in ("learns", "steps", "episodes", "collisions", "wins",
+                  "sum_ep_reward", "last_loss"):
+            if got[k] != want[k]:
+                raise AssertionError(f"K9 {what} {k}: {got[k]} != {want[k]}")
+        new = got["learns"] - start["learns"]
+        syncs = sum(1 for k in range(start["learns"], got["learns"])
+                    if k % c.target_sync == 0)
+        if new != learns or got["episodes"] == start["episodes"]:
+            raise AssertionError(f"K9 {what}: {new} learns, episodes "
+                                 f"{got['episodes']}")
+        print(f"K9 {what}: {new} learns ({syncs} target syncs), "
+              f"{int(got['episodes'] - start['episodes'])} episodes, "
+              f"{int(got['wins'] - start['wins'])} wins: bit-equal",
+              flush=True)
+        if make is None:
+            if syncs < 2:
+                raise AssertionError("K9: fewer than two target syncs")
+            warm, first = got, (c, ep, chunks, got)
+    c, ep, chunks, got = first
+    again = c0
+    for seed, T in enumerate(chunks):
+        again = FD.fused_drqn_chunk(c, ep, again, T, seed, greedy=True)
+    if not all(torch.equal(got[k], again[k]) for k in (
+            "p", "tp", "m", "v", "env", "win", "ring")) or \
+            got["last_loss"] != again["last_loss"]:
+        raise AssertionError("K9 run twice on the same inputs differs")
+    print("K9: two runs on the same inputs give the same bits", flush=True)
+
+
+def drqn_path(cli, tmp, evaluate_drqn, EnvParams, load_params_npz,
+              drqn_params_from_numpy, torch, dev):
+    """The DRQN training path through the port's CLI, then
+    ``evaluate_drqn`` of the trained net against L0; returns the run
+    directories and the result."""
+    fused, frozen, loop = (os.path.join(tmp, d) for d in
+                           ("drqn_fused", "drqn_frozen", "drqn_loop"))
+    cli.main(["train", "--algo", "drqn", "--fused-kernel", "--max-chunks",
+              "5", "--episodes", BIG, "--out", fused])
+    cli.main(["train", "--algo", "drqn", "--fused-kernel", "--opponent",
+              os.path.join(fused, "params.npz"), "--max-chunks", "1",
+              "--episodes", BIG, "--out", frozen])
+    cli.main(["train", "--algo", "drqn", "--opponent", "selfplay",
+              "--max-chunks", "2", "--episodes", BIG, "--out", loop])
+    # Phi(0.7)-greedy against L0, 512 steps x 2 at 256 envs; a 400-step cap
+    # makes every env finish at least two episodes.
+    res = evaluate_drqn(
+        drqn_params_from_numpy(load_params_npz(
+            os.path.join(fused, "params.npz")), dev),
+        env_params=EnvParams(max_steps=400),
+        generator=torch.Generator(device=dev).manual_seed(0),
+        num_envs=N_ENVS_HDQN, min_episodes=512, chunk_steps=512,
+        max_chunks=2)
+    runs = {"drqn train --fused-kernel": (fused, 5, "learns"),
+            "drqn train --fused-kernel vs frozen DRQN": (frozen, 1,
+                                                         "learns"),
+            "drqn train (step loop)": (loop, 2, "learns")}
+    return runs, res
+
+
 def rainbow_path(cli, tmp, evaluate, rainbow_policy, l0_policy, EnvParams,
                  load_params_npz, rainbow_params_from_numpy, torch, dev):
     """The Rainbow training path through the port's CLI, then ``evaluate``
@@ -639,18 +837,24 @@ def main():
 
     from merging_gym_tpu_torch import cli, kernels
     from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import drqn as DR
     from merging_gym_tpu_torch.agents import hdqn as H
     from merging_gym_tpu_torch.agents import policies as P
     from merging_gym_tpu_torch.agents import rainbow as RB
-    from merging_gym_tpu_torch.agents.evaluate import evaluate, evaluate_fused
+    from merging_gym_tpu_torch.agents.evaluate import (evaluate,
+                                                       evaluate_drqn,
+                                                       evaluate_fused)
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.core.geometry import lon2coord
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.nn.lstm import (drqn_init,
+                                               drqn_params_from_numpy)
     from merging_gym_tpu_torch.nn.mlp import (qnet_apply, qnet_init,
                                               qnet_params_from_numpy)
     from merging_gym_tpu_torch.nn.rainbow_net import \
         rainbow_params_from_numpy
     from merging_gym_tpu_torch.ops import fused_actor as FA
+    from merging_gym_tpu_torch.ops import fused_drqn as FD
     from merging_gym_tpu_torch.ops import fused_hdqn as FH
     from merging_gym_tpu_torch.ops import fused_mlp as FM
     from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
@@ -744,6 +948,7 @@ def main():
     check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev)
     check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev)
     check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev)
+    check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev)
 
     # ---- 3. the main paths -----------------------------------------------
     phase_s = {}
@@ -823,12 +1028,28 @@ def main():
                                  f"{rb_zoo}")
         print("rainbow_policy trained vs L0:", json.dumps(rb_trained),
               flush=True)
+
+        kernels.reset_launch_counts()
+        runs, drqn_eval = timed("DRQN training path", lambda: drqn_path(
+            cli, tmp, evaluate_drqn, EnvParams, load_params_npz,
+            drqn_params_from_numpy, torch, dev))
+        drqn_launches = dict(kernels.launch_counts)
+        print(f"DRQN training path: {phase_s['DRQN training path']:.2f} s, "
+              f"launches {drqn_launches}", flush=True)
+        missing = [k for k in K9_COUNTS if drqn_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"DRQN training path launched no {missing}")
+        check_runs(np, runs, load_params_npz)
+        print("evaluate_drqn trained vs L0:", json.dumps(drqn_eval),
+              flush=True)
     launches = {k: eval_launches[k] + train_launches[k] + hdqn_launches[k]
-                + rb_launches[k] for k in kernels.launch_counts}
+                + rb_launches[k] + drqn_launches[k]
+                for k in kernels.launch_counts}
     launches["dqn_trainer"] = sum(train_launches[k] for k in (
         "dqn_act_env_store", "dqn_learn_partials", "dqn_adam"))
     launches["hdqn_trainer"] = sum(hdqn_launches[k] for k in K7_COUNTS)
     launches["rainbow_trainer"] = sum(rb_launches[k] for k in K8_COUNTS)
+    launches["drqn_trainer"] = sum(drqn_launches[k] for k in K9_COUNTS)
     assert traj["obs"].shape == (T_ROLLOUT, 10, N_ENVS)
     assert torch.isfinite(traj["obs"]).all() and torch.isfinite(
         cnt["reward_sum"]).all()
@@ -836,7 +1057,7 @@ def main():
     assert int(cnt["episodes"].sum()) > N_ENVS
     for res, min_eps in ((fused, N_ENVS), (loop, 512),
                          (trained, N_ENVS), (hdqn_eval, 512), (rb_zoo, 256),
-                         (rb_trained, 256)):
+                         (rb_trained, 256), (drqn_eval, 512)):
         assert res["episodes"] >= min_eps, res
         for k in ("p1_first_rate", "p2_first_rate", "collision_rate",
                   "timeout_rate"):
@@ -1090,6 +1311,63 @@ def main():
                     "merging_gym_tpu/ops/fused_rainbow.py:545", "K8",
                     k8_chunk_ms / T_CHUNK, k8_plain, k8_b_ms, k8_b_by, None))
 
+    # K9: one training step at the CLI's defaults (L0, 1,024 envs, L 16,
+    # R 4, B 1,024), timed over a 200-step chunk of a warm carry (every step
+    # learns) and as a 1-step launch; the act kernel alone over the first
+    # 50 steps of a cold carry (no learns); the plain version per step.
+    dcfg = DR.DRQNConfig(memory_capacity=4 * N_TRAIN)
+    dcold = FD.fused_drqn_init(0, dcfg, ep, N_TRAIN, device=dev)
+    dcarry = FD.fused_drqn_chunk(dcfg, ep, dcold, T_CHUNK, 0)
+    r = np.random.default_rng(4)
+    dstreams = (r.integers(0, dcarry["R"], T_CHUNK),
+                np.zeros(T_CHUNK, np.int64))
+    dst = FD.working_state(dcarry)
+    k9_chunk_ms = cuda_ms(torch, lambda: FD.launch_drqn(
+        dst, dcarry, dcfg, ep, T_CHUNK, 1, False, *dstreams), 3)
+    k9_step_ms = cuda_ms(torch, lambda: FD.launch_drqn(
+        dst, dcarry, dcfg, ep, 1, 1, False, *(x[:1] for x in dstreams)), 20)
+    cst = FD.working_state(dcold)
+    k9_act_ms = cuda_ms(torch, lambda: FD.launch_drqn(
+        cst, dcold, dcfg, ep, 50, 1, False, *(x[:50] for x in dstreams)),
+        3) / 50
+    k9_plain = cuda_ms(torch, lambda: FD.fused_drqn_chunk_plain(
+        dcfg, ep, dcarry, T_PLAIN_K9, 1), 1, warmup=0) / T_PLAIN_K9
+    L9, B9 = dcarry["L"], dcarry["B"]
+    WF9 = (L9 + 1) * FD.SLOT
+    # The learner's work depends on where the sampled windows' episodes
+    # end: count it on the windows of the rounds the timed chunk samples,
+    # as the ring holds them when the chunk starts.
+    done9 = dcarry["ring"].reshape(dcarry["R"], L9 + 1, FD.SLOT, N_TRAIN)[
+        :, 1:, FD.IN_DIM + 2].cpu().numpy()                  # [R, L, n]
+    batches = list(zip(*(x.tolist() for x in dstreams)))
+    per_batch = {(r, c): drqn_learn_flops(
+        done9[r, :, c * B9:(c + 1) * B9].T, dcfg.burn_in)
+        for r, c in set(batches)}
+    k9_learn_flops = statistics.mean(per_batch[rc] for rc in batches)
+    valid9 = float(drqn_valid(done9.transpose(0, 2, 1),
+                              dcfg.burn_in)[1].mean())
+    # Bytes: env rows in and out, the metrics, the window slot written, the
+    # flush (the window read, a ring round written) once every L steps, the
+    # sampled windows read, and per learn p, target, m, v read and p, m, v
+    # written (7 x 4 B a parameter).  Operations: one recurrent forward per
+    # env (L0), the env step, the learner per sampled window, Adam.
+    k9_bytes = (N_TRAIN * (2 * FD.ENV_ROWS + 2 * 4 + FD.SLOT) * 4
+                + N_TRAIN * 2 * WF9 * 4 / L9 + B9 * WF9 * 4 + 28 * DRQN_P)
+    k9_flops = (N_TRAIN * (drqn_forward_flops() + ENV_STEP_FLOPS + OBS_FLOPS)
+                + k9_learn_flops + DRQN_P * ADAM_FLOPS)
+    k9_b_ms, k9_b_by = bound(k9_bytes, k9_flops)
+    k9 = {"chunk_ms": k9_chunk_ms, "step_ms": k9_chunk_ms / T_CHUNK,
+          "one_step_launch_ms": k9_step_ms, "act_step_ms": k9_act_ms,
+          "env_steps_per_s": T_CHUNK * N_TRAIN / (k9_chunk_ms / 1e3),
+          "plain_step_ms": k9_plain, "bound_step_ms": k9_b_ms,
+          "bound_by": k9_b_by, "step_mflop": k9_flops / 1e6,
+          "forward_flops_per_row": drqn_forward_flops(),
+          "learn_mflop": k9_learn_flops / 1e6,
+          "valid_steps_per_window": valid9}
+    results.append(("K9 drqn_trainer", "drqn_trainer", "drqn_trainer.cu",
+                    "merging_gym_tpu/ops/fused_drqn.py:396", "K9",
+                    k9_chunk_ms / T_CHUNK, k9_plain, k9_b_ms, k9_b_by, None))
+
     # The step-loop h-DQN trainer (K4 actors, two autograd learners) per
     # step, as context for K7: host clock around synchronised chunks.
     hcfg = H.HDQNConfig(memory_capacity=max(2000, 2 * N_TRAIN))
@@ -1120,17 +1398,20 @@ def main():
                    "K7": "one step: L0, 1,024 envs, R_lo 4, R_up 2, "
                          "B 1,024",
                    "K8": "one step: L0, 1,024 envs, R 8, B 1,024, 1-step",
+                   "K9": "one step: L0, 1,024 envs, L 16, R 4, B 1,024",
                    "K6": [T_POLICY, N_ENVS]},
         "k4_greedy_share": k4_kept,
         "k5_chunks": k5,
         "k7_chunk": k7,
         "k8_chunk": k8,
+        "k9_chunk": k9,
         "step_loop_train_step_ms": loop_step_ms,
         "step_loop_hdqn_train_step_ms": hdqn_loop_step_ms,
         "launches_by_path": {"evaluation": eval_launches,
                              "training": train_launches,
                              "h-DQN training": hdqn_launches,
-                             "Rainbow training": rb_launches},
+                             "Rainbow training": rb_launches,
+                             "DRQN training": drqn_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": long_ms, "bound_ms": long_bound,
                            "env_steps_per_s": k2_rate},

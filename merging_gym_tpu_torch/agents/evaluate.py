@@ -5,7 +5,9 @@ Counterpart of ``merging_gym_tpu/agents/evaluate.py`` (``evaluate``,
 other over many vectorised envs and reports the episode outcome
 distribution.  ``evaluate`` steps the env in a Python loop (on the card
 each Q-net forward is the K3 kernel); ``evaluate_fused`` runs the whole
-match as one launch of the K6 kernel.  Both return the same dict.
+match as one launch of the K6 kernel; ``evaluate_drqn`` / ``evaluate_mixed``
+play a recurrent (DRQN) seat, whose per-env LSTM state the stateless
+policy protocol cannot carry.  All return the same dict.
 """
 
 from __future__ import annotations
@@ -13,9 +15,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from merging_gym_tpu_torch.agents.policies import Policy, two_player
-from merging_gym_tpu_torch.core.env import EnvParams
-from merging_gym_tpu_torch.core.vector import reset_batch, rollout
+from merging_gym_tpu_torch.agents.policies import (EPSILON, Policy,
+                                                   eps_greedy_from_q,
+                                                   l0_policy, two_player)
+from merging_gym_tpu_torch.core import env as core_env
+from merging_gym_tpu_torch.core.env import EnvParams, TimeStep, swap_obs
+from merging_gym_tpu_torch.core.vector import (autoreset_step,
+                                               observe_after_reset,
+                                               reset_batch, rollout)
+from merging_gym_tpu_torch.device import tensor_device
+from merging_gym_tpu_torch.nn.lstm import drqn_step, lstm_zero_carry
 from merging_gym_tpu_torch.ops.fused_policy_rollout import fused_policy_rollout
 
 
@@ -126,4 +135,90 @@ def evaluate_fused(params1, params2=None, env_params: EnvParams | None = None,
     last_done = np.where(d.any(axis=0), T - 1 - d[::-1].argmax(axis=0), -1)
     in_finished = np.arange(T)[:, None] <= last_done[None, :]   # [T, N]
     ret_sums = (rewards * in_finished[:, None, :]).sum(axis=(0, 2))
+    return _finalize(counts, ret_sums)
+
+
+def evaluate_drqn(params1, policy2: Policy | None = None,
+                  env_params: EnvParams | None = None,
+                  generator: torch.Generator | None = None,
+                  num_envs: int = 256, min_episodes: int = 512,
+                  chunk_steps: int = 512, max_chunks: int = 64,
+                  greedy: bool = False, epsilon: float = EPSILON,
+                  drqn_params2=None) -> dict:
+    """:func:`evaluate` with a DRQN (``nn.lstm`` params) in seat 1.
+
+    Seat 2 is a stateless :class:`Policy` (default L0, the reference's
+    ``action2=None`` opponent) or, with ``drqn_params2``, a second DRQN
+    with its own recurrent state.  See :func:`evaluate_mixed`.
+    """
+    if drqn_params2 is not None:
+        if policy2 is not None:
+            raise ValueError("pass either a stateless policy2 or "
+                             "drqn_params2, not both")
+        seat2 = ("drqn", drqn_params2)
+    else:
+        seat2 = ("policy", policy2 if policy2 is not None else l0_policy())
+    return evaluate_mixed(("drqn", params1), seat2, env_params, generator,
+                          num_envs, min_episodes, chunk_steps, max_chunks,
+                          greedy, epsilon)
+
+
+def evaluate_mixed(seat1, seat2, env_params: EnvParams | None = None,
+                   generator: torch.Generator | None = None,
+                   num_envs: int = 256, min_episodes: int = 512,
+                   chunk_steps: int = 512, max_chunks: int = 64,
+                   greedy: bool = False, epsilon: float = EPSILON) -> dict:
+    """:func:`evaluate` where either seat may be recurrent.
+
+    Each seat is ``("policy", Policy)`` or ``("drqn", nn.lstm params)``.  A
+    DRQN seat carries per-env LSTM state across steps, zeroed on episode
+    reset, and acts by its argmax (``greedy``) or the Phi(eps)-greedy pick;
+    seat 2 acts on the half-swapped obs (main.py:199).  Runs on the
+    generator's device (default: a generator seeded with 0 on the device
+    of the first DRQN seat's params).
+    """
+    for kind, _ in (seat1, seat2):
+        if kind not in ("policy", "drqn"):
+            raise ValueError(f"unknown seat kind {kind!r}")
+    env_params = env_params or EnvParams()
+    if generator is None:
+        params = next(p for kind, p in (seat1, seat2) if kind == "drqn")
+        generator = torch.Generator(device=tensor_device(params))
+        generator.manual_seed(0)
+    dev = generator.device
+    state = reset_batch(env_params, generator, num_envs, device=dev)
+    obs = core_env.observe(state)
+    carries = [lstm_zero_carry((num_envs,), device=dev) for _ in range(2)]
+
+    def act(seat, i, x):
+        kind, payload = seat
+        if kind == "policy":
+            return payload.act(payload.params, x, generator)
+        q, carries[i] = drqn_step(payload, x, carries[i])
+        if greedy:
+            return torch.argmax(q, dim=-1).to(torch.int32)
+        return eps_greedy_from_q(q, generator, epsilon, q.shape[-1])
+
+    counts = {"episodes": 0, "p1_first": 0, "p2_first": 0,
+              "collisions": 0, "timeouts": 0}
+    ret_sums = np.zeros(2)
+    ep_r = np.zeros((num_envs, 2))
+    with torch.no_grad():
+        for _ in range(max_chunks):
+            steps = []
+            for _ in range(chunk_steps):
+                actions = torch.stack([act(seat1, 0, obs),
+                                       act(seat2, 1, swap_obs(obs))], dim=-1)
+                state, ts = autoreset_step(env_params, state, actions,
+                                           generator)
+                obs = observe_after_reset(env_params, state, ts)
+                d = ts.done[:, None]
+                carries = [(torch.where(d, 0.0, h), torch.where(d, 0.0, c))
+                           for h, c in carries]
+                steps.append(ts)
+            _accumulate(counts, ret_sums, ep_r, TimeStep(**{
+                f: torch.stack([getattr(s, f) for s in steps])
+                for f in TimeStep.__dataclass_fields__}))
+            if counts["episodes"] >= min_episodes:
+                break
     return _finalize(counts, ret_sums)

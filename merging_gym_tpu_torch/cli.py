@@ -1,6 +1,7 @@
 """Command-line entry point of the PyTorch / CUDA port.
 
-  python -m merging_gym_tpu_torch.cli [--cpu] train --algo dqn|hdqn|rainbow \\
+  python -m merging_gym_tpu_torch.cli [--cpu] train \\
+      --algo dqn|hdqn|rainbow|drqn \\
       [--fused-kernel] [--opponent L0|selfplay|<params.npz>] ...
   python -m merging_gym_tpu_torch.cli [--cpu] levelk --algo dqn|hdqn \\
       --levels 3 ...
@@ -21,10 +22,13 @@ opponent is such a ``params.npz``.  ``train --algo rainbow --fused-kernel``
 runs the Rainbow trainer K8 (``ops.fused_rainbow``), plain ``train --algo
 rainbow`` the step loop of ``agents.rainbow``, with ``--per``,
 ``--per-alpha``, ``--per-beta``, ``--n-step`` and ``--obs-scale``; its
-frozen opponent is an MLP Q-net ``params.npz``.  Every run writes
+frozen opponent is an MLP Q-net ``params.npz``.  ``train --algo drqn
+--fused-kernel`` runs the DRQN trainer K9 (``ops.fused_drqn``), plain
+``train --algo drqn`` the step loop of ``agents.drqn``; a frozen DRQN
+opponent is the ``params.npz`` of a drqn run.  Every run writes
 ``params.npz`` in the JAX key format and logs
 ``scalars.jsonl``/``scalars.csv``.  ``levelk`` trains L1 against L0, then
-each level against the frozen one before it (dqn and hdqn).  DRQN,
+each level against the frozen one before it (dqn and hdqn).
 ``--resume``/``--checkpoint-every``, ``--plot-every`` and a reference
 ``.pth`` opponent are not ported yet and exit with an error.
 """
@@ -95,11 +99,11 @@ _NOT_PORTED = ("--resume", "--checkpoint-every", "--plot-every")
 def _train_args(p):
     _add_env_args(p)
     p.add_argument("--algo", choices=["dqn", "hdqn", "rainbow", "drqn"],
-                   default="dqn",
-                   help="dqn, hdqn and rainbow are ported so far")
+                   default="dqn")
     p.add_argument("--opponent", default="L0",
                    help='"L0", "selfplay", or a params.npz (frozen; for '
-                        'hdqn the {upper, lower} nets of an hdqn run)')
+                        'hdqn the {upper, lower} nets of an hdqn run, for '
+                        'drqn the net of a drqn run)')
     p.add_argument("--num-envs", type=int, default=1024)
     p.add_argument("--episodes", type=int, default=2000,
                    help="stop once this many episodes completed (main.py:170)")
@@ -142,8 +146,9 @@ def _train_args(p):
                    help="run the whole trainer on the card as a kernel "
                         "sequence: K5 for dqn (ops.fused_trainer), K7 for "
                         "hdqn (ops.fused_hdqn), K8 for rainbow "
-                        "(ops.fused_rainbow); learner batch = num-envs "
-                        "unless --learn-batch")
+                        "(ops.fused_rainbow), K9 for drqn "
+                        "(ops.fused_drqn); learner batch = num-envs unless "
+                        "--learn-batch")
     p.add_argument("--learn-batch", type=int, default=None,
                    help="with --fused-kernel: lanes per learn (multiple of "
                         "128 dividing num-envs; default num-envs)")
@@ -161,18 +166,15 @@ def _train_args(p):
 
 
 def _refuse_unported(args):
-    if args.algo not in ("dqn", "hdqn", "rainbow"):
-        raise SystemExit(f"--algo {args.algo} is not yet ported to the "
-                         "PyTorch package (dqn, hdqn and rainbow only)")
-    if args.algo == "rainbow" and (args.hidden
-                                   or args.compute_dtype != "float32"):
+    if args.algo in ("rainbow", "drqn") and (
+            args.hidden or args.compute_dtype != "float32"):
         raise SystemExit("--hidden/--compute-dtype are wired into the dqn "
-                         "and hdqn trainers only; --algo rainbow would "
+                         f"and hdqn trainers only; --algo {args.algo} would "
                          "silently ignore them (drop the flags or switch "
                          "algo)")
-    if args.algo == "rainbow" and args.learn_rounds != 1:
+    if args.algo in ("rainbow", "drqn") and args.learn_rounds != 1:
         raise SystemExit("--learn-rounds is a dqn-only fused option "
-                         "(rainbow supports --learn-batch)")
+                         f"({args.algo} supports --learn-batch)")
     if args.algo == "hdqn" and args.hidden:
         raise SystemExit("--hidden is wired into the dqn trainer only")
     if args.algo == "hdqn" and args.learn_rounds != 1:
@@ -211,6 +213,22 @@ def _load_frozen_hdqn(path, device):
                          "{upper, lower} nets of an h-DQN run")
     return (qnet_params_from_numpy(nets["upper"], device),
             qnet_params_from_numpy(nets["lower"], device))
+
+
+def _load_frozen_drqn(path, device):
+    """A frozen recurrent opponent: the net of a ``params.npz`` that a
+    ``train --algo drqn`` run wrote (the ``nn.lstm.drqn_init`` layout)."""
+    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.nn.lstm import drqn_params_from_numpy
+
+    if not (path.endswith(".npz") and os.path.exists(path)):
+        raise SystemExit(f"cannot load frozen drqn opponent from {path} "
+                         "(expected a params.npz from a --algo drqn run)")
+    nets = load_params_npz(path)
+    if set(nets) != {"fc1", "fc2", "lstm", "fc3", "fc4"}:
+        raise SystemExit(f"{path!r} holds {sorted(nets)}, not the net of a "
+                         "drqn run")
+    return drqn_params_from_numpy(nets, device)
 
 
 def _fused_scalars(c, learns_key, learns_name):
@@ -369,8 +387,54 @@ def _rainbow_trainer(args, env_params, common, device):
             scalars_of, lambda c: c.params)
 
 
+def _drqn_trainer(args, env_params, common, device):
+    """``(carry, chunk, scalars_of, params_of)`` of a DRQN run: K9 with
+    ``--fused-kernel``, else the step loop (cli.py:404-458, 498-512 of the
+    JAX package, with its defaults)."""
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import drqn as DR
+    from merging_gym_tpu_torch.io.metrics import rates_from_counters
+    from merging_gym_tpu_torch.ops import fused_drqn as FD
+
+    opp = (_load_frozen_drqn(args.opponent, device)
+           if common["opponent"] == D.OPP_FROZEN else None)
+    kw = {k: common[k] for k in ("opponent", "lr", "gamma", "epsilon")}
+    if args.fused_kernel:
+        cfg = DR.DRQNConfig(
+            memory_capacity=args.memory_capacity or 4 * args.num_envs, **kw)
+        carry = FD.fused_drqn_init(args.seed, cfg, env_params, args.num_envs,
+                                   opp, learn_batch=args.learn_batch,
+                                   device=device)
+
+        def chunk(c):
+            return FD.fused_drqn_chunk(cfg, env_params, c, args.chunk_steps,
+                                       seed=args.seed + c["steps"],
+                                       greedy=args.greedy_actor)
+
+        return (carry, chunk,
+                lambda c: _fused_scalars(c, "learns", "learns"),
+                lambda c: FD.t_to_drqn_params(c["p"]))
+    # Windows flush on every lane at once, so the ring holds at least two
+    # flushes (drqn_train_init checks one).
+    cfg = DR.DRQNConfig(
+        memory_capacity=args.memory_capacity or max(512, 2 * args.num_envs),
+        batch_size=args.batch_size or 32, **kw)
+    carry = DR.drqn_train_init(args.seed, cfg, env_params, args.num_envs,
+                               opp, device=device)
+
+    def scalars_of(c):
+        return {**rates_from_counters(c.metrics),
+                "loss": float(c.last_loss),
+                "learns": int(c.learn_counter)}
+
+    return (carry, lambda c: DR.drqn_train_chunk(cfg, env_params, c,
+                                                 args.chunk_steps),
+            scalars_of, lambda c: c.params)
+
+
 def cmd_train(args) -> str:
-    """Train one DQN, h-DQN or Rainbow agent; returns the run directory."""
+    """Train one DQN, h-DQN, Rainbow or DRQN agent; returns the run
+    directory."""
     from merging_gym_tpu_torch.device import resolve_device
     from merging_gym_tpu_torch.io.checkpoint import (run_dir_name,
                                                      save_params_npz)
@@ -390,7 +454,7 @@ def cmd_train(args) -> str:
         hidden=tuple(args.hidden) if args.hidden else (200, 100),
         compute_dtype=args.compute_dtype)
     trainer = {"dqn": _dqn_trainer, "hdqn": _hdqn_trainer,
-               "rainbow": _rainbow_trainer}[args.algo]
+               "rainbow": _rainbow_trainer, "drqn": _drqn_trainer}[args.algo]
     carry, chunk, scalars_of, params_of = trainer(args, env_params, common,
                                                   device)
     out = args.out or run_dir_name(f" {args.algo}", args.opponent,
@@ -416,7 +480,7 @@ def cmd_train(args) -> str:
 def cmd_levelk(args) -> list:
     """Level-k curriculum (main.py:161-168): L1 trains vs L0, L2 vs frozen
     L1, ..., each level in its own run directory; returns them."""
-    if args.algo == "rainbow":
+    if args.algo not in ("dqn", "hdqn"):
         raise SystemExit(
             f"levelk supports --algo dqn or hdqn (got {args.algo!r}): "
             "the curriculum freezes each rung as the next opponent, and "
@@ -424,9 +488,6 @@ def cmd_levelk(args) -> list:
             "VS a frozen rung via train --opponent <npz>, but a frozen "
             "rainbow policy is not a supported opponent; drqn has "
             "neither mode)")
-    if args.algo not in ("dqn", "hdqn"):
-        raise SystemExit(f"levelk --algo {args.algo} is not yet ported to "
-                         "the PyTorch package (dqn and hdqn only)")
     prev, runs = "L0", []
     for level in range(1, args.levels + 1):
         sub = argparse.Namespace(**vars(args))

@@ -25,7 +25,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 LIBRARIES = ("env_rollout", "qnet_mlp", "policy_rollout", "fused_actor",
-             "dqn_trainer", "hdqn_trainer", "rainbow_trainer")
+             "dqn_trainer", "hdqn_trainer", "rainbow_trainer",
+             "drqn_trainer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,7 +45,10 @@ launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
                  # K8's five: act/env/store, the PER pick, the learner's
                  # partial sums, Adam, and the noise / sync / weights pass
                  "rainbow_act": 0, "rainbow_per_pick": 0, "rainbow_learn": 0,
-                 "rainbow_adam": 0, "rainbow_post": 0}
+                 "rainbow_adam": 0, "rainbow_post": 0,
+                 # K9's three: act/env/window/flush, the learner's partial
+                 # sums, Adam
+                 "drqn_act": 0, "drqn_learn": 0, "drqn_adam": 0}
 
 _libs: dict = {}
 _funcs: dict = {}

@@ -61,6 +61,7 @@
 #include <cstdint>
 
 #include "env_math.cuh"
+#include "learn_math.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
 
@@ -213,10 +214,6 @@ __device__ __forceinline__ bool gate_syncs(const DevGate& g, int k) {
   return (static_cast<long long>(g.prior) + k) % g.target_sync == 0;
 }
 
-__device__ __forceinline__ float madd(float acc, float x, float y) {
-  return __fadd_rn(acc, __fmul_rn(x, y));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kTrainThreads)
 learn_partials_kernel(Net<T> pnet, Net<T> tnet, const float* __restrict__ ring,
@@ -349,7 +346,7 @@ learn_partials_kernel(Net<T> pnet, Net<T> tnet, const float* __restrict__ ring,
 
 struct AdamCfg {
   int P, tiles, B, sync;
-  float lr, b1, b2, omb1, omb2, eps, c1, c2;
+  AdamHyper h;
 };
 
 __global__ void adam_kernel(const float* __restrict__ work,
@@ -365,12 +362,10 @@ __global__ void adam_kernel(const float* __restrict__ work,
     const int k = gate_count(gate);
     if (k < 0) return;
     c.sync = gate_syncs(gate, k) ? 1 : 0;
-    c.c1 = gate.bias[2 * k];
-    c.c2 = gate.bias[2 * k + 1];
+    c.h.c1 = gate.bias[2 * k];
+    c.h.c2 = gate.bias[2 * k + 1];
   }
-  float g = 0.0f;
-  for (int j = 0; j < c.tiles; ++j)
-    g = __fadd_rn(g, work[static_cast<size_t>(j) * (c.P + 1) + i]);
+  const float g = sum_partials(work, c.tiles, c.P + 1, i);
   if (i == c.P) {
     *loss = __fdiv_rn(g, static_cast<float>(c.B));
     return;
@@ -379,16 +374,7 @@ __global__ void adam_kernel(const float* __restrict__ work,
     tp[i] = p[i];
     if (pb != nullptr) tpb[i] = pb[i];
   }
-  const float mi = __fadd_rn(__fmul_rn(c.b1, m[i]), __fmul_rn(c.omb1, g));
-  const float vi = __fadd_rn(__fmul_rn(c.b2, v[i]),
-                             __fmul_rn(__fmul_rn(c.omb2, g), g));
-  const float upd = __fdiv_rn(__fmul_rn(c.lr, __fdiv_rn(mi, c.c1)),
-                              __fadd_rn(__fsqrt_rn(__fdiv_rn(vi, c.c2)),
-                                        c.eps));
-  const float pn = __fsub_rn(p[i], upd);
-  p[i] = pn;
-  m[i] = mi;
-  v[i] = vi;
+  const float pn = adam_step(g, p, m, v, i, c.h);
   if (pb != nullptr) pb[i] = __float2bfloat16_rn(pn);
 }
 
@@ -485,7 +471,7 @@ extern "C" int mgt_dqn_adam(const float* work, float* p, float* tp, float* m,
   using namespace mgt;
   if (any_end != nullptr && (bias == nullptr || target_sync <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  AdamCfg c{P, tiles, B, sync, lr, b1, b2, omb1, omb2, eps, c1, c2};
+  AdamCfg c{P, tiles, B, sync, {lr, b1, b2, omb1, omb2, eps, c1, c2}};
   DevGate g{any_end, bias, step, first_open, prior, target_sync};
   const int threads = 256;
   adam_kernel<<<(P + threads) / threads, threads, 0, stream>>>(

@@ -73,6 +73,7 @@
 #include <cstdint>
 
 #include "env_math.cuh"
+#include "learn_math.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
 
@@ -698,7 +699,7 @@ rb_learn_kernel(RbNet pnet, RbNet tnet, const float* __restrict__ ring,
 
 struct RbAdamCfg {
   int tiles, B;
-  float lr, b1, b2, omb1, omb2, eps, c1, c2;
+  AdamHyper h;
 };
 
 // The gradient index of parameter k and, for a sigma, its noise element
@@ -729,21 +730,13 @@ __global__ void rb_adam_kernel(const float* __restrict__ work,
   if (k > kNumP) return;
   int e = -1;
   const int gi = k == kNumP ? kNumG : grad_index(k, e);
-  float g = 0.0f;
-  for (int t = 0; t < c.tiles; ++t)
-    g = fadd(g, work[static_cast<size_t>(t) * (kNumG + 1) + gi]);
+  float g = sum_partials(work, c.tiles, kNumG + 1, gi);
   if (k == kNumP) {
     *loss = __fdiv_rn(g, static_cast<float>(c.B));
     return;
   }
   if (e >= 0) g = fmul(g, eps[e]);
-  const float mi = fadd(fmul(c.b1, m[k]), fmul(c.omb1, g));
-  const float vi = fadd(fmul(c.b2, v[k]), fmul(fmul(c.omb2, g), g));
-  const float upd = __fdiv_rn(fmul(c.lr, __fdiv_rn(mi, c.c1)),
-                              fadd(__fsqrt_rn(__fdiv_rn(vi, c.c2)), c.eps));
-  p[k] = __fsub_rn(p[k], upd);
-  m[k] = mi;
-  v[k] = vi;
+  adam_step(g, p, m, v, k, c.h);
 }
 
 // ---------------------------------------------------------------------------
@@ -928,7 +921,7 @@ extern "C" int mgt_rb_adam(const float* work, float* p, float* m, float* v,
                            float omb2, float eps_adam, float c1, float c2,
                            cudaStream_t stream) {
   using namespace mgt;
-  RbAdamCfg c{tiles, B, lr, b1, b2, omb1, omb2, eps_adam, c1, c2};
+  RbAdamCfg c{tiles, B, {lr, b1, b2, omb1, omb2, eps_adam, c1, c2}};
   const int threads = 256;
   rb_adam_kernel<<<(kNumP + threads) / threads, threads, 0, stream>>>(
       work, p, m, v, eps, loss, c);

@@ -229,14 +229,89 @@ def test_rainbow_refusals(tmp_path, cmd, flags, message):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--algo", "drqn"], ["--resume", "some_run"], ["--plot-every", "1"],
-    ["--per", "--algo", "drqn"], ["--checkpoint-every", "2"]],
+    ["--algo", "drqn", "--resume", "some_run"], ["--resume", "some_run"],
+    ["--plot-every", "1"], ["--per", "--algo", "drqn", "--plot-every", "1"],
+    ["--checkpoint-every", "2"]],
     ids=lambda f: f[0])
 def test_unported_options_exit(tmp_path, flags):
     r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", *flags,
               "--num-envs", "128", "--max-chunks", "1",
               "--out", str(tmp_path / "run")], timeout=120)
     assert r.returncode != 0 and "not yet ported" in r.stderr
+    assert not (tmp_path / "run").exists()
+
+
+def _check_drqn_params(path):
+    """The params.npz of a drqn run loads in both packages (the template
+    of the JAX CLI's ``_load_frozen_drqn``, merging_gym_tpu/cli.py:
+    157-167)."""
+    import jax
+    import numpy as np
+    from merging_gym_tpu.io.checkpoint import load_params_npz as jax_load
+    from merging_gym_tpu.nn.lstm import drqn_init as jax_drqn_init
+    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    for net in (jax_load(path, jax_drqn_init(jax.random.key(0), 10, 5)),
+                load_params_npz(path)):
+        assert np.asarray(net["lstm"]["w_hh"]).shape == (16, 64)
+        assert np.asarray(net["fc1"]["w"]).shape == (10, 200)
+        assert all(np.isfinite(np.asarray(v)).all()
+                   for layer in net.values() for v in layer.values())
+
+
+@pytest.mark.parametrize("trainer,n,learns", [
+    (["--fused-kernel", "--greedy-actor", "--memory-capacity", "256"], 128,
+     40 - 31),
+    (["--opponent", "selfplay"], 16, 40 - 31)], ids=["fused", "step_loop"])
+def test_train_drqn_writes_params_that_both_packages_load(tmp_path, trainer,
+                                                          n, learns):
+    # K9 with R = 2 rounds of 16-step windows learns from global step 31;
+    # the step loop once 32 windows (batch 32) are stored, after step 32.
+    out = tmp_path / "run"
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", "--algo",
+              "drqn", *trainer, "--num-envs", str(n), "--chunk-steps", "20",
+              "--max-chunks", "2", "--out", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = [json.loads(ln) for ln in
+             (out / "scalars.jsonl").read_text().splitlines()]
+    assert [ln["step"] for ln in lines] == [0, 1]
+    assert lines[-1]["env_steps"] == n * 40
+    assert lines[-1]["learns"] == learns and lines[-1]["loss"] > 0.0
+    _check_drqn_params(str(out / "params.npz"))
+
+
+def test_train_drqn_against_a_frozen_drqn(tmp_path):
+    first, second = tmp_path / "first", tmp_path / "second"
+    base = ["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", "--algo",
+            "drqn", "--fused-kernel", "--greedy-actor", "--num-envs", "128",
+            "--memory-capacity", "256", "--chunk-steps", "8",
+            "--max-chunks", "1"]
+    r = _run([*base, "--out", str(first)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    r = _run([*base, "--opponent", str(first / "params.npz"), "--out",
+              str(second)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads((second / "scalars.jsonl").read_text())[
+        "env_steps"] == 128 * 8
+    _check_drqn_params(str(second / "params.npz"))
+
+
+@pytest.mark.parametrize("cmd,flags,message", [
+    ("train", ["--hidden", "64", "32"], "--hidden/--compute-dtype"),
+    ("train", ["--compute-dtype", "bfloat16"], "--hidden/--compute-dtype"),
+    ("train", ["--learn-rounds", "2", "--fused-kernel"], "--learn-rounds"),
+    ("train", ["--random-start", "--greedy-actor", "--fused-kernel"],
+     "--greedy-actor"),
+    ("train", ["--opponent", "not_params.txt"], "cannot load frozen drqn"),
+    ("train", ["--opponent", os.path.join(ZOO, "L1", "params.npz")],
+     "not the net of a drqn run"),
+    ("levelk", [], "levelk supports --algo dqn or hdqn")],
+    ids=["hidden", "compute_dtype", "learn_rounds", "random_start_greedy",
+         "non_npz_opponent", "qnet_opponent", "levelk"])
+def test_drqn_refusals(tmp_path, cmd, flags, message):
+    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", cmd, "--algo",
+              "drqn", *flags, "--num-envs", "128", "--max-chunks", "1",
+              "--out", str(tmp_path / "run")], timeout=120)
+    assert r.returncode != 0 and message in r.stderr
     assert not (tmp_path / "run").exists()
 
 

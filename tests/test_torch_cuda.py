@@ -14,13 +14,16 @@ import torch
 
 from merging_gym_tpu_torch import kernels
 from merging_gym_tpu_torch.agents import dqn as D
+from merging_gym_tpu_torch.agents import drqn as DR
 from merging_gym_tpu_torch.agents import hdqn as H
 from merging_gym_tpu_torch.agents import rainbow as RB
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.core.geometry import lon2coord
 from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+from merging_gym_tpu_torch.nn.lstm import drqn_init
 from merging_gym_tpu_torch.nn.mlp import qnet_init, qnet_params_from_numpy
 from merging_gym_tpu_torch.ops import fused_actor as FA
+from merging_gym_tpu_torch.ops import fused_drqn as FD
 from merging_gym_tpu_torch.ops import fused_hdqn as FH
 from merging_gym_tpu_torch.ops import fused_mlp as FM
 from merging_gym_tpu_torch.ops import fused_policy_rollout as FPR
@@ -274,6 +277,60 @@ def test_k8_equals_plain_and_repeats(cuda, case):
     assert counts["rainbow_adam"] == 2 * got["learns"]
     assert counts["rainbow_per_pick"] == (2 * got["learns"] if cfg.per else 0)
     for k in ("p", "tp", "m", "v", "eps", "teps", "env", "ring"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
+
+
+def _shrink_drqn(flat):
+    """Each of the twelve arrays centred and scaled by 0.05: a decisive
+    argmax (tests/test_fused_drqn_e2e.py:_shrink)."""
+    return FD.drqn_params_to_t({
+        layer: {k: (x - x.mean()) * 0.05 for k, x in p.items()}
+        for layer, p in FD.t_to_drqn_params(flat).items()})
+
+
+@pytest.mark.parametrize("case", ["selfplay_greedy", "l0_lane_window",
+                                  "frozen", "phi_random_start"])
+def test_k9_equals_plain_and_repeats(cuda, case):
+    n, L = 256, 4
+    cfg = DR.DRQNConfig(lr=1e-3, gamma=0.9, target_sync=3, seq_len=L,
+                        burn_in=1, memory_capacity=2 * n,
+                        opponent="selfplay")
+    ep, kw, greedy = EnvParams(max_steps=20), {}, True
+    if case == "l0_lane_window":
+        cfg = cfg.replace(opponent="L0", burn_in=0)
+        kw = dict(learn_batch=128)
+    elif case == "frozen":
+        cfg = cfg.replace(opponent="frozen")
+        kw = dict(opp_params=drqn_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+    elif case == "phi_random_start":
+        ep, greedy = EnvParams(max_steps=12, random_start=True), False
+    carry = FD.fused_drqn_init(0, cfg, ep, n, device=cuda, **kw)
+    carry["p"], carry["tp"] = _shrink_drqn(carry["p"]), _shrink_drqn(
+        carry["tp"])
+    if case == "frozen":
+        carry["opp"] = _shrink_drqn(carry["opp"])
+    if greedy:
+        carry["env"][0:8] = _race_rows(carry["env"], n, cuda, 4)[0:8]
+        carry["win"][0:10] = FD._obs_rows(carry["env"][0:8])
+    got = want = again = carry
+    before = dict(kernels.launch_counts)
+    # The first chunk ends mid-window and inside the R * L - 1 = 7 step
+    # warm-up.
+    for seed, T in enumerate((3, 13)):
+        got = FD.fused_drqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+        want = FD.fused_drqn_chunk_plain(cfg, ep, want, T, seed,
+                                         greedy=greedy)
+        again = FD.fused_drqn_chunk(cfg, ep, again, T, seed, greedy=greedy)
+    counts = {k: kernels.launch_counts[k] - before[k]
+              for k in kernels.launch_counts}
+    assert got["learns"] == 16 - 7 and got["episodes"] > 0
+    assert counts["drqn_act"] == 2 * 16
+    assert counts["drqn_learn"] == counts["drqn_adam"] == 2 * 9
+    for k in ("p", "tp", "m", "v", "env", "win", "ring"):
         assert torch.equal(got[k], want[k]), k
         assert torch.equal(got[k], again[k]), k
     for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):

@@ -35,8 +35,10 @@ Phases, each of which raises (non-zero exit) on failure:
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version, the
      least time the card could take (``bound_ms``) and, for K3 and K4, the
-     three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``); K8
-     and K9 per step and per 200-step chunk.
+     three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``), also
+     at each main-path batch (256, 1,024, 4,096; one call and the device
+     time alone), and K3's device time at every rows-per-block choice;
+     K8 and K9 per step and per 200-step chunk.
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -62,6 +64,10 @@ T_POLICY = 768         # K6 check and timing length: Phi-greedy L2 vs L1
 T_EVAL = 2600          # evaluate_fused's default length
 B_MLP = 4096
 B_RAGGED = 1001
+B_TAIL = 1025          # one row past a K3/K4 block boundary
+# K3 and K4 batches of the main paths: 256 (eval, evaluate(hdqn_policy)),
+# 1,024 (the CLI's default eval, the step-loop actors) and 4,096
+QNET_BATCHES = (256, 1024, 4096)
 N_TRAIN = 1024         # the training CLI's default env count
 N_TRAIN_WIDE = 4096
 N_ENVS_HDQN = 256      # envs of the evaluate(hdqn_policy) main path
@@ -239,6 +245,18 @@ def cuda_ms(torch, fn, reps, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, n=20, reps=10):
+    """Device time of one call: ``n`` calls captured in a CUDA graph, the
+    graph replayed ``reps`` times, median per call (no host time)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(torch, graph.replay, reps) / n
 
 
 class Checks:
@@ -695,7 +713,7 @@ def mlp_cases(params, hdqn_nets, b_hdqn):
     the zoo net at the evaluation shapes, and the h-DQN meta (10 -> 3) and
     low (11 -> 5) nets at the h-DQN path's batch."""
     meta, low = hdqn_nets
-    return [("10->5", params, 10, (B_MLP, B_RAGGED)),
+    return [("10->5", params, 10, (*QNET_BATCHES, B_RAGGED, B_TAIL)),
             ("10->3", meta, 10, (b_hdqn,)), ("11->5", low, 11, (b_hdqn,))]
 
 
@@ -710,8 +728,8 @@ def check_k3(checks, torch, FM, params, hdqn_nets, dev, rng):
                 checks.equal("K3", f"{what} B={b} {cd}",
                              FM.qnet_apply_fused(p, x, cd),
                              FM.qnet_apply_plain(p, x, cd))
-    print("K3: 10->5 at B=4096 and 1001, h-DQN 10->3 and 11->5 at B=256, "
-          "f32 and bf16 equal", flush=True)
+    print("K3: 10->5 at B=256, 1024, 4096, 1001 and 1025, h-DQN 10->3 and "
+          "11->5 at B=256, f32 and bf16 equal", flush=True)
 
 
 def check_k4(checks, torch, FA, FM, params, hdqn_nets, dev, rng):
@@ -738,10 +756,73 @@ def check_k4(checks, torch, FA, FM, params, hdqn_nets, dev, rng):
     if abs(kept - FA.phi(0.7)) > 0.01:
         raise AssertionError(f"K4 greedy share {kept:.4f}, expected "
                              f"{FA.phi(0.7):.4f} +- 0.01")
-    print(f"K4: 10->5 at B=4096 and 1001, h-DQN 10->3 and 11->5 at B=1024, "
+    print(f"K4: 10->5 at B=256, 1024, 4096, 1001 and 1025, h-DQN 10->3 and "
+          f"11->5 at B=1024, "
           f"f32 and bf16 equal; greedy share "
           f"{kept:.4f} (Phi(0.7) = {FA.phi(0.7):.4f})", flush=True)
     return kept
+
+
+def qnet_batch_times(torch, FM, FA, params, dev, rng, reps=50):
+    """K3 and K4 beside their library calls (three ``addmm`` + ReLU; K4:
+    and ``argmax``) at each main-path batch, f32, in ms: CUDA-event medians
+    of one call (``cuda_ms``, host launch time included), the device time
+    alone (``*_device_ms``, ``graph_ms``), and the bound of the work (x,
+    weights and the output once)."""
+    w = FM.cast_weights(params, torch.float32, dev)
+    dims = (w[0].shape[0], w[0].shape[1], w[2].shape[1], w[4].shape[1])
+    w_bytes = sum(t.numel() * 4 for t in w)
+    out = {}
+    for b in QNET_BATCHES:
+        x = torch.as_tensor(rng.standard_normal((b, dims[0])) * 100,
+                            dtype=torch.float32, device=dev)
+        q = torch.empty(b, dims[3], device=dev)
+        acts = torch.empty(b, dtype=torch.int32, device=dev)
+
+        def library():
+            h = torch.relu(torch.addmm(w[1], x, w[0]))
+            h = torch.relu(torch.addmm(w[3], h, w[2]))
+            return torch.addmm(w[5], h, w[4])
+        calls = {"k3": lambda: FM.launch_mlp(w, x, q),
+                 "k3_library": library,
+                 "k4": lambda: FA.launch_actor(w, x, acts, 5, 0.7),
+                 "k4_library": lambda: library().argmax(dim=1)}
+        row = {f"{k}_ms": cuda_ms(torch, f, reps) for k, f in calls.items()}
+        row.update({f"{k}_device_ms": graph_ms(torch, f)
+                    for k, f in calls.items()})
+        row["bound_ms"], _ = bound(b * (dims[0] + dims[3]) * 4 + w_bytes,
+                                   b * mlp_flops(*dims))
+        out[str(b)] = row
+    return out
+
+
+def qnet_rows_times(torch, FM, params, dev, rng):
+    """K3's device time (``graph_ms``, f32, ms) at each main-path batch
+    for every power of two of rows per block up to ``FM.QNET_ROWS_MAX``,
+    each with ``qnet_tiling``'s micro-tile and chunk, beside the rows
+    ``qnet_geometry`` picks: the readings its rule stands on.  Each
+    geometry's q must equal the picked one's."""
+    w = FM.cast_weights(params, torch.float32, dev)
+    dims = (w[0].shape[0], w[0].shape[1], w[2].shape[1], w[4].shape[1])
+    out = {}
+    for b in QNET_BATCHES:
+        x = torch.as_tensor(rng.standard_normal((b, dims[0])) * 100,
+                            dtype=torch.float32, device=dev)
+        want = FM.qnet_apply_fused(params, x)
+        q = torch.empty_like(want)
+        times, rows = {}, 1
+        while rows <= FM.QNET_ROWS_MAX:
+            g = FM.qnet_tiling(dims, rows, 4)
+            if g is not None:
+                FM.launch_mlp(w, x, q, g)
+                if not torch.equal(q, want):
+                    raise AssertionError(f"K3 at {g} differs at B={b}")
+                times[str(rows)] = graph_ms(
+                    torch, lambda: FM.launch_mlp(w, x, q, g))
+            rows *= 2
+        picked = FM.qnet_geometry(b, dims, 4, FM.sm_count(dev)).rows
+        out[str(b)] = {"picked_rows": picked, "device_ms": times}
+    return out
 
 
 def train_path(cli, tmp):
@@ -1172,6 +1253,8 @@ def main():
     results.append(("K4 fused_actor", "fused_actor", "fused_actor.cu",
                     "merging_gym_tpu/ops/fused_actor.py:33", "K4",
                     ms, plain, b_ms, b_by, lib))
+    by_batch = qnet_batch_times(torch, FM, FA, p_l2, dev, rng)
+    by_rows = qnet_rows_times(torch, FM, p_l2, dev, rng)
 
     # K5: one training step at the CLI's defaults (L0, 1,024 envs, R = 4,
     # B = 1,024), timed over a 200-step chunk of a warm carry (every step
@@ -1390,6 +1473,8 @@ def main():
     torch.cuda.synchronize()
     loop_step_ms = (time.perf_counter() - t) * 1e3 / 20
 
+    print(json.dumps({"card": card, "k3_k4_by_batch": by_batch,
+                      "k3_device_ms_by_rows": by_rows}))
     print(json.dumps({
         "card": card,
         "shapes": {"K1": [T_ROLLOUT, N_ENVS], "K2": [T_ROLLOUT, N_ENVS],

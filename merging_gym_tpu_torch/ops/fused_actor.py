@@ -3,10 +3,11 @@
 Replaces ``merging_gym_tpu/ops/fused_actor.py:_actor_kernel``
 (``pallas_call`` at :83, entry ``fused_eps_greedy_actions``), the actor
 of the step-loop DQN trainer (``agents.dqn._choose_actions``).  On the
-card it is ``kernels/csrc/fused_actor.cu``: a block runs the K3 forward
-of a tile of rows (``kernels/csrc/mlp.cuh``), then one thread per row
-takes the first-occurrence argmax and the Phi(eps)-greedy pick; only the
-int32 actions leave the card.
+card it is ``kernels/csrc/fused_actor.cu``: a block runs K3's forward of
+its rows (``kernels/csrc/qnet_tiled.cuh``, with K3's launch geometry,
+``ops.fused_mlp.qnet_geometry``), then one thread per row takes the
+first-occurrence argmax and the Phi(eps)-greedy pick; only the int32
+actions leave the card.
 
 The pick is the reference's ``randn() <= eps`` rule (main.py:105) as one
 uniform draw: keep the greedy action iff a uint32 word is below
@@ -31,10 +32,12 @@ import torch
 
 from merging_gym_tpu_torch import kernels
 from merging_gym_tpu_torch.ops import philox
-from merging_gym_tpu_torch.ops.fused_mlp import (K3_TILE_ROWS, cast_weights,
-                                                 compute_dtype_of, mlp_plain)
+from merging_gym_tpu_torch.ops.fused_mlp import (cast_weights,
+                                                 compute_dtype_of, mlp_plain,
+                                                 qnet_geometry, qnet_widths,
+                                                 sm_count)
 
-_ACTOR_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_ACTOR_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                + [ctypes.c_uint32] * 3 + [ctypes.c_void_p])
 
 
@@ -93,16 +96,14 @@ def launch_actor(weights: list, x: torch.Tensor, out: torch.Tensor,
                  seed: int, epsilon: float) -> None:
     """Launch K4: ``x`` f32[B, in] -> ``out`` i32[B] (preallocated)."""
     dev = kernels.require_cuda(x, out, *weights)
-    w0, w1, w2 = weights[0], weights[2], weights[4]
-    d_in, h1, h2, a = w0.shape[0], w0.shape[1], w1.shape[1], w2.shape[1]
-    if x.shape[1] != d_in or w1.shape[0] != h1 or w2.shape[0] != h2:
-        raise ValueError("Q-net shapes do not chain")
-    tile = kernels.tile_size(K3_TILE_ROWS, a * 4,
-                             (d_in + h1 + h2) * w0.element_size())
+    widths = qnet_widths(weights, x)
+    g = qnet_geometry(x.shape[0], widths, weights[0].element_size(),
+                      sm_count(dev), q_per_row=widths[3])
     k0, k1 = philox.seed_key(seed)
     fn = kernels.function("fused_actor", "mgt_fused_actor", _ACTOR_ARGS)
     rc = fn(kernels.ptr(x), *map(kernels.ptr, weights), kernels.ptr(out),
-            x.shape[0], d_in, h1, h2, a, int(w0.dtype == torch.bfloat16),
-            tile, greedy_threshold(epsilon), k0, k1, kernels.stream_ptr(dev))
+            x.shape[0], *widths, int(weights[0].dtype == torch.bfloat16),
+            g.rows, g.rm, g.rn, g.chunk, g.smem, greedy_threshold(epsilon),
+            k0, k1, kernels.stream_ptr(dev))
     kernels.check("fused_actor", rc, "fused_actor launch")
     kernels.launch_counts["fused_actor"] += 1

@@ -2,14 +2,17 @@
 
 Replaces ``merging_gym_tpu/ops/fused_mlp.py:_mlp_kernel`` (``pallas_call``
 at :60, entry ``qnet_apply_fused``).  On the card it is
-``kernels/csrc/qnet_mlp.cu``: a block owns a tile of rows, keeps the tile's
-activations in shared memory and reads the weights through L1/L2, so x is
-read once and q written once.  Products accumulate in f32 on the CUDA
-cores, in input order, one rounding per multiply and per add (no TF32, no
-FMA): the plain version below does the same arithmetic, so the two agree
-bit for bit on the card, and the policy-rollout kernel (K6) shares the
-same device code (``kernels/csrc/mlp.cuh``), so ``evaluate`` and
-``evaluate_fused`` pick the same greedy actions.
+``kernels/csrc/qnet_mlp.cu`` around the register-tiled forward of
+``kernels/csrc/qnet_tiled.cuh``: a block owns ``rows`` rows and keeps their
+activations in shared memory, each thread sums a micro-tile of outputs,
+and the weights stream through shared memory in chunks; x is read once and
+q written once.  :func:`qnet_geometry` sizes the blocks from the batch and
+the card's SM count.  Products accumulate in f32 on the CUDA cores, in
+input order, one rounding per multiply and per add (no TF32, no FMA): the
+plain version below does the same arithmetic, so the two agree bit for
+bit on the card, and so does the policy-rollout kernel (K6, whose forward
+is ``kernels/csrc/mlp.cuh``), so ``evaluate`` and ``evaluate_fused`` pick
+the same greedy actions.
 
 ``compute_dtype="bfloat16"``: weights and activations in bf16, f32
 accumulation, each layer's sum rounded to bf16 before its bf16 bias add,
@@ -19,6 +22,8 @@ Q-values returned as f32 (the JAX package's ``compute_dtype`` contract).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,9 +31,102 @@ from merging_gym_tpu_torch import kernels
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _MLP_ARGS = ([ctypes.c_void_p] * 8
-             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-# Rows per block; fewer where a wide net's tile would not fit.
-K3_TILE_ROWS = 32
+             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+
+QNET_ROWS_MAX = 32
+# (rows, columns) of a thread's micro-tile, in order of preference (most
+# reuse first); kernels/csrc/qnet_tiled.cuh:MGT_QNET_TILES instantiates them.
+QNET_TILES = ((8, 4), (8, 2), (4, 2), (4, 1), (2, 1), (1, 4), (1, 1))
+QNET_MIN_TILES = 96  # micro-tiles of the largest layer per block: 3 warps
+
+
+class QnetGeometry(NamedTuple):
+    """Launch geometry of K3 and K4: ``rows`` of x per block, ``rm`` x
+    ``rn`` micro-tiles, ``chunk`` elements per weight buffer and ``smem``
+    bytes of shared memory per block."""
+    rows: int
+    rm: int
+    rn: int
+    chunk: int
+    smem: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def qnet_smem(widths, rows: int, chunk: int, elem: int,
+              q_per_row: int = 0) -> int:
+    """Shared-memory bytes of one block (qnet_tiled.cuh:QnetSmem): two
+    weight buffers, the x, h1 and h2 tiles with rows padded to
+    ``act_stride``, and ``q_per_row`` f32 per row."""
+    n = _align16(2 * chunk * elem)
+    for k in widths[:3]:
+        n += _align16(rows * ((k + 3) // 4 * 4 + 4) * elem)
+    return n + rows * q_per_row * 4
+
+
+def qnet_tiling(widths: tuple, rows: int, elem: int,
+                q_per_row: int = 0) -> QnetGeometry | None:
+    """The geometry of blocks of ``rows`` rows of a Q-net of ``widths``
+    (in, h1, h2, a) in ``elem``-byte weights, or None where the tiles leave
+    no room for two weight buffers of one k-row of the widest layer.
+
+    The buffers take the rest of the block's shared memory, up to the
+    largest layer, in multiples of 8 elements: the second buffer then
+    starts 16-byte aligned, as its ``cp.async`` copies need.  The
+    micro-tile is the first of ``QNET_TILES`` that gives the largest layer
+    at least ``QNET_MIN_TILES`` tiles, else the one that gives it the most.
+    """
+    layers = tuple(zip(widths[:3], widths[1:]))
+    full = -(-max(k * j for k, j in layers) // 8) * 8
+    room = kernels.SMEM_LIMIT - qnet_smem(widths, rows, 0, elem, q_per_row)
+    chunk = min(full, room // (2 * elem) // 8 * 8)
+    if chunk < max(j for _, j in layers):
+        return None
+    j_main = max(layers, key=lambda kj: kj[0] * kj[1])[1]
+    fits = [(rm, rn) for rm, rn in QNET_TILES if rm <= rows]
+    tiles = {t: -(-rows // t[0]) * -(-j_main // t[1]) for t in fits}
+    rm, rn = next((t for t in fits if tiles[t] >= QNET_MIN_TILES),
+                  max(fits, key=tiles.get))
+    return QnetGeometry(rows, rm, rn, chunk,
+                        qnet_smem(widths, rows, chunk, elem, q_per_row))
+
+
+@functools.lru_cache(maxsize=None)
+def qnet_geometry(batch: int, widths: tuple, elem: int, sm_count: int,
+                  q_per_row: int = 0) -> QnetGeometry:
+    """K3's and K4's launch geometry for ``batch`` rows on ``sm_count``
+    SMs: :func:`qnet_tiling` of the smallest power of two of rows per block
+    (at most ``QNET_ROWS_MAX``) that needs no more blocks than the card has
+    SMs -- one full block per SM, each streaming the weights once (the
+    rows sweep of chip_smoke.py times the others) -- halved while its tiles
+    do not fit shared memory.
+    """
+    top = 1
+    while top < QNET_ROWS_MAX and -(-batch // top) > sm_count:
+        top *= 2
+    for rows in (top >> i for i in range(top.bit_length())):
+        g = qnet_tiling(widths, rows, elem, q_per_row)
+        if g is not None:
+            return g
+    raise ValueError(f"a Q-net of widths {tuple(widths)} does not fit the "
+                     f"{kernels.SMEM_LIMIT} B of shared memory of a block")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def qnet_widths(weights: list, x: torch.Tensor) -> tuple:
+    """(in, h1, h2, a) of ``weights``; raises if they and x do not chain."""
+    w0, w1, w2 = weights[0], weights[2], weights[4]
+    d_in, h1, h2, a = w0.shape[0], w0.shape[1], w1.shape[1], w2.shape[1]
+    if x.shape[1] != d_in or w1.shape[0] != h1 or w2.shape[0] != h2:
+        raise ValueError("Q-net shapes do not chain")
+    return d_in, h1, h2, a
 
 
 def compute_dtype_of(name) -> torch.dtype:
@@ -107,19 +205,17 @@ def qnet_apply_fused(params: dict, x: torch.Tensor,
     return out.reshape(*lead, out.shape[-1])
 
 
-def launch_mlp(weights: list, x: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch K3: ``x`` f32[B, in] -> ``out`` f32[B, A] (preallocated)."""
+def launch_mlp(weights: list, x: torch.Tensor, out: torch.Tensor,
+               geometry: QnetGeometry | None = None) -> None:
+    """Launch K3: ``x`` f32[B, in] -> ``out`` f32[B, A] (preallocated), in
+    ``geometry`` (by default :func:`qnet_geometry`'s)."""
     dev = kernels.require_cuda(x, out, *weights)
-    w0, w1, w2 = weights[0], weights[2], weights[4]
-    d_in, h1, h2, a = w0.shape[0], w0.shape[1], w1.shape[1], w2.shape[1]
-    if x.shape[1] != d_in or w1.shape[0] != h1 or w2.shape[0] != h2:
-        raise ValueError("Q-net shapes do not chain")
-    tile = kernels.tile_size(K3_TILE_ROWS, 0,
-                             (d_in + h1 + h2) * weights[0].element_size())
+    widths = qnet_widths(weights, x)
+    g = geometry or qnet_geometry(x.shape[0], widths,
+                                  weights[0].element_size(), sm_count(dev))
     fn = kernels.function("qnet_mlp", "mgt_qnet_mlp", _MLP_ARGS)
     rc = fn(kernels.ptr(x), *map(kernels.ptr, weights), kernels.ptr(out),
-            x.shape[0], d_in, h1, h2, a,
-            int(weights[0].dtype == torch.bfloat16), tile,
-            kernels.stream_ptr(dev))
+            x.shape[0], *widths, int(weights[0].dtype == torch.bfloat16),
+            g.rows, g.rm, g.rn, g.chunk, g.smem, kernels.stream_ptr(dev))
     kernels.check("qnet_mlp", rc, "qnet_mlp launch")
     kernels.launch_counts["qnet_mlp"] += 1

@@ -16,12 +16,15 @@ from merging_gym_tpu_torch import kernels
 from merging_gym_tpu_torch.agents import dqn as D
 from merging_gym_tpu_torch.agents import drqn as DR
 from merging_gym_tpu_torch.agents import hdqn as H
+from merging_gym_tpu_torch.agents import policies as P
 from merging_gym_tpu_torch.agents import rainbow as RB
+from merging_gym_tpu_torch.agents.evaluate import evaluate, evaluate_fused
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.core.geometry import lon2coord
 from merging_gym_tpu_torch.io.checkpoint import load_params_npz
 from merging_gym_tpu_torch.nn.lstm import drqn_init
-from merging_gym_tpu_torch.nn.mlp import qnet_init, qnet_params_from_numpy
+from merging_gym_tpu_torch.nn.mlp import (qnet_apply, qnet_init,
+                                          qnet_params_from_numpy)
 from merging_gym_tpu_torch.ops import fused_actor as FA
 from merging_gym_tpu_torch.ops import fused_drqn as FD
 from merging_gym_tpu_torch.ops import fused_hdqn as FH
@@ -62,14 +65,51 @@ def test_k1_k2_equal_plain(cuda, mode):
     assert kernels.launch_counts["env_counters"] == before["env_counters"] + 1
 
 
+# Batches of K3 and K4: tails below one block and across a block boundary
+# (1, 33, 77, 1,025), and the main paths' 256, 1,024 and 4,096, at the
+# reference widths; and hidden widths 150 x 75, whose layers are no
+# multiple of 8 elements (the weight buffers' alignment).
+REF, ODD = (200, 100), (150, 75)
+QNET_BATCHES = [(1, 10, REF), (33, 10, REF), (77, 11, REF), (256, 10, REF),
+                (1024, 10, REF), (1025, 10, REF), (4096, 10, REF),
+                (77, 11, ODD), (1025, 10, ODD)]
+
+
+def _qnet_id(v):
+    return "x".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("batch,d_in", [(1, 10), (33, 10), (4096, 10),
-                                        (77, 11)])
-def test_k3_equals_plain(cuda, compute_dtype, batch, d_in):
-    p = qnet_init(torch.Generator(device=cuda).manual_seed(0), d_in, 5)
+@pytest.mark.parametrize("batch,d_in,hidden", QNET_BATCHES, ids=_qnet_id)
+def test_k3_equals_plain(cuda, compute_dtype, batch, d_in, hidden):
+    p = qnet_init(torch.Generator(device=cuda).manual_seed(0), d_in, 5,
+                  hidden=hidden)
     x = torch.randn(batch, d_in, device=cuda) * 100
     assert torch.equal(FM.qnet_apply_fused(p, x, compute_dtype),
                        FM.qnet_apply_plain(p, x, compute_dtype))
+
+
+def test_k3_greedy_evaluate_equals_k6(cuda):
+    """Greedy ``evaluate`` through K3 (qnet_tiled.cuh) picks the actions of
+    greedy ``evaluate_fused`` through K6 (mlp.cuh): the two forwards give
+    the same q bit for bit.  chip_smoke.py's check 4, on a shorter run."""
+    p1 = qnet_params_from_numpy(load_params_npz("model_zoo/L2/params.npz"),
+                                cuda)
+    p2 = qnet_params_from_numpy(load_params_npz("model_zoo/L1/params.npz"),
+                                cuda)
+    short = EnvParams(max_steps=60)
+    before = kernels.launch_counts["qnet_mlp"]
+    loop = evaluate(P.q_policy(qnet_apply, p1, greedy=True),
+                    P.q_policy(qnet_apply, p2, greedy=True), short,
+                    torch.Generator(device=cuda).manual_seed(0),
+                    num_envs=256, min_episodes=1, chunk_steps=64,
+                    max_chunks=1)
+    assert kernels.launch_counts["qnet_mlp"] - before >= 64
+    fused = evaluate_fused(p1, p2, short, num_envs=256, num_steps=64,
+                           greedy=True, device=cuda)
+    assert loop["episodes"] > 0
+    for k, v in loop.items():
+        assert abs(v - fused[k]) <= 1e-5, (k, v, fused[k])
 
 
 def test_k3_wide_net_uses_a_smaller_tile(cuda):
@@ -99,10 +139,11 @@ def test_k6_equals_plain(cuda, case):
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("batch", [1, 77, 4096])
-def test_k4_equals_plain(cuda, compute_dtype, batch):
-    p = qnet_init(torch.Generator(device=cuda).manual_seed(2), 10, 5)
-    x = torch.randn(batch, 10, device=cuda) * 100
+@pytest.mark.parametrize("batch,d_in,hidden", QNET_BATCHES, ids=_qnet_id)
+def test_k4_equals_plain(cuda, compute_dtype, batch, d_in, hidden):
+    p = qnet_init(torch.Generator(device=cuda).manual_seed(2), d_in, 5,
+                  hidden=hidden)
+    x = torch.randn(batch, d_in, device=cuda) * 100
     before = kernels.launch_counts["fused_actor"]
     got = FA.fused_eps_greedy_actions(p, x, 11, 0.7, compute_dtype)
     assert kernels.launch_counts["fused_actor"] == before + 1
@@ -335,6 +376,20 @@ def test_k9_equals_plain_and_repeats(cuda, case):
         assert torch.equal(got[k], again[k]), k
     for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
         assert got[k] == want[k] == again[k], k
+
+
+def test_k3_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the host's geometry: shared memory short of its
+    layout, or a second weight buffer not 16-byte aligned, is refused
+    before the launch."""
+    p = qnet_init(torch.Generator(device=cuda).manual_seed(0), 10, 5)
+    w = FM.cast_weights(p, torch.float32, cuda)
+    x, q = torch.zeros(4, 10, device=cuda), torch.zeros(4, 5, device=cuda)
+    g = FM.qnet_geometry(4, (10, 200, 100, 5), 4, FM.sm_count(cuda))
+    FM.launch_mlp(w, x, q, g)
+    for bad in (g._replace(smem=g.smem - 16), g._replace(chunk=g.chunk - 2)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FM.launch_mlp(w, x, q, bad)
 
 
 def test_kernels_refuse_mixed_devices(cuda):

@@ -38,7 +38,9 @@ Phases, each of which raises (non-zero exit) on failure:
      three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``), also
      at each main-path batch (256, 1,024, 4,096; one call and the device
      time alone), and K3's device time at every rows-per-block choice;
-     K8 and K9 per step and per 200-step chunk.
+     K8 and K9 per step and per 200-step chunk; one warm step of K5 and
+     of K7 split by kernel (device time of each launch, launches per
+     step, one learn beside its bound: the ``trainer_split`` line).
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -97,18 +99,27 @@ def mlp_flops(d_in, h1, h2, a):
 
 
 def learn_flops(d_in, h1, h2, a):
-    """One sampled lane of K5's learner: three forwards (x; x' on the
-    online and the target net), the TD error, and the backward of
-    learn_math (dz2, dz1, the six gradients)."""
-    backward = (2 * h2 * a + h2) + (2 * h1 * h2 + h1) + (
-        2 * (d_in * h1 + h1 * h2 + h2 * a) + h1 + h2 + a)
-    return 3 * mlp_flops(d_in, h1, h2, a) + 2 * a + 8 + backward
+    """One sampled lane of K5's learner, at what the function needs: the
+    online forward on x' in full (its argmax picks the action); the target
+    forward on x' and the online one on x with the last layer at one
+    action only (the argmax's, the taken one's); the TD math (mask,
+    target, diff, dq, diff^2 and its sum); the backward with dq one-hot:
+    dz2 = w2[:, a_i] dq (h2 products and the ReLU mask), dz1 = (w1 dz2)
+    relu'; and the gradient products (2 per weight, 1 per bias; w2 and b2
+    at the taken action's column only)."""
+    hidden = 2 * (d_in * h1 + h1 * h2) + 2 * (h1 + h2)
+    one_action = hidden + 2 * h2 + 1
+    backward = 2 * h2 + (2 * h1 * h2 + h1) + (
+        2 * (d_in * h1 + h1 * h2 + h2) + h1 + h2 + 1)
+    return mlp_flops(d_in, h1, h2, a) + 2 * one_action + 8 + backward
 
 
 ADAM_FLOPS = 14        # per parameter: two moments, bias-corrected update
 
-K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_lower", "hdqn_adam_lower",
-             "hdqn_learn_upper", "hdqn_adam_upper")
+K5_COUNTS = ("dqn_act_env_store", "dqn_learn_fwd", "dqn_learn_grad")
+K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_fwd_lower",
+             "hdqn_learn_grad_lower", "hdqn_learn_fwd_upper",
+             "hdqn_learn_grad_upper")
 K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn",
              "rainbow_adam", "rainbow_post")
 K9_COUNTS = ("drqn_act", "drqn_learn", "drqn_adam")
@@ -825,6 +836,137 @@ def qnet_rows_times(torch, FM, params, dev, rng):
     return out
 
 
+def kernel_split(torch, kernels, launch, dev):
+    """Device time of each kernel that ``launch()`` issues, in launch
+    order: every C entry point it calls is timed where it is called (the
+    call's tensors are alive then) by ``graph_ms`` on the same arguments,
+    then called once for real.  Returns ``[[entry point, ms], ...]``.  It
+    needs only ``kernels.function``, so it times a parent's package too."""
+    split = []
+    real = kernels.function
+
+    def timing(lib, name, argtypes):
+        fn = real(lib, name, argtypes)
+
+        def call(*args):
+            def again():
+                rc = fn(*args[:-1], kernels.stream_ptr(dev))
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            split.append([name, graph_ms(torch, again)])
+            return fn(*args)
+        return call
+    kernels.function = timing
+    try:
+        launch()
+        torch.cuda.synchronize()
+    finally:
+        kernels.function = real
+    return split
+
+
+def trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev):
+    """One warm step of K5 and of K7 at the CLI defaults (L0, 1,024 envs,
+    B 1,024) split by kernel (``kernel_split``): device ms of each launch,
+    launches per warm step, their sum, and one learn (every launch after
+    the act kernel; K7: each of its two learners) beside its bound,
+    ``learn_flops`` x B at the f32 rate; and the time per step of a warm
+    200-step chunk (CUDA events, host launches included)."""
+    ep = EnvParams()
+    out = {}
+    cfg = D.DQNConfig(memory_capacity=4 * N_TRAIN)
+    carry = FT.fused_dqn_chunk(cfg, ep, FT.fused_dqn_init(
+        0, cfg, ep, N_TRAIN, device=dev), 20, 0)
+    st = FT.working_state(carry, torch.float32)
+    zeros = np.zeros(carry["K"], np.int32)
+    split = kernel_split(torch, kernels, lambda: FT.launch_trainer(
+        st, carry, cfg, ep, 1, 1, False, zeros, zeros), dev)
+    r = np.random.default_rng(1)
+    rounds = r.integers(0, carry["R"], T_CHUNK).astype(np.int32)
+    cols = np.zeros(T_CHUNK, np.int32)
+    chunk_ms = cuda_ms(torch, lambda: FT.launch_trainer(
+        st, carry, cfg, ep, T_CHUNK, 1, False, rounds, cols), 3)
+    dims = (10, 200, 100, 5)
+    out["K5"] = {"kernels": split, "launches_per_warm_step": len(split),
+                 "chunk_step_ms": chunk_ms / T_CHUNK,
+                 "step_device_ms": sum(ms for _, ms in split),
+                 "learn_ms": sum(ms for _, ms in split[1:]),
+                 "learn_bound_ms": bound(0, carry["B"] * learn_flops(*dims))[0]}
+    hcfg = H.HDQNConfig(memory_capacity=4 * N_TRAIN,
+                        goal_memory_capacity=2 * N_TRAIN)
+    hcarry = FH.fused_hdqn_chunk(hcfg, ep, FH.fused_hdqn_init(
+        0, hcfg, ep, N_TRAIN, device=dev), 20, 0)
+    hst = FH.working_state(hcarry, torch.float32)
+    up0 = FH.upper_learns(hst["state"])
+    z = np.zeros(1, np.int64)
+    split = kernel_split(torch, kernels, lambda: FH.launch_hdqn(
+        hst, hcarry, hcfg, ep, 1, 1, False, z, z, np.zeros(2, np.int64)),
+        dev)
+    fired = FH.upper_learns(hst["state"]) - up0
+    streams = (r.integers(0, hcarry["R_lo"], T_CHUNK),
+               r.integers(0, hcarry["R_up"], T_CHUNK),
+               np.zeros(2 * T_CHUNK, np.int64))
+    chunk_ms = cuda_ms(torch, lambda: FH.launch_hdqn(
+        hst, hcarry, hcfg, ep, T_CHUNK, 1, False, *streams), 3)
+    half = (len(split) - 1) // 2
+    B = hcarry["B"]
+    out["K7"] = {"kernels": split, "launches_per_warm_step": len(split),
+                 "chunk_step_ms": chunk_ms / T_CHUNK,
+                 "upper_fired": fired,
+                 "step_device_ms": sum(ms for _, ms in split),
+                 "lower_learn_ms": sum(ms for _, ms in split[1:1 + half]),
+                 "upper_learn_ms": sum(ms for _, ms in split[1 + half:]),
+                 "lower_learn_bound_ms": bound(
+                     0, B * learn_flops(11, 200, 100, 5))[0],
+                 "upper_learn_bound_ms": bound(
+                     0, B * learn_flops(10, 200, 100, 3))[0]}
+    return out
+
+
+def learn_lanes_times(torch, kernels, FT, FM, D, EnvParams, dev):
+    """One K5 learn at the CLI defaults (L0, 1,024 envs, B 1,024, f32),
+    device ms by ``graph_ms``: at every power of two of lanes per block up
+    to ``FT.LEARN_LANES_MAX`` (``learn_tiling``'s micro-tile and chunk),
+    and at the picked lanes with every micro-tile of ``FM.QNET_TILES``,
+    beside what ``learn_geometry`` picks: the readings its rule stands on.
+    Each geometry's parameters after one learn must equal the picked
+    one's."""
+    ep = EnvParams()
+    cfg = D.DQNConfig(memory_capacity=4 * N_TRAIN)
+    carry = FT.fused_dqn_chunk(cfg, ep, FT.fused_dqn_init(
+        0, cfg, ep, N_TRAIN, device=dev), 20, 0)
+    dims = FT._dims(carry["p"])
+    rounds = torch.ones(1, dtype=torch.int32, device=dev)
+    cols = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def learn(lr, st):  # on the current stream (graph_ms captures it)
+        lr.stream = kernels.stream_ptr(dev)
+        lr.launch(st["ring"], FT.NUM_F, rounds, cols, st["loss"],
+                  ("dqn_learn_fwd", "dqn_learn_grad"), t=2)
+
+    def time(g):
+        st = FT.working_state(carry, torch.float32)
+        lr = FT.Learner(st, "", dims, carry["B"], 1, cfg, dev, g)
+        learn(lr, st)
+        if not all(torch.equal(st[k], want[k]) for k in (
+                "p", "tp", "m", "v", "loss")):
+            raise AssertionError(f"the learner at {g} differs")
+        return graph_ms(torch, lambda: learn(lr, st))
+    picked = FT.learn_geometry(carry["B"], dims, 4, FT.sm_count(dev))
+    want = FT.working_state(carry, torch.float32)
+    learn(FT.Learner(want, "", dims, carry["B"], 1, cfg, dev), want)
+    by_lanes, lanes = {}, 1
+    while lanes <= FT.LEARN_LANES_MAX:
+        g = FT.learn_tiling(dims, lanes, 4)
+        if g is not None:
+            by_lanes[str(lanes)] = time(g)
+        lanes *= 2
+    by_tile = {f"{rm}x{rn}": time(picked._replace(rm=rm, rn=rn))
+               for rm, rn in FM.QNET_TILES if rm <= 2 * picked.lanes}
+    return {"picked": picked._asdict(), "device_ms_by_lanes": by_lanes,
+            "device_ms_by_tile": by_tile}
+
+
 def train_path(cli, tmp):
     """The training main path through the port's CLI; returns the run
     directories and the ``eval --fused`` result of the trained nets."""
@@ -1066,9 +1208,8 @@ def main():
         train_launches = dict(kernels.launch_counts)
         print(f"training path: {phase_s['training path']:.2f} s, launches "
               f"{train_launches}", flush=True)
-        missing = [k for k in ("fused_actor", "dqn_act_env_store",
-                               "dqn_learn_partials", "dqn_adam",
-                               "policy_rollout") if train_launches[k] == 0]
+        missing = [k for k in ("fused_actor", *K5_COUNTS, "policy_rollout")
+                   if train_launches[k] == 0]
         if missing:
             raise AssertionError(f"training path launched no {missing}")
         check_runs(np, runs, load_params_npz)
@@ -1126,8 +1267,7 @@ def main():
     launches = {k: eval_launches[k] + train_launches[k] + hdqn_launches[k]
                 + rb_launches[k] + drqn_launches[k]
                 for k in kernels.launch_counts}
-    launches["dqn_trainer"] = sum(train_launches[k] for k in (
-        "dqn_act_env_store", "dqn_learn_partials", "dqn_adam"))
+    launches["dqn_trainer"] = sum(train_launches[k] for k in K5_COUNTS)
     launches["hdqn_trainer"] = sum(hdqn_launches[k] for k in K7_COUNTS)
     launches["rainbow_trainer"] = sum(rb_launches[k] for k in K8_COUNTS)
     launches["drqn_trainer"] = sum(drqn_launches[k] for k in K9_COUNTS)
@@ -1342,6 +1482,11 @@ def main():
                     "merging_gym_tpu/ops/fused_hdqn.py:86", "K7",
                     k7_chunk_ms / T_CHUNK, k7_plain, k7_b_ms, k7_b_by, None))
 
+    # K5's and K7's warm steps split by kernel (device time of each).
+    split = trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev)
+    split["learn_geometry_sweep"] = learn_lanes_times(
+        torch, kernels, FT, FM, D, EnvParams, dev)
+
     # K8: one training step at the CLI's defaults (L0, 1,024 envs, R 8,
     # B 1,024, uniform 1-step), timed over a 200-step chunk of a warm carry
     # (every step learns); the plain version per step over a short chunk.
@@ -1475,6 +1620,7 @@ def main():
 
     print(json.dumps({"card": card, "k3_k4_by_batch": by_batch,
                       "k3_device_ms_by_rows": by_rows}))
+    print(json.dumps({"card": card, "trainer_split": split}))
     print(json.dumps({
         "card": card,
         "shapes": {"K1": [T_ROLLOUT, N_ENVS], "K2": [T_ROLLOUT, N_ENVS],

@@ -34,14 +34,15 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block can use on sm_90
 
 launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
                  "policy_rollout": 0, "fused_actor": 0,
-                 # K5's three per-step kernels
-                 "dqn_act_env_store": 0, "dqn_learn_partials": 0,
-                 "dqn_adam": 0,
+                 # K5's three per-step kernels: act/env/store, the
+                 # learner's forward/backward and its gradients + Adam
+                 "dqn_act_env_store": 0, "dqn_learn_fwd": 0,
+                 "dqn_learn_grad": 0,
                  # K7's five: its act/env/store kernel and the learner
                  # kernels of dqn_trainer.cu for its lower and upper nets
-                 "hdqn_act_env_store": 0, "hdqn_learn_lower": 0,
-                 "hdqn_adam_lower": 0, "hdqn_learn_upper": 0,
-                 "hdqn_adam_upper": 0,
+                 "hdqn_act_env_store": 0, "hdqn_learn_fwd_lower": 0,
+                 "hdqn_learn_grad_lower": 0, "hdqn_learn_fwd_upper": 0,
+                 "hdqn_learn_grad_upper": 0,
                  # K8's five: act/env/store, the PER pick, the learner's
                  # partial sums, Adam, and the noise / sync / weights pass
                  "rainbow_act": 0, "rainbow_per_pick": 0, "rainbow_learn": 0,

@@ -6,14 +6,14 @@
 // every piece of state resident in VMEM.  Blocks of an H100 run in no
 // order and carry nothing across a grid, and the learner reduces over the
 // whole batch every step, so each step needs a reduction across blocks.
-// The design is a per-step sequence of three launches on one stream,
-// issued by the host wrapper in a loop (ops/fused_trainer.py), with no
-// read-back inside a chunk: the learn gate, the learn count, the target
-// sync and Adam's bias corrections depend only on host counters and are
-// passed as launch arguments.  (One cooperative launch per chunk with grid
-// syncs was the alternative; it needs the whole grid resident at once,
-// which caps envs and lanes per launch, and three plain kernels are each
-// easier to hold against the plain version.)
+// The design is a per-step sequence of launches on one stream, issued by
+// the host wrapper in a loop (ops/fused_trainer.py), with no read-back
+// inside a chunk: the learn gate, the learn count, the target sync and
+// Adam's bias corrections depend only on host counters and are passed as
+// launch arguments.  (One cooperative launch per chunk with grid syncs was
+// the alternative; it needs the whole grid resident at once, which caps
+// envs and lanes per launch, and plain kernels are each easier to hold
+// against the plain version.)
 //
 //   1. dqn_act_env_store: a block owns `tile` envs.  Both seats' actors
 //      (mlp_tile of mlp.cuh, then argmax0 and the shared phi_select on the
@@ -22,25 +22,32 @@
 //      transition slab stored into ring round r_cur (a lane whose ego has
 //      won keeps its old row), the per-env metrics (win tested on the
 //      pre-step obs) and the auto-reset.
-//   2. dqn_learn_partials (only on a learning step): a block owns `tile`
-//      of the B sampled lanes, gathered from the (round, lane-window)
-//      draws.  Forward of p on x, of p and the target net on x', the TD
-//      error, and the hand-derived backward of learn_math; each block
-//      writes its partial sums of every gradient and of the squared TD
-//      error to work[block][P + 1].
-//   3. dqn_adam (only on a learning step): one thread per parameter sums
-//      the partials in block order (a fixed order, no atomics), copies
-//      tp := p first on a sync step, and applies Adam.
+//   2. learn_fwd_kernel (only on a learning step): a block owns `lanes` of
+//      the B sampled lanes (sized from B and the SM count,
+//      ops/fused_trainer.py:learn_geometry), gathered from the (round,
+//      lane-window) draws: the target net's forward on x', the online
+//      net's on x and x' together, the TD error and the hand-derived
+//      backward of learn_math down to dz1, each lane's operands written to
+//      a workspace row.
+//   3. learn_grad_kernel (only on a learning step): every gradient entry
+//      and the loss summed over the workspace's lanes in the plain
+//      version's order, then, in the same thread, tp := p on a sync step
+//      and Adam.
 //
-// Every sum is one thread's, in a fixed order, with one rounding per
+// Every sum is one thread's chain in a fixed order, with one rounding per
 // multiply and per add (-fmad=false): two runs on the same inputs give
 // the same bits, and the plain version (fused_dqn_chunk_plain) sums in
-// the same order, so the two agree bit for bit.  Parameters are one flat
-// f32 buffer per set, in the [in, out] layout of mlp.cuh:
-// w0 [in][h1], b0 [h1], w1 [h1][h2], b1 [h2], w2 [h2][a], b2 [a].  In
-// bf16 the forward and backward operands are bf16 copies of the masters
-// (refreshed by dqn_adam), products are exact in f32 and sums are f32;
-// masters, gradients, the TD math and Adam stay f32.
+// the same order, so the two agree bit for bit.  A forward output is
+// summed in k order from 0; a gradient entry (and the loss) is, for each
+// tile of `tile` lanes (ops/fused_trainer.py:learn_tile) in order, the
+// tile's partial sum in lane order from 0, added into the total from 0.
+// The tile fixes only that order: how many blocks run is the geometry's
+// business.  Parameters are one flat f32 buffer per set, in the [in, out]
+// layout of mlp.cuh: w0 [in][h1], b0 [h1], w1 [h1][h2], b1 [h2], w2
+// [h2][a], b2 [a].  In bf16 the forward and backward operands are bf16
+// copies of the masters (refreshed by learn_grad_kernel), products are
+// exact in f32 and sums are f32; masters, gradients, the TD math and Adam
+// stay f32.
 //
 // The learner (kernels 2 and 3) is shared with K7, the h-DQN trainer
 // (hdqn_trainer.cu), which runs it twice per step: on its lower ring (11
@@ -54,16 +61,21 @@
 //
 // Bound on an H100: per step 2 actor forwards per env and, on a learning
 // step, 3 forwards and a backward (about 5 x 22,500 multiply-adds) per
-// sampled lane, all f32 on the CUDA cores; the ring, the env rows and the
-// parameters are a few MB, so the trainer is bound by operations.  The
-// grid is small (64 blocks for 1,024 envs or lanes), so it sits far from
-// that bound; the measured times are in PERF.md (chip_smoke.py).
+// sampled lane, all f32 on the CUDA cores; the ring, the env rows, the
+// 2.5 MB workspace and the parameters stay in L2, so the trainer is bound
+// by operations, and without FMA (bit-equality) at most half of that
+// bound is reachable.  The learner's forwards are register-tiled
+// (qnet_tiled.cuh) over 128 blocks at B 1,024 and its gradients a
+// register-tiled reduction over 133 blocks; the act kernel still runs
+// mlp.cuh's one-output-per-thread forward on 64 blocks.  The measured
+// times are in PERF.md (chip_smoke.py).
 #include <cstdint>
 
 #include "env_math.cuh"
 #include "learn_math.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
+#include "qnet_tiled.cuh"
 
 namespace mgt {
 
@@ -186,7 +198,7 @@ act_env_store_kernel(Net<T> pnet, Net<T> onet, float* __restrict__ env,
 }
 
 struct LearnCfg {
-  int n, W, num_f, mask_terminal;
+  int n, W, num_f, mask_terminal, B;
   float gamma, two_over_b;
 };
 
@@ -214,168 +226,379 @@ __device__ __forceinline__ bool gate_syncs(const DevGate& g, int k) {
   return (static_cast<long long>(g.prior) + k) % g.target_sync == 0;
 }
 
+// The learner's workspace: one row of f32 per sampled lane, written by
+// learn_fwd_kernel and read by learn_grad_kernel.  Columns: x, h1 and h2
+// (the T values of the online forward on x), dq with the squared TD error
+// after it, dz2 and dz1 (f32), and in bf16 dq, dz2 and dz1 rounded to T
+// (in f32 those columns are the f32 ones).  Every group starts on a
+// multiple of 4 floats and the row is a multiple of 4 floats, so that
+// learn_grad_kernel fetches 16 bytes at a time.
+// ops/fused_trainer.py:workspace_width mirrors it.
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+struct WsCols {
+  int x, h1, h2, dq, diff2, dz2, dz1, dqc, dz2c, dz1c, width;
+  __host__ __device__ WsCols(MlpDims d, bool bf16) {
+    x = 0;
+    h1 = x + pad4(d.in);
+    h2 = h1 + pad4(d.h1);
+    dq = h2 + pad4(d.h2);
+    diff2 = dq + d.a;
+    dz2 = dq + pad4(d.a + 1);
+    dz1 = dz2 + pad4(d.h2);
+    width = dz1 + pad4(d.h1);
+    dqc = dq;
+    dz2c = dz2;
+    dz1c = dz1;
+    if (bf16) {
+      dqc = width;
+      dz2c = dqc + pad4(d.a);
+      dz1c = dz2c + pad4(d.h2);
+      width = dz1c + pad4(d.h1);
+    }
+  }
+};
+
+// Launch geometry of learn_fwd_kernel (ops/fused_trainer.py:learn_geometry):
+// `lanes` sampled lanes per block, `chunk` elements of T in each weight
+// buffer, `smem` bytes of shared memory per block.
+struct LearnGeom {
+  int lanes, chunk, smem;
+};
+
+// learn_fwd_kernel's shared memory: qnet_tiled.cuh's layout for 2 * lanes
+// rows (the weight buffers; x, then x' of the block's lanes, and their h1
+// and h2), then q of those rows, the target net's q of x', per lane the
+// action, reward, done and squared TD error, dq and dq rounded to T (f32),
+// and dz2 in T with h2's row stride (the input of the dz1 layer).
+// ops/fused_trainer.py:learn_extra mirrors the part after QnetSmem.
+struct LearnSmem {
+  size_t q, qnt, lane, dq, dqc, dz2c, total;
+  __host__ __device__ LearnSmem(MlpDims d, LearnGeom g, int elem) {
+    const size_t L = static_cast<size_t>(g.lanes), A = d.a;
+    q = QnetSmem(d, QnetGeom{2 * g.lanes, g.chunk, g.smem}, elem, 0).total;
+    qnt = q + align16(2 * L * A * sizeof(float));
+    lane = qnt + align16(L * A * sizeof(float));
+    dq = lane + align16(L * 4 * sizeof(float));
+    dqc = dq + align16(L * A * sizeof(float));
+    dz2c = dqc + align16(L * A * sizeof(float));
+    total = dz2c + L * act_stride(d.h2) * elem;
+  }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kTrainThreads)
-learn_partials_kernel(Net<T> pnet, Net<T> tnet, const float* __restrict__ ring,
-                      const int32_t* __restrict__ rounds,
-                      const int32_t* __restrict__ cols,
-                      float* __restrict__ work, int tile, MlpDims d,
-                      LearnCfg lc, DevGate g) {
+inline bool learn_geom_ok(MlpDims d, LearnGeom g) {
+  return g.lanes > 0 && g.chunk > 0 && g.chunk * sizeof(T) % 16 == 0 &&
+         LearnSmem(d, g, sizeof(T)).total <= static_cast<size_t>(g.smem);
+}
+
+struct StoreRows {  // q of a forward's rows into shared memory, [row][a]
+  float* q;
+  int a;
+  __device__ __forceinline__ void store(int r, int j, float v) {
+    q[r * a + j] = v;
+  }
+};
+
+// dz1 = (w1 dz2) * relu'(h1) of a lane, into the workspace: f32, and in
+// bf16 also rounded to T.
+template <typename T>
+struct StoreDz1 {
+  const T* s_h1;
+  int st_h1;
+  float* ws;  // the block's first row
+  WsCols c;
+  __device__ __forceinline__ void sum(int r, int k, float acc) {
+    const float v = __fmul_rn(
+        acc, Num<T>::to_f(s_h1[r * st_h1 + k]) > 0.0f ? 1.0f : 0.0f);
+    float* row = ws + static_cast<size_t>(r) * c.width;
+    row[c.dz1 + k] = v;
+    if (c.dz1c != c.dz1) row[c.dz1c + k] = Num<T>::to_f(Num<T>::from_f(v));
+  }
+};
+
+// Kernel A of the learner: a block owns `lanes` of the B sampled lanes.
+// It gathers them from the ring, runs the target net on x' and the online
+// net on x and x' together (qnet_layers of qnet_tiled.cuh: register
+// micro-tiles of in-order chains, weights streamed through shared memory),
+// the Double-DQN TD error, dq, dz2 = (w2 dq) * relu'(h2) (a few actions
+// deep, one output per thread) and dz1 = (w1 dz2) * relu'(h1) as one more
+// tiled layer over w1t, the online w1 transposed ([h2][h1], kept by
+// learn_grad_kernel), and writes each lane's workspace row.
+template <typename T, int RM, int RN>
+__global__ void __launch_bounds__(kQnetThreads)
+learn_fwd_kernel(Net<T> pnet, Net<T> tnet, const T* __restrict__ w1t,
+                 const float* __restrict__ ring,
+                 const int32_t* __restrict__ rounds,
+                 const int32_t* __restrict__ cols, float* __restrict__ ws,
+                 MlpDims d, LearnCfg lc, LearnGeom lg, DevGate g) {
   if (g.any_end != nullptr) {  // the same decision in every thread
     const int k = gate_count(g);
     if (k < 0) return;
     if (gate_syncs(g, k)) tnet = pnet;  // the sync comes before the update
   }
   extern __shared__ __align__(16) unsigned char smem[];
+  const QnetSmem S(d, QnetGeom{2 * lg.lanes, lg.chunk, lg.smem}, sizeof(T),
+                   0);
+  const LearnSmem X(d, lg, sizeof(T));
+  T* const wbuf = reinterpret_cast<T*>(smem);
+  T* const s_in = reinterpret_cast<T*>(smem + S.in);
+  T* const s_h1 = reinterpret_cast<T*>(smem + S.h1);
+  T* const s_h2 = reinterpret_cast<T*>(smem + S.h2);
+  float* const s_q = reinterpret_cast<float*>(smem + X.q);
+  float* const s_qnt = reinterpret_cast<float*>(smem + X.qnt);
+  float* const s_lane = reinterpret_cast<float*>(smem + X.lane);
+  float* const s_dq = reinterpret_cast<float*>(smem + X.dq);
+  float* const s_dqc = reinterpret_cast<float*>(smem + X.dqc);
+  T* const s_dz2c = reinterpret_cast<T*>(smem + X.dz2c);
   const int A = d.a, H1 = d.h1, H2 = d.h2, IN = d.in;
-  float* x = reinterpret_cast<float*>(smem);  // [tile][in]
-  float* xn = x + tile * IN;                  // [tile][in]
-  float* qne = xn + tile * IN;                // [tile][a]
-  float* qnt = qne + tile * A;                // [tile][a]
-  float* q = qnt + tile * A;                  // [tile][a]
-  float* dq = q + tile * A;                   // [tile][a]
-  float* dz2 = dq + tile * A;                 // [tile][h2]
-  float* dz1 = dz2 + tile * H2;               // [tile][h1]
-  float* act = dz1 + tile * H1;               // [tile]
-  float* rew = act + tile;                    // [tile]
-  float* done = rew + tile;                   // [tile]
-  float* diff2 = done + tile;                 // [tile]
-  T* s_in = reinterpret_cast<T*>(diff2 + tile);  // [tile][in]
-  T* s_h1 = s_in + tile * IN;                 // [tile][h1]
-  T* s_h2 = s_h1 + tile * H1;                 // [tile][h2]
-  T* dqc = s_h2 + tile * H2;                  // [tile][a]
-  T* dz2c = dqc + tile * A;                   // [tile][h2]
-  T* dz1c = dz2c + tile * H2;                 // [tile][h1]
-
+  const int st_in = act_stride(IN), st_h1 = act_stride(H1),
+            st_h2 = act_stride(H2);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int b0 = blockIdx.x * tile;
+  const int b0 = blockIdx.x * lg.lanes;
+  const int rows = min(lg.lanes, lc.B - b0);
   const size_t sN = static_cast<size_t>(lc.n);
+  const WsCols c(d, sizeof(T) == 2);
+  float* const wsb = ws + static_cast<size_t>(b0) * c.width;
 
-  // Gather the tile's lanes: lane b of the batch is column b % W of draw
-  // k = b / W, i.e. ring round rounds[k], env cols[k] * W + b % W.  The
-  // fields past done (padding) are not read.
-  for (int i = tid; i < (2 * IN + 3) * tile; i += nt) {
-    const int f = i / tile, r = i - f * tile, b = b0 + r;
-    const int k = b / lc.W;
-    const int src = cols[k] * lc.W + (b - k * lc.W);
-    const float val =
-        ring[(static_cast<size_t>(rounds[k]) * lc.num_f + f) * sN + src];
-    if (f < IN) x[r * IN + f] = val;
-    else if (f < 2 * IN) xn[r * IN + f - IN] = val;
-    else if (f == 2 * IN) act[r] = val;
-    else if (f == 2 * IN + 1) rew[r] = val;
-    else done[r] = val;
-  }
-  mlp_tile<T>(xn, tile, d, pnet, s_in, s_h1, s_h2, qne);
-  mlp_tile<T>(xn, tile, d, tnet, s_in, s_h1, s_h2, qnt);
-  // Last, so that s_in, s_h1 and s_h2 keep x's activations.
-  mlp_tile<T>(x, tile, d, pnet, s_in, s_h1, s_h2, q);
+  // Gather the block's lanes: lane b of the batch is column b % W of draw
+  // k = b / W, i.e. ring round rounds[k], env cols[k] * W + b % W.  Rows
+  // 0..rows-1 of s_in take x, rows rows..2 rows-1 take x'.  The fields
+  // past done (padding) are not read.
+  auto gather = [&]() {
+    for (int i = tid; i < (2 * IN + 3) * rows; i += nt) {
+      const int f = i / rows, r = i - f * rows, b = b0 + r;
+      const int k = b / lc.W;
+      const int src = cols[k] * lc.W + (b - k * lc.W);
+      const float val =
+          ring[(static_cast<size_t>(rounds[k]) * lc.num_f + f) * sN + src];
+      if (f < IN) s_in[r * st_in + f] = Num<T>::from_f(val);
+      else if (f < 2 * IN)
+        s_in[(rows + r) * st_in + f - IN] = Num<T>::from_f(val);
+      else s_lane[r * 4 + f - 2 * IN] = val;  // action, reward, done
+    }
+  };
+  auto none = []() {};
+  StoreRows to_qnt{s_qnt, A}, to_q{s_q, A};
+  qnet_layers<T, RM, RN>(d, tnet, lg.chunk, wbuf, s_in + rows * st_in, s_h1,
+                         s_h2, rows, gather, to_qnt);
+  // Last, so that rows 0..rows-1 of s_in, s_h1 and s_h2 keep x's layers.
+  qnet_layers<T, RM, RN>(d, pnet, lg.chunk, wbuf, s_in, s_h1, s_h2,
+                         2 * rows, none, to_q);
 
-  if (tid < tile) {  // Double-DQN target and TD error of one lane
+  if (tid < rows) {  // Double-DQN target and TD error of one lane
     const int r = tid;
-    const int ai = static_cast<int>(act[r]);
-    float boot = qnt[r * A + argmax0(qne + r * A, A)];
-    if (lc.mask_terminal) boot = __fmul_rn(boot, __fsub_rn(1.0f, done[r]));
-    const float target = __fadd_rn(rew[r], __fmul_rn(lc.gamma, boot));
-    const float diff = __fsub_rn(q[r * A + ai], target);
-    diff2[r] = __fmul_rn(diff, diff);
-    const float g = __fmul_rn(lc.two_over_b, diff);
+    const float* lane = s_lane + r * 4;
+    const int ai = static_cast<int>(lane[0]);
+    float boot = s_qnt[r * A + argmax0(s_q + (rows + r) * A, A)];
+    if (lc.mask_terminal) boot = __fmul_rn(boot, __fsub_rn(1.0f, lane[2]));
+    const float target = __fadd_rn(lane[1], __fmul_rn(lc.gamma, boot));
+    const float diff = __fsub_rn(s_q[r * A + ai], target);
+    s_lane[r * 4 + 3] = __fmul_rn(diff, diff);
+    const float gr = __fmul_rn(lc.two_over_b, diff);
     for (int j = 0; j < A; ++j) {
-      const float v = __fmul_rn(j == ai ? 1.0f : 0.0f, g);
-      dq[r * A + j] = v;
-      dqc[r * A + j] = Num<T>::from_f(v);
+      const float v = __fmul_rn(j == ai ? 1.0f : 0.0f, gr);
+      s_dq[r * A + j] = v;
+      s_dqc[r * A + j] = Num<T>::to_f(Num<T>::from_f(v));
     }
   }
   __syncthreads();
-  for (int i = tid; i < tile * H2; i += nt) {  // dz2 = (w2 dq) * relu'
+  for (int i = tid; i < rows * H2; i += nt) {  // dz2 = (w2 dq) * relu'(h2)
     const int r = i / H2, j = i - r * H2;
     float acc = 0.0f;
     for (int a = 0; a < A; ++a)
-      acc = madd(acc, Num<T>::to_f(pnet.w2[j * A + a]),
-                 Num<T>::to_f(dqc[r * A + a]));
-    dz2[i] = __fmul_rn(acc, Num<T>::to_f(s_h2[i]) > 0.0f ? 1.0f : 0.0f);
-    dz2c[i] = Num<T>::from_f(dz2[i]);
+      acc = madd(acc, Num<T>::to_f(pnet.w2[j * A + a]), s_dqc[r * A + a]);
+    const float v = __fmul_rn(
+        acc, Num<T>::to_f(s_h2[r * st_h2 + j]) > 0.0f ? 1.0f : 0.0f);
+    s_dz2c[r * st_h2 + j] = Num<T>::from_f(v);
+    float* row = wsb + static_cast<size_t>(r) * c.width;
+    row[c.dz2 + j] = v;
+    if (c.dz2c != c.dz2) row[c.dz2c + j] = Num<T>::to_f(Num<T>::from_f(v));
   }
-  __syncthreads();
-  for (int i = tid; i < tile * H1; i += nt) {  // dz1 = (w1 dz2) * relu'
-    const int r = i / H1, k = i - r * H1;
-    float acc = 0.0f;
-    for (int j = 0; j < H2; ++j)
-      acc = madd(acc, Num<T>::to_f(pnet.w1[k * H2 + j]),
-                 Num<T>::to_f(dz2c[r * H2 + j]));
-    dz1[i] = __fmul_rn(acc, Num<T>::to_f(s_h1[i]) > 0.0f ? 1.0f : 0.0f);
-    dz1c[i] = Num<T>::from_f(dz1[i]);
+  // The rest of each lane's row: x, h1, h2, dq (and rounded), diff^2.
+  const int head = IN + H1 + H2;
+  for (int i = tid; i < rows * head; i += nt) {
+    const int r = i / head, f = i - r * head;
+    float* row = wsb + static_cast<size_t>(r) * c.width;
+    if (f < IN) row[c.x + f] = Num<T>::to_f(s_in[r * st_in + f]);
+    else if (f < IN + H1)
+      row[c.h1 + f - IN] = Num<T>::to_f(s_h1[r * st_h1 + f - IN]);
+    else
+      row[c.h2 + f - IN - H1] = Num<T>::to_f(s_h2[r * st_h2 + f - IN - H1]);
   }
-  __syncthreads();
-
-  // This block's partial sums over its lanes, in lane order.
-  const Offsets o(d);
-  float* out = work + static_cast<size_t>(blockIdx.x) * (o.P + 1);
-  for (int i = tid; i <= o.P; i += nt) {
-    float acc = 0.0f;
-    if (i < o.b0) {                   // w0[ii][k]: x * dz1
-      const int ii = i / H1, k = i - ii * H1;
-      for (int r = 0; r < tile; ++r)
-        acc = madd(acc, Num<T>::to_f(s_in[r * IN + ii]),
-                   Num<T>::to_f(dz1c[r * H1 + k]));
-    } else if (i < o.w1) {            // b0
-      for (int r = 0; r < tile; ++r)
-        acc = __fadd_rn(acc, dz1[r * H1 + (i - o.b0)]);
-    } else if (i < o.b1) {            // w1[k][j]: h1 * dz2
-      const int idx = i - o.w1, k = idx / H2, j = idx - k * H2;
-      for (int r = 0; r < tile; ++r)
-        acc = madd(acc, Num<T>::to_f(s_h1[r * H1 + k]),
-                   Num<T>::to_f(dz2c[r * H2 + j]));
-    } else if (i < o.w2) {            // b1
-      for (int r = 0; r < tile; ++r)
-        acc = __fadd_rn(acc, dz2[r * H2 + (i - o.b1)]);
-    } else if (i < o.b2) {            // w2[j][a]: h2 * dq
-      const int idx = i - o.w2, j = idx / A, a = idx - j * A;
-      for (int r = 0; r < tile; ++r)
-        acc = madd(acc, Num<T>::to_f(s_h2[r * H2 + j]),
-                   Num<T>::to_f(dqc[r * A + a]));
-    } else if (i < o.P) {             // b2
-      for (int r = 0; r < tile; ++r)
-        acc = __fadd_rn(acc, dq[r * A + (i - o.b2)]);
-    } else {                          // squared TD error, for the loss
-      for (int r = 0; r < tile; ++r) acc = __fadd_rn(acc, diff2[r]);
-    }
-    out[i] = acc;
+  for (int i = tid; i < rows * A; i += nt) {
+    const int r = i / A, j = i - r * A;
+    float* row = wsb + static_cast<size_t>(r) * c.width;
+    row[c.dq + j] = s_dq[i];
+    if (c.dqc != c.dq) row[c.dqc + j] = s_dqc[i];
+    if (j == 0) row[c.diff2] = s_lane[r * 4 + 3];
   }
+  // dz1 = (w1 dz2) * relu'(h1): sums over j of w1[k][j] dz2[j], in j order.
+  StoreDz1<T> to_dz1{s_h1, st_h1, wsb, c};
+  layer_sums<T, RM, RN>(w1t, H2, H1, lg.chunk, wbuf, s_dz2c, st_h2, rows,
+                        to_dz1);
 }
 
-struct AdamCfg {
-  int P, tiles, B, sync;
+// Kernel B of the learner: every gradient entry (and the loss) as a sum
+// over the B lanes of the workspace, in the plain version's order -- for
+// each tile of `tile` lanes in order, the tile's partial sum in lane order
+// from 0, added into the total from 0 -- then Adam on it.  A block owns a
+// kGradK x kGradJ rectangle of one gradient; each thread a 4 x 4
+// micro-tile of it (register tile accumulators) for one tile of lanes out
+// of kGradGroups in flight; the groups' partials pass through shared memory
+// and one thread per entry adds them into its total in tile order.  Lane
+// chunks of the rectangle's columns are staged with cp.async, one round
+// ahead.
+constexpr int kGradThreads = 256;
+constexpr int kGradK = 16, kGradJ = 16, kGradGroups = 16;
+constexpr int kGradEntries = kGradK * kGradJ;  // = kGradThreads
+
+// One gradient: sum over lanes of ws[h + k] * ws[d + j] for k < K, j < J
+// (h < 0: a bias, the factor 1), into parameter out + k J + j.  The last
+// job is b2 with the loss beside it: its column a (the squared TD error)
+// goes to the loss.
+struct GradJob {
+  int h, K, d, J, out;
+};
+
+__device__ __forceinline__ int grad_rects(const GradJob& j) {
+  return (j.K + kGradK - 1) / kGradK * ((j.J + kGradJ - 1) / kGradJ);
+}
+
+// Shared memory of learn_grad_kernel for summation tiles of `tile` lanes
+// (ops/fused_trainer.py:grad_smem mirrors it).
+__host__ __device__ inline size_t grad_smem(int tile) {
+  return (2 * 2 * static_cast<size_t>(kGradGroups) * tile * 16 +
+          static_cast<size_t>(kGradGroups) * kGradEntries) * sizeof(float);
+}
+
+struct GradCfg {
+  int B, tile, sync;
   AdamHyper h;
 };
 
-__global__ void adam_kernel(const float* __restrict__ work,
-                            float* __restrict__ p, float* __restrict__ tp,
-                            float* __restrict__ m, float* __restrict__ v,
-                            __nv_bfloat16* __restrict__ pb,
-                            __nv_bfloat16* __restrict__ tpb,
-                            float* __restrict__ loss, AdamCfg c,
-                            DevGate gate) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > c.P) return;
+__global__ void __launch_bounds__(kGradThreads)
+learn_grad_kernel(const float* __restrict__ ws, int width,
+                  float* __restrict__ p,
+                  float* __restrict__ tp, float* __restrict__ m,
+                  float* __restrict__ v, __nv_bfloat16* __restrict__ pb,
+                  __nv_bfloat16* __restrict__ tpb, void* __restrict__ w1t,
+                  float* __restrict__ loss, MlpDims d, GradCfg gc,
+                  DevGate gate) {
   if (gate.any_end != nullptr) {
     const int k = gate_count(gate);
     if (k < 0) return;
-    c.sync = gate_syncs(gate, k) ? 1 : 0;
-    c.h.c1 = gate.bias[2 * k];
-    c.h.c2 = gate.bias[2 * k + 1];
+    gc.sync = gate_syncs(gate, k) ? 1 : 0;
+    gc.h.c1 = gate.bias[2 * k];
+    gc.h.c2 = gate.bias[2 * k + 1];
   }
-  const float g = sum_partials(work, c.tiles, c.P + 1, i);
-  if (i == c.P) {
-    *loss = __fdiv_rn(g, static_cast<float>(c.B));
+  const bool bf16 = pb != nullptr;
+  const WsCols c(d, bf16);
+  const Offsets o(d);
+  const GradJob jobs[6] = {
+      {c.x, d.in, c.dz1c, d.h1, o.w0}, {-1, 1, c.dz1, d.h1, o.b0},
+      {c.h1, d.h1, c.dz2c, d.h2, o.w1}, {-1, 1, c.dz2, d.h2, o.b1},
+      {c.h2, d.h2, c.dqc, d.a, o.w2},   {-1, 1, c.dq, d.a + 1, o.b2}};
+  int rect = blockIdx.x, ji = 0;
+  while (ji < 5 && rect >= grad_rects(jobs[ji]))
+    rect -= grad_rects(jobs[ji++]);
+  const GradJob job = jobs[ji];
+  const int njb = (job.J + kGradJ - 1) / kGradJ;
+  const int k0 = rect / njb * kGradK, j0 = rect % njb * kGradJ;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lanes = kGradGroups * gc.tile;  // per round
+  float* const s_buf = reinterpret_cast<float*>(smem);  // 2 x [h | d]
+  float* const s_part = s_buf + 2 * 2 * lanes * 16;     // [group][entry]
+  const int tid = threadIdx.x;
+  const int ntiles = gc.B / gc.tile;
+  const int nrounds = (ntiles + kGradGroups - 1) / kGradGroups;
+
+  // Round q's lanes [q * lanes, ...): h columns k0.. and d columns j0..
+  // into buffer q & 1, [lane][16] each (h = 1 for a bias), 16 bytes a
+  // copy; a copy that starts inside its column group stays inside its
+  // padding.
+  auto fetch = [&](int q) {
+    float* sh = s_buf + (q & 1) * 2 * lanes * 16;
+    float* sd = sh + lanes * 16;
+    const int lb = q * lanes;
+    for (int i = tid; i < lanes * 8; i += kGradThreads) {
+      const int l = i >> 3, u = 4 * (i & 3), b = lb + l;
+      if (b >= gc.B) continue;
+      const float* row = ws + static_cast<size_t>(b) * width;
+      if (i & 4) {
+        if (j0 + u < job.J)
+          cp_async16(sd + l * 16 + u, row + job.d + j0 + u);
+      } else if (job.h < 0) {
+        *reinterpret_cast<float4*>(sh + l * 16 + u) =
+            make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+      } else if (k0 + u < job.K) {
+        cp_async16(sh + l * 16 + u, row + job.h + k0 + u);
+      }
+    }
+  };
+
+  const int grp = tid / 16, mk = (tid & 15) >> 2, mj = tid & 3;
+  float total = 0.0f;  // entry tid of the rectangle: (tid / 16, tid % 16)
+  fetch(0);
+  cp_async_commit();
+  for (int q = 0; q < nrounds; ++q) {
+    if (q + 1 < nrounds) fetch(q + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const int t = q * kGradGroups + grp;
+    if (t < ntiles) {
+      const float* sh = s_buf + (q & 1) * 2 * lanes * 16 + grp * gc.tile * 16;
+      const float* sd = sh + lanes * 16;
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) acc[i][cc] = 0.0f;
+      for (int r = 0; r < gc.tile; ++r) {
+        const float4 h4 =
+            *reinterpret_cast<const float4*>(sh + r * 16 + 4 * mk);
+        const float4 d4 =
+            *reinterpret_cast<const float4*>(sd + r * 16 + 4 * mj);
+        const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            acc[i][cc] = __fadd_rn(acc[i][cc], __fmul_rn(hv[i], dv[cc]));
+      }
+      float* part = s_part + grp * kGradEntries;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          part[(4 * mk + i) * kGradJ + 4 * mj + cc] = acc[i][cc];
+    }
+    __syncthreads();
+    for (int gi = 0; gi < kGradGroups && q * kGradGroups + gi < ntiles; ++gi)
+      total = __fadd_rn(total, s_part[gi * kGradEntries + tid]);
+  }
+
+  const int k = k0 + tid / kGradJ, j = j0 + tid % kGradJ;
+  if (k >= job.K || j >= job.J) return;
+  if (ji == 5 && j == d.a) {  // the loss
+    *loss = __fdiv_rn(total, static_cast<float>(gc.B));
     return;
   }
-  if (c.sync) {  // the target sync comes before the update
+  const int i = job.out + k * job.J + j;
+  if (gc.sync) {  // the target sync comes before the update
     tp[i] = p[i];
-    if (pb != nullptr) tpb[i] = pb[i];
+    if (bf16) tpb[i] = pb[i];
   }
-  const float pn = adam_step(g, p, m, v, i, c.h);
-  if (pb != nullptr) pb[i] = __float2bfloat16_rn(pn);
+  const float pn = adam_step(total, p, m, v, i, gc.h);
+  if (bf16) pb[i] = __float2bfloat16_rn(pn);
+  if (ji == 2) {  // w1[k][j] -> w1t[j][k]
+    const size_t t = static_cast<size_t>(j) * d.h1 + k;
+    if (bf16) static_cast<__nv_bfloat16*>(w1t)[t] = __float2bfloat16_rn(pn);
+    else static_cast<float*>(w1t)[t] = pn;
+  }
 }
 
 template <typename T>
@@ -393,22 +616,39 @@ cudaError_t launch_act(const void* p, const void* opp, float* env,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_learn(const void* p, const void* tgt, const float* ring,
-                         const int32_t* rounds, const int32_t* cols,
-                         float* work, int B, int tile, MlpDims d, LearnCfg lc,
-                         DevGate g, cudaStream_t stream) {
-  size_t smem =
-      static_cast<size_t>(tile) *
-          (2 * d.in + 4 * d.a + d.h1 + d.h2 + 4) * sizeof(float) +
-      static_cast<size_t>(tile) * (d.in + 2 * d.h1 + 2 * d.h2 + d.a) *
-          sizeof(T);
-  cudaError_t err = allow_smem(learn_partials_kernel<T>, smem);
+template <typename T, int RM, int RN>
+cudaError_t launch_fwd_tile(Net<T> pnet, Net<T> tnet, const T* w1t,
+                            const float* ring, const int32_t* rounds,
+                            const int32_t* cols, float* ws, MlpDims d,
+                            LearnCfg lc, LearnGeom lg, DevGate g,
+                            cudaStream_t stream) {
+  cudaError_t err = allow_smem(learn_fwd_kernel<T, RM, RN>, lg.smem);
   if (err != cudaSuccess) return err;
-  learn_partials_kernel<T><<<B / tile, kTrainThreads, smem, stream>>>(
-      net_at<T>(p, d), net_at<T>(tgt, d), ring, rounds, cols, work, tile, d,
-      lc, g);
+  const int blocks = (lc.B + lg.lanes - 1) / lg.lanes;
+  learn_fwd_kernel<T, RM, RN><<<blocks, kQnetThreads, lg.smem, stream>>>(
+      pnet, tnet, w1t, ring, rounds, cols, ws, d, lc, lg, g);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* p, const void* tgt, const void* w1t,
+                       const float* ring, const int32_t* rounds,
+                       const int32_t* cols, float* ws, MlpDims d, LearnCfg lc,
+                       LearnGeom lg, int rm, int rn, DevGate g,
+                       cudaStream_t stream) {
+  if (!learn_geom_ok<T>(d, lg)) return cudaErrorInvalidValue;
+  const Net<T> pnet = net_at<T>(p, d), tnet = net_at<T>(tgt, d);
+  const T* wt = static_cast<const T*>(w1t);
+  switch (rm * 16 + rn) {
+#define MGT_CASE(M, N)                                                       \
+  case M * 16 + N:                                                           \
+    return launch_fwd_tile<T, M, N>(pnet, tnet, wt, ring, rounds, cols, ws,  \
+                                    d, lc, lg, g, stream);
+    MGT_QNET_TILES(MGT_CASE)
+#undef MGT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace mgt
@@ -438,44 +678,66 @@ extern "C" int mgt_dqn_act(const void* p, const void* opp, float* env,
   return static_cast<int>(err);
 }
 
-extern "C" int mgt_dqn_learn(const void* p, const void* tgt, const float* ring,
-                             const int32_t* rounds, const int32_t* cols,
-                             float* work, int n, int B, int K, int num_f,
-                             int in, int h1, int h2, int a, int tile, int bf16,
-                             int mask_terminal, float gamma, float two_over_b,
-                             const int32_t* any_end, int step, int first_open,
-                             int prior, int target_sync,
-                             cudaStream_t stream) {
+// Kernel A of one learn (learn_fwd_kernel); `ws` holds B rows of
+// WsCols(d).width floats, `w1t` the online w1 transposed, in T.
+extern "C" int mgt_dqn_learn_fwd(const void* p, const void* tgt,
+                                 const void* w1t, const float* ring,
+                                 const int32_t* rounds, const int32_t* cols,
+                                 float* ws, int n, int B, int K, int num_f,
+                                 int in, int h1, int h2, int a, int bf16,
+                                 int mask_terminal, float gamma,
+                                 float two_over_b, int lanes, int rm, int rn,
+                                 int chunk, int smem, const int32_t* any_end,
+                                 int step, int first_open, int prior,
+                                 int target_sync, cudaStream_t stream) {
   using namespace mgt;
-  if (B <= 0 || K <= 0 || tile <= 0 || B % tile != 0 || tile > kTrainThreads
-      || num_f < 2 * in + 3 || (any_end != nullptr && target_sync <= 0))
+  if (B <= 0 || K <= 0 || B % K != 0 || num_f < 2 * in + 3 ||
+      (any_end != nullptr && target_sync <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims d{in, h1, h2, a};
-  LearnCfg lc{n, B / K, num_f, mask_terminal, gamma, two_over_b};
+  LearnCfg lc{n, B / K, num_f, mask_terminal, B, gamma, two_over_b};
+  LearnGeom lg{lanes, chunk, smem};
   DevGate g{any_end, nullptr, step, first_open, prior, target_sync};
   cudaError_t err =
-      bf16 ? launch_learn<__nv_bfloat16>(p, tgt, ring, rounds, cols, work, B,
-                                         tile, d, lc, g, stream)
-           : launch_learn<float>(p, tgt, ring, rounds, cols, work, B, tile, d,
-                                 lc, g, stream);
+      bf16 ? launch_fwd<__nv_bfloat16>(p, tgt, w1t, ring, rounds, cols, ws, d,
+                                       lc, lg, rm, rn, g, stream)
+           : launch_fwd<float>(p, tgt, w1t, ring, rounds, cols, ws, d, lc, lg,
+                               rm, rn, g, stream);
   return static_cast<int>(err);
 }
 
-extern "C" int mgt_dqn_adam(const float* work, float* p, float* tp, float* m,
-                            float* v, void* pb, void* tpb, float* loss, int P,
-                            int tiles, int B, int sync, float lr, float b1,
-                            float b2, float omb1, float omb2, float eps,
-                            float c1, float c2, const int32_t* any_end,
-                            const float* bias, int step, int first_open,
-                            int prior, int target_sync, cudaStream_t stream) {
+// Kernel B of one learn (learn_grad_kernel): the gradients and the loss
+// from `ws`, summed in tiles of `tile` lanes, then Adam (the target sync
+// first on a sync step), the bf16 copies pb/tpb (nullptr in f32) and w1t.
+extern "C" int mgt_dqn_learn_grad(const float* ws, float* p, float* tp,
+                                  float* m, float* v, void* pb, void* tpb,
+                                  void* w1t, float* loss, int in, int h1,
+                                  int h2, int a, int B, int tile, int sync,
+                                  float lr, float b1, float b2, float omb1,
+                                  float omb2, float eps, float c1, float c2,
+                                  int smem, const int32_t* any_end,
+                                  const float* bias, int step, int first_open,
+                                  int prior, int target_sync,
+                                  cudaStream_t stream) {
   using namespace mgt;
-  if (any_end != nullptr && (bias == nullptr || target_sync <= 0))
+  if (B <= 0 || tile <= 0 || tile > 16 || B % tile != 0 ||
+      grad_smem(tile) > static_cast<size_t>(smem) ||
+      (any_end != nullptr && (bias == nullptr || target_sync <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  AdamCfg c{P, tiles, B, sync, {lr, b1, b2, omb1, omb2, eps, c1, c2}};
+  MlpDims d{in, h1, h2, a};
+  GradCfg gc{B, tile, sync, {lr, b1, b2, omb1, omb2, eps, c1, c2}};
   DevGate g{any_end, bias, step, first_open, prior, target_sync};
-  const int threads = 256;
-  adam_kernel<<<(P + threads) / threads, threads, 0, stream>>>(
-      work, p, tp, m, v, static_cast<__nv_bfloat16*>(pb),
-      static_cast<__nv_bfloat16*>(tpb), loss, c, g);
+  const WsCols c(d, pb != nullptr);
+  int blocks = 0;
+  const int kj[3][2] = {{in, h1}, {h1, h2}, {h2, a}};
+  for (const auto& w : kj)
+    blocks += (w[0] + kGradK - 1) / kGradK * ((w[1] + kGradJ - 1) / kGradJ) +
+              (w[1] + kGradJ - 1) / kGradJ;
+  blocks += (a + 1 + kGradJ - 1) / kGradJ - (a + kGradJ - 1) / kGradJ;
+  cudaError_t err = allow_smem(learn_grad_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  learn_grad_kernel<<<blocks, kGradThreads, smem, stream>>>(
+      ws, c.width, p, tp, m, v, static_cast<__nv_bfloat16*>(pb),
+      static_cast<__nv_bfloat16*>(tpb), w1t, loss, d, gc, g);
   return static_cast<int>(cudaGetLastError());
 }

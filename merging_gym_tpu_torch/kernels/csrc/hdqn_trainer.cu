@@ -1,4 +1,5 @@
-// K7: the whole two-timescale h-DQN trainer, one step as five kernels.
+// K7: the whole two-timescale h-DQN trainer, one step as three to five
+// kernels (five when both learners learn).
 //
 // Replaces merging_gym_tpu/ops/fused_hdqn.py:_kernel (helper _goal_status;
 // pallas_call at :349 _call, entry fused_hdqn_chunk).  On the TPU the T
@@ -30,7 +31,7 @@
 //      re-chosen goal (stream 1 is the random start).  Every block also
 //      raises the step's flag any_end[i] where one of its envs ended an
 //      option (__syncthreads_or, then one atomicOr: no order dependence).
-//   2-3. the lower learner: dqn_learn_partials + dqn_adam of
+//   2-3. the lower learner: learn_fwd_kernel + learn_grad_kernel of
 //      dqn_trainer.cu on the lower ring (11 inputs, 32 fields per round).
 //      Its gate, learn count, target sync and Adam step follow from host
 //      counters, as in K5.
@@ -57,9 +58,10 @@
 // on a learning step both learners' three forwards and backward per
 // sampled lane (about 5 x 23,000 multiply-adds each); the rings, state
 // rows and ten parameter sets are a few MB, so K7 is bound by operations.
-// Like K5 it uses few blocks (64 of 16 envs or lanes at 1,024) and scalar
-// f32 sums, far from that bound; the measured times are in PERF.md
-// (chip_smoke.py).
+// Its act kernel uses few blocks (64 of 16 envs at 1,024) and mlp.cuh's
+// one-output-per-thread sums, far from that bound; the learners are K5's
+// register-tiled ones (dqn_trainer.cu).  The measured times are in
+// PERF.md (chip_smoke.py).
 #include <cstdint>
 
 #include "env_math.cuh"

@@ -1,5 +1,6 @@
-// The Q-net forward of K3 (qnet_mlp.cu) and K4 (fused_actor.cu),
-// register-tiled for Hopper.
+// The Q-net forward of K3 (qnet_mlp.cu), K4 (fused_actor.cu) and the
+// learner of K5 and K7 (dqn_trainer.cu), register-tiled for Hopper.  The
+// learner also runs its dz1 = w1 dz2 pass through layer_sums.
 //
 // A block owns `rows` rows of x (chosen on the host from B and the SM
 // count, ops/fused_mlp.py:qnet_geometry) and keeps their activations in
@@ -171,17 +172,14 @@ __device__ __forceinline__ QLayer<T> qlayer(const T* w, const T* b, int K,
   return L;
 }
 
-// The block's micro-tile `tile` of one layer over k in [k0, k1), whose
-// weight rows k0.. are in wb.  On the layer's first chunk the sums start
-// from 0; on its last, the outputs are rounded and biased and go to y
-// (ReLU, as T) or, for the last layer, to epi.store(row, col, q).
-template <typename T, int RM, int RN, bool kLast, typename Epi>
-__device__ __forceinline__ void tile_step(float (&acc)[RM][RN],
-                                          const QLayer<T>& L, const T* x,
-                                          int xs, const T* wb, int k0,
-                                          int k1, bool first, bool last,
-                                          int rows, int tile, T* y, int ys,
-                                          Epi& epi) {
+// The sums of the block's micro-tile `tile` of one layer over k in [k0,
+// k1), whose weight rows k0.. are in wb; on the layer's first chunk they
+// start from 0.
+template <typename T, int RM, int RN>
+__device__ __forceinline__ void tile_acc(float (&acc)[RM][RN],
+                                         const QLayer<T>& L, const T* x,
+                                         int xs, const T* wb, int k0, int k1,
+                                         bool first, int rows, int tile) {
   const int rg = tile / L.nj, jg = tile - rg * L.nj, r0 = rg * RM;
   const T* xr[RM];
 #pragma unroll
@@ -228,7 +226,21 @@ __device__ __forceinline__ void tile_step(float (&acc)[RM][RN],
             __fadd_rn(acc[i][c], __fmul_rn(a, Num<T>::to_f(wk[jc[c]])));
     }
   }
+}
+
+// tile_acc, and on the layer's last chunk the outputs rounded and biased
+// into y (ReLU, as T) or, for the last layer, epi.store(row, col, q).
+template <typename T, int RM, int RN, bool kLast, typename Epi>
+__device__ __forceinline__ void tile_step(float (&acc)[RM][RN],
+                                          const QLayer<T>& L, const T* x,
+                                          int xs, const T* wb, int k0,
+                                          int k1, bool first, bool last,
+                                          int rows, int tile, T* y, int ys,
+                                          Epi& epi) {
+  tile_acc<T, RM, RN>(acc, L, x, xs, wb, k0, k1, first, rows, tile);
   if (!last) return;
+  const int rg = tile / L.nj, jg = tile - rg * L.nj, r0 = rg * RM;
+  const int J = L.J;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
 #pragma unroll
@@ -260,40 +272,31 @@ __device__ __forceinline__ bool next_step(QStep& s, const QLayer<T> (&L)[3]) {
   return ++s.l < 3;
 }
 
-// The forward of the block's rows of x (f32 [B][in]): h1, h2 into shared
-// memory, q through epi.store(row in block, column, value).  Layers 1 and
-// 2 use the RM x RN micro-tile; the last layer, a few actions wide, one
-// output per thread, so its long sums spread over the most threads.  Every
-// shared pointer is derived from smem directly (no pointer arrays), so the
-// compiler keeps the tile loads in the shared window (LDS).  Ends with a
-// block-wide barrier, so the caller may read what epi stored in shared
-// memory.
-template <typename T, int RM, int RN, typename Epi>
-__device__ void qnet_forward(const float* __restrict__ x, int B, MlpDims d,
-                             Net<T> net, QnetGeom g, unsigned char* smem,
-                             Epi& epi) {
-  const QnetSmem S(d, g, sizeof(T), 0);
-  T* const wbuf = reinterpret_cast<T*>(smem);
-  T* const s_in = reinterpret_cast<T*>(smem + S.in);
-  T* const s_h1 = reinterpret_cast<T*>(smem + S.h1);
-  T* const s_h2 = reinterpret_cast<T*>(smem + S.h2);
+// The three layers of `rows` rows whose inputs (T, act_stride(d.in) per
+// row) `fill` writes to x_in: h1, h2 into s_h1, s_h2, q through
+// epi.store(row, column, value).  The first weight chunk is requested
+// before fill runs.  Layers 1 and 2 use the RM x RN micro-tile; the last
+// layer, a few actions wide, one output per thread, so its long sums
+// spread over the most threads.  The callers derive every shared pointer
+// from smem directly (no pointer arrays), so the compiler keeps the tile
+// loads in the shared window (LDS).  Ends with a block-wide barrier, so
+// the caller may read what epi stored in shared memory.
+template <typename T, int RM, int RN, typename Fill, typename Epi>
+__device__ __forceinline__ void qnet_layers(MlpDims d, Net<T> net,
+                                            int chunk, T* wbuf,
+                                            const T* x_in, T* s_h1, T* s_h2,
+                                            int rows, Fill& fill, Epi& epi) {
   const int st_in = act_stride(d.in), st_h1 = act_stride(d.h1),
             st_h2 = act_stride(d.h2);
-  const int row0 = blockIdx.x * g.rows;
-  const int rows = min(g.rows, B - row0);
   const QLayer<T> L[3] = {
-      qlayer(net.w0, net.b0, d.in, d.h1, g.chunk, rows, RM, RN),
-      qlayer(net.w1, net.b1, d.h1, d.h2, g.chunk, rows, RM, RN),
-      qlayer(net.w2, net.b2, d.h2, d.a, g.chunk, rows, 1, 1)};
+      qlayer(net.w0, net.b0, d.in, d.h1, chunk, rows, RM, RN),
+      qlayer(net.w1, net.b1, d.h1, d.h2, chunk, rows, RM, RN),
+      qlayer(net.w2, net.b2, d.h2, d.a, chunk, rows, 1, 1)};
 
   QStep cur{0, 0, 0}, pre{0, 0, 0};
   stage(wbuf, L[0].w, L[0].kc * L[0].J);
   cp_async_commit();
-  const float* xb = x + static_cast<size_t>(row0) * d.in;
-  for (int i = threadIdx.x; i < rows * d.in; i += blockDim.x) {
-    const int r = i / d.in;
-    s_in[r * st_in + (i - r * d.in)] = Num<T>::from_f(xb[i]);
-  }
+  fill();
   bool more = next_step(pre, L);
   float acc[RM][RN];
   float acc1[1][1];
@@ -301,21 +304,21 @@ __device__ void qnet_forward(const float* __restrict__ x, int B, MlpDims d,
     if (more) {
       const QLayer<T>& P = L[pre.l];
       const int k0 = pre.c * P.kc;
-      stage(wbuf + ((s + 1) & 1) * g.chunk,
+      stage(wbuf + ((s + 1) & 1) * chunk,
             P.w + static_cast<size_t>(k0) * P.J,
             (min(P.K, k0 + P.kc) - k0) * P.J);
     }
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
-    const T* wb = wbuf + (s & 1) * g.chunk;
+    const T* wb = wbuf + (s & 1) * chunk;
     const int tile = cur.p * kQnetThreads + threadIdx.x;
     const bool first = cur.c == 0;
     if (cur.l == 0) {
       if (tile < L[0].ntiles) {
         const int k0 = cur.c * L[0].kc;
         tile_step<T, RM, RN, false>(
-            acc, L[0], s_in, st_in, wb, k0, min(L[0].K, k0 + L[0].kc),
+            acc, L[0], x_in, st_in, wb, k0, min(L[0].K, k0 + L[0].kc),
             first, cur.c == L[0].nchunks - 1, rows, tile, s_h1, st_h1, epi);
       }
     } else if (cur.l == 1) {
@@ -334,6 +337,79 @@ __device__ void qnet_forward(const float* __restrict__ x, int B, MlpDims d,
     __syncthreads();
     if (!next_step(cur, L)) break;
     more = more && next_step(pre, L);
+  }
+}
+
+// The forward of the block's rows of x (f32 [B][in]) through qnet_layers,
+// with the layout of QnetSmem.
+template <typename T, int RM, int RN, typename Epi>
+__device__ void qnet_forward(const float* __restrict__ x, int B, MlpDims d,
+                             Net<T> net, QnetGeom g, unsigned char* smem,
+                             Epi& epi) {
+  const QnetSmem S(d, g, sizeof(T), 0);
+  T* const wbuf = reinterpret_cast<T*>(smem);
+  T* const s_in = reinterpret_cast<T*>(smem + S.in);
+  T* const s_h1 = reinterpret_cast<T*>(smem + S.h1);
+  T* const s_h2 = reinterpret_cast<T*>(smem + S.h2);
+  const int st_in = act_stride(d.in);
+  const int row0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, B - row0);
+  const float* xb = x + static_cast<size_t>(row0) * d.in;
+  auto fill = [&]() {
+    for (int i = threadIdx.x; i < rows * d.in; i += blockDim.x) {
+      const int r = i / d.in;
+      s_in[r * st_in + (i - r * d.in)] = Num<T>::from_f(xb[i]);
+    }
+  };
+  qnet_layers<T, RM, RN>(d, net, g.chunk, wbuf, s_in, s_h1, s_h2, rows, fill,
+                         epi);
+}
+
+// One layer K -> J of `rows` rows of x (T, row stride xs, 16-byte aligned
+// rows) without bias or rounding: the weights w [K][J] stream through the
+// two buffers of `chunk` elements as in qnet_layers, and
+// epi.sum(row, column, s) receives each output's sum, in k order from 0.
+// Starts and ends with a block-wide barrier.
+template <typename T, int RM, int RN, typename Epi>
+__device__ __forceinline__ void layer_sums(const T* __restrict__ w, int K,
+                                           int J, int chunk, T* wbuf,
+                                           const T* x, int xs, int rows,
+                                           Epi& epi) {
+  const QLayer<T> L = qlayer<T>(w, nullptr, K, J, chunk, rows, RM, RN);
+  __syncthreads();
+  stage(wbuf, L.w, L.kc * L.J);
+  cp_async_commit();
+  float acc[RM][RN];
+  int s = 0;
+  for (int p = 0; p < L.passes; ++p) {
+    for (int c = 0; c < L.nchunks; ++c, ++s) {
+      const int nc = c + 1 < L.nchunks ? c + 1 : 0;
+      if (nc != 0 || p + 1 < L.passes) {
+        const int k0 = nc * L.kc;
+        stage(wbuf + ((s + 1) & 1) * chunk, L.w + static_cast<size_t>(k0) * J,
+              (min(K, k0 + L.kc) - k0) * J);
+      }
+      cp_async_commit();
+      cp_async_wait_prev();
+      __syncthreads();
+      const int tile = p * kQnetThreads + threadIdx.x;
+      if (tile < L.ntiles) {
+        const int k0 = c * L.kc;
+        tile_acc<T, RM, RN>(acc, L, x, xs, wbuf + (s & 1) * chunk, k0,
+                            min(K, k0 + L.kc), c == 0, rows, tile);
+        if (c == L.nchunks - 1) {
+          const int rg = tile / L.nj, jg = tile - rg * L.nj;
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int cc = 0; cc < RN; ++cc) {
+              const int r = rg * RM + i, j = jg + cc * L.nj;
+              if (r < rows && j < J) epi.sum(r, j, acc[i][cc]);
+            }
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 

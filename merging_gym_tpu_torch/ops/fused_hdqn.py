@@ -13,7 +13,7 @@ final state twice), the lower Double-DQN learner on every step once its
 ring has filled, the upper one on steps where some option ended once its
 ring has filled, the metrics and the auto-reset.
 
-On the H100 a step is five hand-written kernels issued by
+On the H100 a step is up to five hand-written kernels issued by
 :func:`fused_hdqn_chunk` in a host loop on the current stream (K5's design,
 ``ops/fused_trainer.py``): the act/env/store kernel of
 ``kernels/csrc/hdqn_trainer.cu``, then the learner of
@@ -531,12 +531,12 @@ def launch_hdqn(st, carry, cfg, env_params, num_steps, seed, greedy,
         if learn_lo:
             lower.launch(st["lo_ring"], LO_F, lo_rounds_d[i:],
                          cols_d[2 * i:], st["loss"],
-                         ("hdqn_learn_lower", "hdqn_adam_lower"),
+                         ("hdqn_learn_fwd_lower", "hdqn_learn_grad_lower"),
                          sync=sync_lo, t=t_lo)
         if i >= first_open:
             upper.launch(st["up_ring"], UP_F, up_rounds_d[i:],
                          cols_d[2 * i + 1:], up_loss,
-                         ("hdqn_learn_upper", "hdqn_adam_upper"),
+                         ("hdqn_learn_fwd_upper", "hdqn_learn_grad_upper"),
                          gate=(any_end, bias, i, first_open, prior))
     ended = int((any_end[first_open:] != 0).sum().item())
     _set_upper_learns(st["state"], prior + ended)

@@ -66,31 +66,37 @@ def qnet_smem(widths, rows: int, chunk: int, elem: int,
     return n + rows * q_per_row * 4
 
 
-def qnet_tiling(widths: tuple, rows: int, elem: int,
-                q_per_row: int = 0) -> QnetGeometry | None:
+def qnet_tiling(widths: tuple, rows: int, elem: int, q_per_row: int = 0,
+                extra: int = 0,
+                min_tiles: int = QNET_MIN_TILES) -> QnetGeometry | None:
     """The geometry of blocks of ``rows`` rows of a Q-net of ``widths``
     (in, h1, h2, a) in ``elem``-byte weights, or None where the tiles leave
     no room for two weight buffers of one k-row of the widest layer.
+    ``extra`` bytes follow the layout, and ``min_tiles`` replaces
+    ``QNET_MIN_TILES`` (the learner's, which runs this forward,
+    ``ops/fused_trainer.py:learn_tiling``).
 
     The buffers take the rest of the block's shared memory, up to the
     largest layer, in multiples of 8 elements: the second buffer then
     starts 16-byte aligned, as its ``cp.async`` copies need.  The
     micro-tile is the first of ``QNET_TILES`` that gives the largest layer
-    at least ``QNET_MIN_TILES`` tiles, else the one that gives it the most.
+    at least ``min_tiles`` tiles, else the one that gives it the most.
     """
     layers = tuple(zip(widths[:3], widths[1:]))
     full = -(-max(k * j for k, j in layers) // 8) * 8
-    room = kernels.SMEM_LIMIT - qnet_smem(widths, rows, 0, elem, q_per_row)
+    room = (kernels.SMEM_LIMIT - extra
+            - qnet_smem(widths, rows, 0, elem, q_per_row))
     chunk = min(full, room // (2 * elem) // 8 * 8)
     if chunk < max(j for _, j in layers):
         return None
     j_main = max(layers, key=lambda kj: kj[0] * kj[1])[1]
     fits = [(rm, rn) for rm, rn in QNET_TILES if rm <= rows]
     tiles = {t: -(-rows // t[0]) * -(-j_main // t[1]) for t in fits}
-    rm, rn = next((t for t in fits if tiles[t] >= QNET_MIN_TILES),
+    rm, rn = next((t for t in fits if tiles[t] >= min_tiles),
                   max(fits, key=tiles.get))
     return QnetGeometry(rows, rm, rn, chunk,
-                        qnet_smem(widths, rows, chunk, elem, q_per_row))
+                        qnet_smem(widths, rows, chunk, elem, q_per_row)
+                        + extra)
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,11 +10,14 @@ Double-DQN target, the pre-update target sync, hand-derived backprop and
 Adam, the metrics and the auto-reset.
 
 On the TPU the T steps of a chunk were the sequential grid of one launch
-with all state in VMEM.  On the H100 a step is three hand-written kernels
-(``kernels/csrc/dqn_trainer.cu``) issued by :func:`fused_dqn_chunk` in a
-host loop on the current stream: the act/env/store kernel, then, on a
-learning step, the learner's per-block partial gradients and the Adam
-kernel that sums them in block order.  Blocks cannot carry state across a
+with all state in VMEM.  On the H100 a step is up to three hand-written
+kernels (``kernels/csrc/dqn_trainer.cu``) issued by :func:`fused_dqn_chunk`
+in a host loop on the current stream: the act/env/store kernel, then, on a
+learning step, the learner (:class:`Learner`): its forward/backward kernel,
+which writes each sampled lane's operands to a workspace, and its
+gradient kernel, which sums them over the lanes and applies Adam.  Its
+launch geometry (:func:`learn_geometry`) follows the batch and the SM
+count, independent of the summation tile.  Blocks cannot carry state across a
 grid and the learner reduces over the batch every step, so a step needs a
 reduction across blocks; a per-step sequence gives it without a grid-wide
 sync, keeps the order of JAX's step (the learner samples the ring after
@@ -49,7 +52,9 @@ streams and explicit streams stay injectable.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,7 +69,8 @@ from merging_gym_tpu_torch.nn.mlp import qnet_init
 from merging_gym_tpu_torch.ops import philox
 from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, select
 from merging_gym_tpu_torch.ops.fused_mlp import (compute_dtype_of, mlp_plain,
-                                                 mlp_plain_layers)
+                                                 mlp_plain_layers, qnet_tiling,
+                                                 sm_count)
 from merging_gym_tpu_torch.ops.fused_rollout import (random_reset_vals,
                                                      rewards_cfg)
 
@@ -87,11 +93,11 @@ K5_TILE = 16
 _ACT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
              + [ctypes.c_uint32, ctypes.c_int] + [ctypes.c_uint32] * 3
              + [ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-_LEARN_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
-               + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_ADAM_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-              + [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2
+_FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_GRAD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+              + [ctypes.c_float] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 2
               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
@@ -669,28 +675,134 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
         if learn:
             learner.launch(st["ring"], NUM_F, rounds_d[i * K:],
                            cols_d[i * K:], st["loss"],
-                           ("dqn_learn_partials", "dqn_adam"), sync=sync, t=t)
+                           ("dqn_learn_fwd", "dqn_learn_grad"), sync=sync,
+                           t=t)
+
+
+# ---------------------------------------------------------------------------
+# The learner on the card: geometry, workspace, launches
+# ---------------------------------------------------------------------------
+
+LEARN_LANES_MAX = 16
+# Micro-tiles of the forwards' largest layer per block: the target's
+# forward and the dz1 layer run over half the rows of the online one, so
+# the learner asks for twice K3's QNET_MIN_TILES (the tiles sweep of
+# chip_smoke.py times the others).
+LEARN_MIN_TILES = 192
+# learn_grad_kernel (dqn_trainer.cu): rectangles of 16 x 16 gradient
+# entries per block, GRAD_GROUPS summation tiles in flight.
+GRAD_GROUPS = 16
+
+
+class LearnGeometry(NamedTuple):
+    """Launch geometry of the learner's forward/backward kernel: ``lanes``
+    sampled lanes per block, its forwards' ``rm`` x ``rn`` micro-tiles,
+    ``chunk`` elements per weight buffer, ``smem`` bytes per block."""
+    lanes: int
+    rm: int
+    rn: int
+    chunk: int
+    smem: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def learn_extra(widths, lanes: int, elem: int) -> int:
+    """Shared-memory bytes of ``learn_fwd_kernel`` after the forward's
+    layout for ``2 * lanes`` rows (``dqn_trainer.cu:LearnSmem``): q of x and
+    x', the target's q of x', four f32 per lane, dq and its rounded copy,
+    dz2 in the compute type with h2's row stride."""
+    a, h2 = widths[3], widths[2]
+    q = lanes * a * 4
+    return (_align16(2 * q) + _align16(q) + _align16(16 * lanes)
+            + 2 * _align16(q) + lanes * ((h2 + 3) // 4 * 4 + 4) * elem)
+
+
+def learn_tiling(widths, lanes: int, elem: int) -> LearnGeometry | None:
+    """The geometry of blocks of ``lanes`` lanes, or None where they do
+    not fit a block's shared memory: the forward's tiling of ``2 * lanes``
+    rows (x and x' of each lane) with :func:`learn_extra` bytes after it."""
+    g = qnet_tiling(tuple(widths), 2 * lanes, elem,
+                    extra=learn_extra(widths, lanes, elem),
+                    min_tiles=LEARN_MIN_TILES)
+    return None if g is None else LearnGeometry(lanes, g.rm, g.rn, g.chunk,
+                                                g.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def learn_geometry(batch: int, widths: tuple, elem: int,
+                   sm_count: int) -> LearnGeometry:
+    """The learner's geometry for ``batch`` lanes on ``sm_count`` SMs: the
+    smallest power of two of lanes per block (at most ``LEARN_LANES_MAX``)
+    that needs no more blocks than the card has SMs -- as
+    ``ops/fused_mlp.py:qnet_geometry`` sizes K3's rows -- halved while it
+    does not fit shared memory.  It is independent of the summation tile
+    (:func:`learn_tile`), which fixes only the order of the sums."""
+    top = 1
+    while top < LEARN_LANES_MAX and -(-batch // top) > sm_count:
+        top *= 2
+    for lanes in (top >> i for i in range(top.bit_length())):
+        g = learn_tiling(widths, lanes, elem)
+        if g is not None:
+            return g
+    raise ValueError(f"a Q-net of widths {tuple(widths)} does not fit the "
+                     f"learner's {kernels.SMEM_LIMIT} B of shared memory")
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def workspace_width(dims, bf16: bool) -> int:
+    """Floats per lane of the learner's workspace (``dqn_trainer.cu:
+    WsCols``): x, h1, h2, dq with the squared TD error, dz2, dz1, and in
+    bf16 dq, dz2 and dz1 rounded to bf16, each group padded to a multiple
+    of 4 floats."""
+    d_in, h1, h2, a = dims
+    width = _pad4(d_in) + 2 * _pad4(h1) + 2 * _pad4(h2) + _pad4(a + 1)
+    return width + (_pad4(a) + _pad4(h2) + _pad4(h1) if bf16 else 0)
+
+
+def grad_smem(tile: int) -> int:
+    """Shared-memory bytes of ``learn_grad_kernel`` (``dqn_trainer.cu:
+    grad_smem``): two buffers of GRAD_GROUPS tiles of lanes x 16 columns of
+    both factors, and the groups' partial sums."""
+    return (4 * GRAD_GROUPS * tile * 16 + GRAD_GROUPS * 16 * 16) * 4
 
 
 class Learner:
-    """Launches of the learner kernels (``dqn_learn_partials`` and
-    ``dqn_adam``) for the flat set ``prefix`` of the working state ``st``
-    (see :func:`learn_plain`), with a workspace of per-block partial sums.
-    K5 runs one, K7 two (its lower and upper learners)."""
+    """Launches of the learner kernels (``learn_fwd_kernel`` and
+    ``learn_grad_kernel`` of ``dqn_trainer.cu``) for the flat set
+    ``prefix`` of the working state ``st`` (see :func:`learn_plain`), with
+    their workspace (one row per sampled lane) and ``w1t``, the online
+    net's w1 transposed, which the gradient kernel keeps up to date.  K5
+    runs one, K7 two (its lower and upper learners).  The set must lie on
+    the card: nothing here runs on the CPU.  ``geometry``: a
+    :class:`LearnGeometry` in place of :func:`learn_geometry`'s (the lanes
+    sweep of chip_smoke.py)."""
 
-    def __init__(self, st, prefix, dims, B, K, cfg, dev):
+    def __init__(self, st, prefix, dims, B, K, cfg, dev, geometry=None):
+        pc = st[prefix + "pc"]
+        dev = kernels.require_cuda(*(st[prefix + k] for k in (
+            "p", "tp", "m", "v", "pc", "tpc")))
         self.st, self.prefix, self.dims = st, prefix, dims
         self.B, self.K, self.cfg = B, K, cfg
-        self.bf16 = st[prefix + "pc"].dtype == torch.bfloat16
-        self.tile = learn_tile(dims, st[prefix + "pc"].element_size())
+        self.bf16 = pc.dtype == torch.bfloat16
+        elem = pc.element_size()
+        self.tile = learn_tile(dims, elem)
+        self.geom = geometry or learn_geometry(B, tuple(dims), elem,
+                                               sm_count(dev))
         self.P = st[prefix + "p"].numel()
-        self.work = torch.empty(B // self.tile, self.P + 1,
-                                dtype=torch.float32, device=dev)
+        self.ws = torch.empty(B, workspace_width(dims, self.bf16),
+                              dtype=torch.float32, device=dev)
+        self.w1t = _natural(pc, dims)[2].T.contiguous()
         self.stream = kernels.stream_ptr(dev)
-        self.learn_fn = kernels.function("dqn_trainer", "mgt_dqn_learn",
-                                         _LEARN_ARGS)
-        self.adam_fn = kernels.function("dqn_trainer", "mgt_dqn_adam",
-                                        _ADAM_ARGS)
+        self.fwd_fn = kernels.function("dqn_trainer", "mgt_dqn_learn_fwd",
+                                       _FWD_ARGS)
+        self.grad_fn = kernels.function("dqn_trainer", "mgt_dqn_learn_grad",
+                                        _GRAD_ARGS)
 
     def launch(self, ring, num_f, rounds, cols, loss, counts, *,
                sync=False, t=1, gate=None):
@@ -701,8 +813,8 @@ class Learner:
         decided: ``sync`` and Adam's step ``t``), or ``(any_end, bias,
         step, first_open, prior)`` for the device gate of K7's upper
         learner (``dqn_trainer.cu:DevGate``)."""
-        st, pre, ptr, cfg = self.st, self.prefix, kernels.ptr, self.cfg
-        d_in, h1, h2, a = self.dims
+        st, pre, ptr, cfg, g = self.st, self.prefix, kernels.ptr, self.cfg, \
+            self.geom
         if gate is None:
             dev_gate = (ptr(None), ptr(None), 0, 0, 0)
             c1, c2 = adam_bias_corrections(t)
@@ -711,20 +823,21 @@ class Learner:
             dev_gate = (ptr(any_end), ptr(bias), step, first_open, prior)
             sync, c1, c2 = False, 1.0, 1.0  # decided on the device
         pc, tpc = st[pre + "pc"], st[pre + "tpc"]
-        rc = self.learn_fn(
-            ptr(pc), ptr(pc if sync else tpc), ptr(ring), ptr(rounds),
-            ptr(cols), ptr(self.work), ring.shape[1], self.B, self.K, num_f,
-            d_in, h1, h2, a, self.tile, int(self.bf16),
-            int(cfg.mask_terminal), cfg.gamma, 2.0 / self.B, dev_gate[0],
-            *dev_gate[2:], cfg.target_sync, self.stream)
-        kernels.check("dqn_trainer", rc, "dqn_learn_partials launch")
+        rc = self.fwd_fn(
+            ptr(pc), ptr(pc if sync else tpc), ptr(self.w1t), ptr(ring),
+            ptr(rounds), ptr(cols), ptr(self.ws), ring.shape[1], self.B,
+            self.K, num_f, *self.dims, int(self.bf16),
+            int(cfg.mask_terminal), cfg.gamma, 2.0 / self.B, g.lanes, g.rm,
+            g.rn, g.chunk, g.smem, dev_gate[0], *dev_gate[2:],
+            cfg.target_sync, self.stream)
+        kernels.check("dqn_trainer", rc, "learn_fwd launch")
         kernels.launch_counts[counts[0]] += 1
         pb, tpb = (ptr(pc), ptr(tpc)) if self.bf16 else (ptr(None),) * 2
-        rc = self.adam_fn(
-            ptr(self.work), ptr(st[pre + "p"]), ptr(st[pre + "tp"]),
-            ptr(st[pre + "m"]), ptr(st[pre + "v"]), pb, tpb, ptr(loss),
-            self.P, self.B // self.tile, self.B, int(sync), cfg.lr, ADAM_B1,
-            ADAM_B2, 1.0 - ADAM_B1, 1.0 - ADAM_B2, ADAM_EPS, c1, c2,
-            *dev_gate, cfg.target_sync, self.stream)
-        kernels.check("dqn_trainer", rc, "dqn_adam launch")
+        rc = self.grad_fn(
+            ptr(self.ws), ptr(st[pre + "p"]), ptr(st[pre + "tp"]),
+            ptr(st[pre + "m"]), ptr(st[pre + "v"]), pb, tpb, ptr(self.w1t),
+            ptr(loss), *self.dims, self.B, self.tile, int(sync), cfg.lr,
+            ADAM_B1, ADAM_B2, 1.0 - ADAM_B1, 1.0 - ADAM_B2, ADAM_EPS, c1, c2,
+            grad_smem(self.tile), *dev_gate, cfg.target_sync, self.stream)
+        kernels.check("dqn_trainer", rc, "learn_grad launch")
         kernels.launch_counts[counts[1]] += 1

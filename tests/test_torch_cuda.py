@@ -211,13 +211,14 @@ def test_k5_equals_plain_and_repeats(cuda, case):
             torch.Generator(device=cuda).manual_seed(5), 10, 5))
     carry = _race_carry(cfg, ep, n, cuda, **kw)
     got = want = again = carry
-    before = kernels.launch_counts["dqn_adam"]
+    before = kernels.launch_counts["dqn_learn_grad"]
     for seed, T in enumerate((1, 15)):  # the first chunk is below warm-up
         got = FT.fused_dqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
         want = FT.fused_dqn_chunk_plain(cfg, ep, want, T, seed,
                                         greedy=greedy)
         again = FT.fused_dqn_chunk(cfg, ep, again, T, seed, greedy=greedy)
-    assert kernels.launch_counts["dqn_adam"] - before == 2 * got["learns"]
+    learns = kernels.launch_counts["dqn_learn_grad"] - before
+    assert learns == 2 * got["learns"]
     assert got["learns"] == 14 and got["episodes"] > 0
     for k in ("env", "ring"):
         assert torch.equal(got[k], want[k]), k
@@ -269,8 +270,8 @@ def test_k7_equals_plain_and_repeats(cuda, case):
     counts = {k: kernels.launch_counts[k] - before[k]
               for k in kernels.launch_counts}
     assert counts["hdqn_act_env_store"] == 2 * 16
-    assert counts["hdqn_adam_lower"] == 2 * got["lo_learns"] == 2 * 14
-    assert counts["hdqn_adam_upper"] == 2 * 15  # issued from step R_up-1
+    assert counts["hdqn_learn_grad_lower"] == 2 * got["lo_learns"] == 2 * 14
+    assert counts["hdqn_learn_grad_upper"] == 2 * 15  # issued from step R_up-1
     assert FH.upper_learns(got["state"]) > 0 and got["episodes"] > 0
     for k in ("state", "lo_ring", "up_ring"):
         assert torch.equal(got[k], want[k]), k
@@ -281,6 +282,124 @@ def test_k7_equals_plain_and_repeats(cuda, case):
     for k in ("lo_learns", "episodes", "collisions", "wins", "sum_ep_reward",
               "last_loss"):
         assert got[k] == want[k] == again[k], k
+
+
+def _chunks_equal_and_repeat(chunk, plain, carry, keys, sets, scalars):
+    """Two chunks (1 step, below warm-up, then 15) of the kernels, of the
+    plain version and of the kernels again: every tensor and scalar
+    equal bit for bit."""
+    got = want = again = carry
+    for seed, T in enumerate((1, 15)):
+        got = chunk(got, T, seed)
+        want = plain(want, T, seed)
+        again = chunk(again, T, seed)
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in sets:
+        for a, b, c in zip(got[k], want[k], again[k]):
+            assert torch.equal(a, b) and torch.equal(a, c), k
+    for k in scalars:
+        assert got[k] == want[k] == again[k], k
+    return got
+
+
+# The learner at the training CLI's shape (1,024 envs, B 1,024), at odd
+# widths (--hidden 150 75), and at a width whose summation tile is below
+# 16 lanes (1024 x 512: learn_tile 8 in f32).
+@pytest.mark.parametrize("case", ["cli_1024", "hidden_150_75_f32",
+                                  "hidden_150_75_bf16", "wide_tile_8"])
+def test_k5_learner_shapes_equal_plain_and_repeat(cuda, case):
+    n = 1024 if case == "cli_1024" else 256
+    cfg = D.DQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                      opponent="L0")
+    if case.startswith("hidden"):
+        dtype = "bfloat16" if case.endswith("bf16") else "float32"
+        cfg = cfg.replace(hidden=(150, 75), compute_dtype=dtype)
+    elif case == "wide_tile_8":
+        cfg = cfg.replace(hidden=(1024, 512))
+        assert FT.learn_tile((10, 1024, 512, 5), 4) == 8
+    ep = EnvParams(max_steps=40)
+    before = dict(kernels.launch_counts)
+    got = _chunks_equal_and_repeat(
+        lambda c, T, s: FT.fused_dqn_chunk(cfg, ep, c, T, s, greedy=True),
+        lambda c, T, s: FT.fused_dqn_chunk_plain(cfg, ep, c, T, s,
+                                                 greedy=True),
+        _race_carry(cfg, ep, n, cuda), ("env", "ring"), ("p", "tp", "m", "v"),
+        ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"))
+    assert got["learns"] == 14 and got["episodes"] > 0
+    for k in ("dqn_learn_fwd", "dqn_learn_grad"):
+        assert kernels.launch_counts[k] - before[k] == 2 * 14
+
+
+def test_k7_cli_shape_equals_plain_and_repeats(cuda):
+    n = 1024
+    cfg = H.HDQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                       goal_memory_capacity=2 * n, opponent="L0")
+    ep = EnvParams(max_steps=40)
+    got = _chunks_equal_and_repeat(
+        lambda c, T, s: FH.fused_hdqn_chunk(cfg, ep, c, T, s, greedy=True),
+        lambda c, T, s: FH.fused_hdqn_chunk_plain(cfg, ep, c, T, s,
+                                                  greedy=True),
+        _hdqn_race_carry(cfg, ep, n, cuda), ("state", "lo_ring", "up_ring"),
+        FH.SETS[:8], ("lo_learns", "episodes", "collisions", "wins",
+                      "sum_ep_reward", "last_loss"))
+    assert FH.upper_learns(got["state"]) > 0 and got["episodes"] > 0
+
+
+# K7's upper learner under its device gate (dqn_trainer.cu:DevGate) at
+# step 2 of a chunk, with target_sync 3: shut (any_end[2] == 0, nothing
+# moves), open after one earlier learn (count prior + 1 = 1: no sync,
+# Adam's step 2), and open at count 3 (the target syncs first).
+@pytest.mark.parametrize("case", ["shut", "open", "open_sync"])
+def test_k7_upper_learner_gate(cuda, case):
+    dims, n, num_f = (10, 200, 100, 3), 256, FH.UP_F
+    cfg = H.HDQNConfig(lr=1e-3, target_sync=3)
+    rng = np.random.default_rng(7)
+    P = sum(a * b + b for a, b in zip(dims[:3], dims[1:]))
+
+    def flat(scale):
+        return torch.as_tensor(rng.standard_normal(P) * scale,
+                               dtype=torch.float32, device=cuda)
+    st = {"p": flat(0.1), "tp": flat(0.1), "m": flat(1e-3),
+          "v": flat(1e-3).abs()}
+    st["pc"], st["tpc"] = st["p"], st["tp"]
+    ring = rng.standard_normal((2 * num_f, n)) * 50
+    for r in range(2):
+        ring[r * num_f + 20] = rng.integers(0, 3, n)      # action (goal)
+        ring[r * num_f + 22] = rng.integers(0, 2, n)      # done
+    ring = torch.as_tensor(ring, dtype=torch.float32, device=cuda)
+    any_end = torch.tensor([1, 0, 0 if case == "shut" else 1, 0],
+                           dtype=torch.int32, device=cuda)
+    prior = 2 if case == "open_sync" else 0
+    bias = torch.tensor([FT.adam_bias_corrections(prior + 1 + k)
+                         for k in range(4)], dtype=torch.float32,
+                        device=cuda)
+    want = {k: v.clone() for k, v in st.items()}
+    want["pc"], want["tpc"] = want["p"], want["tp"]
+    loss = torch.zeros((), device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = dict(kernels.launch_counts)
+    FT.Learner(st, "", dims, n, 1, cfg, cuda).launch(
+        ring, num_f, one, zero, loss,
+        ("hdqn_learn_fwd_upper", "hdqn_learn_grad_upper"),
+        gate=(any_end, bias, 2, 0, prior))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hdqn_learn_grad_upper"] == \
+        before["hdqn_learn_grad_upper"] + 1
+    if case == "shut":
+        for k in ("p", "tp", "m", "v"):
+            assert torch.equal(st[k], want[k]), k
+        assert float(loss) == 0.0
+        return
+    batch = FT.ring_batch(ring, [1], [0], n, num_f, dims[0])
+    # One learn before this one in the chunk (step 0): count prior + 1.
+    want_loss = FT.learn_plain(want, "", batch, (prior + 1) % 3 == 0,
+                               prior + 2, cfg, dims)
+    for k in ("p", "tp", "m", "v"):
+        assert torch.equal(st[k], want[k]), k
+    assert torch.equal(loss, want_loss)
 
 
 @pytest.mark.parametrize("case", ["selfplay_greedy", "l0_textbook_window",

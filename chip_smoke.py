@@ -38,9 +38,10 @@ Phases, each of which raises (non-zero exit) on failure:
      three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``), also
      at each main-path batch (256, 1,024, 4,096; one call and the device
      time alone), and K3's device time at every rows-per-block choice;
-     K8 and K9 per step and per 200-step chunk; one warm step of K5 and
-     of K7 split by kernel (device time of each launch, launches per
-     step, one learn beside its bound: the ``trainer_split`` line).
+     K8 and K9 per step and per 200-step chunk; one warm step of K5, K7
+     and K9 split by kernel (device time of each launch, launches per
+     step, one learn beside its bound: the ``trainer_split`` line), and
+     one learn of K5 and of K9 at each choice of their geometry.
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -122,7 +123,8 @@ K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_fwd_lower",
              "hdqn_learn_grad_upper")
 K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn",
              "rainbow_adam", "rainbow_post")
-K9_COUNTS = ("drqn_act", "drqn_learn", "drqn_adam")
+K9_COUNTS = ("drqn_act", "drqn_learn_in", "drqn_learn_rec",
+             "drqn_learn_grad")
 
 # The Rainbow net of K8: trunk 10 -> 32 -> 64, noisy value 64 -> 64 -> 51,
 # noisy advantage 64 -> 64 -> 5 x 51 (ranbowdqn.py:498-548).
@@ -923,6 +925,80 @@ def trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev):
     return out
 
 
+def drqn_split(torch, np, kernels, FD, DR, EnvParams, dev):
+    """One warm K9 learning step at the CLI defaults (L0, 1,024 envs, L 16,
+    burn-in 4, R 4, B 1,024, f32) split by kernel (``kernel_split``):
+    device ms of each launch, launches per learning step, their sum, one
+    learn (every launch after the act kernel) beside its bound
+    (``drqn_learn_flops`` on the windows that step samples); and the time
+    per step of a warm 200-step chunk (CUDA events, host launches
+    included).  It calls only what every version of ``ops.fused_drqn``
+    has, so it splits a parent's step too."""
+    ep = EnvParams()
+    cfg = DR.DRQNConfig(memory_capacity=4 * N_TRAIN)
+    carry = FD.fused_drqn_chunk(cfg, ep, FD.fused_drqn_init(
+        0, cfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
+    st = FD.working_state(carry)
+    one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+    split = kernel_split(torch, kernels, lambda: FD.launch_drqn(
+        st, carry, cfg, ep, 1, 1, False, one, zero), dev)
+    L, B = carry["L"], carry["B"]
+    done = carry["ring"].reshape(carry["R"], L + 1, FD.SLOT, N_TRAIN)[
+        1, 1:, FD.IN_DIM + 2, :B].T.cpu().numpy()            # [B, L]
+    r = np.random.default_rng(4)
+    rounds = r.integers(0, carry["R"], T_CHUNK).astype(np.int32)
+    cols = np.zeros(T_CHUNK, np.int32)
+    chunk_ms = cuda_ms(torch, lambda: FD.launch_drqn(
+        st, carry, cfg, ep, T_CHUNK, 1, False, rounds, cols), 3)
+    return {"kernels": split, "launches_per_learning_step": len(split),
+            "step_device_ms": sum(ms for _, ms in split),
+            "learn_ms": sum(ms for _, ms in split[1:]),
+            "learn_bound_ms": bound(0, drqn_learn_flops(done,
+                                                        cfg.burn_in))[0],
+            "chunk_step_ms": chunk_ms / T_CHUNK}
+
+
+def drqn_learn_sweep(torch, kernels, FD, FM, DR, EnvParams, dev):
+    """One K9 learn at the CLI defaults (B 1,024, L 16), device ms by
+    ``graph_ms``: at every input-side rows per block (16-128), every
+    recurrence windows per block (1, 2, 4) and every gradient block size
+    (``FD.GRAD_THREADS``), each with the picked rest, beside what
+    ``learn_geometry`` picks: the readings its rule stands on.  Each
+    geometry's parameters, moments and loss after one learn must equal the
+    picked one's."""
+    ep = EnvParams()
+    cfg = DR.DRQNConfig(memory_capacity=4 * N_TRAIN)
+    carry = FD.fused_drqn_chunk(cfg, ep, FD.fused_drqn_init(
+        0, cfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
+    B, L = carry["B"], carry["L"]
+
+    def learn(lr):  # on the current stream (graph_ms captures it)
+        lr.stream = kernels.stream_ptr(dev)
+        lr.launch(cfg, 1, 0, False, 2)
+
+    def time(g):
+        lr = FD.Learner(FD.working_state(carry), B, L, g)
+        learn(lr)
+        if not all(torch.equal(lr.st[k], want.st[k]) for k in (
+                "p", "tp", "m", "v", "loss")):
+            raise AssertionError(f"the K9 learner at {g} differs")
+        return graph_ms(torch, lambda: learn(lr))
+    picked = FD.learn_geometry(B, L, FM.sm_count(dev))
+    want = FD.Learner(FD.working_state(carry), B, L)
+    learn(want)
+    rows, windows = picked.in_rows, picked.rec_windows
+    return {"picked": picked._asdict(),
+            "device_ms_by_in_rows": {
+                str(r): time(FD.learn_tiling(B, L, r, windows))
+                for r in (16, 32, 64, 128)},
+            "device_ms_by_rec_windows": {
+                str(w): time(FD.learn_tiling(B, L, rows, w))
+                for w in (1, 2, 4)},
+            "device_ms_by_grad_threads": {
+                str(t): time(FD.learn_tiling(B, L, rows, windows, t))
+                for t in FD.GRAD_THREADS}}
+
+
 def learn_lanes_times(torch, kernels, FT, FM, D, EnvParams, dev):
     """One K5 learn at the CLI defaults (L0, 1,024 envs, B 1,024, f32),
     device ms by ``graph_ms``: at every power of two of lanes per block up
@@ -1482,10 +1558,13 @@ def main():
                     "merging_gym_tpu/ops/fused_hdqn.py:86", "K7",
                     k7_chunk_ms / T_CHUNK, k7_plain, k7_b_ms, k7_b_by, None))
 
-    # K5's and K7's warm steps split by kernel (device time of each).
+    # K5's, K7's and K9's warm steps split by kernel (device time of each).
     split = trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev)
     split["learn_geometry_sweep"] = learn_lanes_times(
         torch, kernels, FT, FM, D, EnvParams, dev)
+    split["K9"] = drqn_split(torch, np, kernels, FD, DR, EnvParams, dev)
+    split["k9_learn_geometry_sweep"] = drqn_learn_sweep(
+        torch, kernels, FD, FM, DR, EnvParams, dev)
 
     # K8: one training step at the CLI's defaults (L0, 1,024 envs, R 8,
     # B 1,024, uniform 1-step), timed over a 200-step chunk of a warm carry

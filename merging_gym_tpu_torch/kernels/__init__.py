@@ -47,9 +47,10 @@ launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
                  # partial sums, Adam, and the noise / sync / weights pass
                  "rainbow_act": 0, "rainbow_per_pick": 0, "rainbow_learn": 0,
                  "rainbow_adam": 0, "rainbow_post": 0,
-                 # K9's three: act/env/window/flush, the learner's partial
-                 # sums, Adam
-                 "drqn_act": 0, "drqn_learn": 0, "drqn_adam": 0}
+                 # K9's four: act/env/window/flush, the learner's input
+                 # side, its recurrence, its gradients + Adam
+                 "drqn_act": 0, "drqn_learn_in": 0, "drqn_learn_rec": 0,
+                 "drqn_learn_grad": 0}
 
 _libs: dict = {}
 _funcs: dict = {}

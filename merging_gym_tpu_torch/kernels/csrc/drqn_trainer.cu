@@ -1,5 +1,5 @@
-// K9: the whole recurrent DQN (DRQN) trainer, one step as up to three
-// kernels.
+// K9: the whole recurrent DQN (DRQN) trainer, one step as one kernel
+// before the ring has filled and four after.
 //
 // Replaces merging_gym_tpu/ops/fused_drqn.py:_kernel, both of its call
 // forms (_call, the VMEM ring, and _call_hbm, the HBM ring: on the card the
@@ -22,56 +22,75 @@
 //      the window's last step the copy of the env's window column into ring
 //      round r_cur and the post-reset obs into slot 0, the metrics, and the
 //      h/c of both seats zeroed where the episode ended.
-//   2. drqn_learn (learning steps): a block owns 4 sampled windows.  The
-//      valid count msum over the whole batch (past burn-in, before the
-//      first in-window done) as an integer, which is exact in any order;
-//      the forward of the eval and target nets over all L + 1 timesteps
-//      from zero state; per-timestep Double-DQN targets; dq =
-//      onehot * ((2 / msum) * mask * diff); the hand backprop through the
-//      heads (t < L), the LSTM recurrence from t = L - 1 down to 0, fc2 and
-//      fc1; and the block's partial sums of all twelve gradients and of
-//      mask * diff^2 over its rows (window by window, t in order).
-//   3. drqn_adam (learning steps): one thread per parameter sums the
-//      partials in block order (no atomics), copies tp := p first on a sync
-//      step, and applies Adam; the loss is the summed mask * diff^2 / msum.
+//   2. drqn_learn_in (learning steps; in_kernel): the input side of both
+//      nets over all B x (L + 1) rows of the sampled windows, gathered from
+//      the ring: fc1 (ReLU), fc2 and x2 w_ih + b_ih, as three register-tiled
+//      layers of qnet_tiled.cuh (layer_sums), with the block's rows sized on
+//      the host from B and the SM count (ops/fused_drqn.py:learn_geometry).
+//      The eval net's obs, relu(z1) and x2 at t < L go to the workspace,
+//      both nets' x2 w_ih + b_ih to `gx`, and each block's share of the
+//      valid count (past burn-in, before the first in-window done; an
+//      integer, exact in any order) to `cnt`.
+//   3. drqn_learn_rec (rec_kernel): one warp per window and net, W windows
+//      a block.  msum = max(sum of cnt, 1); the 17-step recurrence of both
+//      nets from zero state, each lane two of the 64 gate columns, h passed
+//      by warp shuffles; both nets' heads; the Double-DQN targets, dq and
+//      mask * diff^2; the backward through the heads and down the
+//      recurrence from t = L - 1 to 0, the eval warp's lanes 0-15 carrying
+//      dh through w_hh while lanes 16-31 take dx2 = w_ih da; then, over the
+//      whole block, dz1 = (w2 dx2) * relu'(z1).  Each row's factors go to
+//      the workspace.
+//   4. drqn_learn_grad (grad_kernel): every gradient entry and the loss as
+//      a sum over the workspace's rows in the plain version's order, then,
+//      in the same thread, tp := p on a sync step and Adam (learn_math.cuh).
 //
-// The learner's memory: the backward needs, per window and timestep, the
-// gates, c_prev, tanh(c), h, fc2's output and the head's pre-activation
-// (~200 floats with the target net's), and fc1's pre-activation (200).  At
-// 4 windows x 17 timesteps the first part (with the backward's own rows)
-// is 119 KB of shared memory at L 16; fc1 is recomputed window by window
-// where the fc1 and fc2 gradients need it (~7% more operations, nothing
-// of it in device memory).  Those two gradients accumulate across the
-// windows in the block's row of `work` (each thread re-reads its own
-// running sum), which keeps the one order 0 + row 0 + row 1 + ...
-//
-// Every sum is one thread's, in index order from 0, with one rounding per
-// multiply and per add (-fmad=false; the learner spells it with the
-// intrinsics), sigmoid is 1 / (1 + expf(-x)) as one IEEE division and tanh
-// is tanhf, the accurate library functions.  Two runs on the same inputs
-// give the same bits, and the plain version (ops/fused_drqn.py:
-// fused_drqn_chunk_plain) repeats every order, so the two agree bit for
-// bit.  Layouts (ops/fused_drqn.py): a parameter set is one flat f32 buffer
-// of 7,949 values, fc1 w [10][200], b; fc2 w [200][16], b; w_ih [16][64],
-// b_ih; w_hh [16][64], b_hh; fc3 w [16][16], b; fc4 w [16][5], b; env rows
-// [75][n]; window slot s = rows 16 s .. 16 s + 15.
+// The order of every sum is the plain version's (ops/fused_drqn.py:
+// _grads_plain, fused_drqn_chunk_plain), so the two agree bit for bit.
+// Each sum is one thread's chain from 0 in index order, with one rounding
+// per multiply and per add (-fmad=false; spelt with the intrinsics), and a
+// bias is added after its chain.  A gate is ((x2 w_ih + b_ih) + h w_hh) +
+// b_hh, so its first term, which does not depend on h, is computed for
+// every timestep ahead of the recurrence.  Sigmoid is 1 / (1 + expf(-x)) as
+// one IEEE division and tanh is tanhf, the accurate library functions.  A
+// gradient entry (and the loss) is, for each summation tile of kWindows
+// windows x L rows in order, the tile's sum over its rows from 0 (window by
+// window, t in order), added into the total from 0.  A bias's gradient is
+// the sum of 1 x d over the same rows, which is the sum of d: the
+// workspace keeps a column of ones beside each weight's first factor, so a
+// bias is one more row of its weight's rectangles.  Two runs on the same
+// inputs give the same bits.  Layouts (ops/fused_drqn.py): a parameter set
+// is one flat f32 buffer of 7,949 values, fc1 w [10][200], b; fc2 w
+// [200][16], b; w_ih [16][64], b_ih; w_hh [16][64], b_hh; fc3 w [16][16],
+// b; fc4 w [16][5], b; env rows [75][n]; window slot s = rows 16 s ..
+// 16 s + 15.
 //
 // Bound on an H100: per step one or two recurrent forwards per env
 // (~15,900 operations each) and on a learning step, per sampled window, two
-// 17-step forwards and a 16-step backward (~1 MFLOP), all f32 on the CUDA
-// cores; the sampled windows are 1.1 MB at B 1,024 and a parameter set
-// 32 KB, so K9 is bound by operations.  The learner's grid is B / 4 blocks
-// of 256 threads with 119 KB of shared memory each, and its recurrence is
-// a chain of 2 x 17 + 16 dependent steps with block-wide barriers between
-// them, every sum a scalar chain kept for exact agreement with the plain
-// version, so K9 sits far from that bound; the measured times are in
-// PERF.md.
+// 17-step forwards and a 16-step backward (~0.9 MFLOP), all f32 on the
+// CUDA cores (no FMA, so at most half the card's f32 rate), so K9 is bound
+// by operations.  What held the learner back, and what this design does:
+// the old learner ran B / 4 blocks of 119 KB, one per SM in two waves, its
+// recurrence 33 steps of block-wide barriers with most threads idle, every
+// block re-counting the whole batch, fc1 and fc2 one output per thread, and
+// its partial sums through an 8 MB buffer summed by a second kernel.  Now
+// the valid count is taken once; the input side (~45% of the operations)
+// runs as register-tiled layers over the whole card; the recurrence runs in
+// one wave of warps that synchronise only within themselves, and takes
+// dz1 too (one pass over the block's rows, no launch of its own); and the
+// gradients are summed by rectangles of 16 x 8 entries with up to 128
+// summation tiles in flight a block, the partials parked in shared memory.
+// The row factors pass through a workspace of B x L rows of 596 floats
+// (39 MB at B 1,024, L 16), written once and read back by the gradient
+// kernel, whose speed is set by those reads: more threads a block (more
+// loads in flight) made it faster, larger rectangles (fewer re-reads) did
+// not.  The measured times are in PERF.md (chip_smoke.py).
 #include <cstdint>
 
 #include "env_math.cuh"
 #include "learn_math.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
+#include "qnet_tiled.cuh"
 
 namespace mgt {
 namespace drqn {
@@ -80,7 +99,7 @@ constexpr int kIn = 10, kH1 = 200, kHid = 16, kG = 4 * kHid, kA = 5;
 constexpr int kSlot = 16;      // rows per window slot
 constexpr int kThreads = 256;
 constexpr int kActTile = 16;   // envs per drqn_act block
-constexpr int kWindows = 4;    // sampled windows per drqn_learn block
+constexpr int kWindows = 4;    // windows per summation tile of the learner
 
 // The flat parameter layout of ops/fused_drqn.py:LAYOUT.
 constexpr int kW1 = 0;
@@ -305,378 +324,711 @@ act_kernel(const float* __restrict__ p, const float* __restrict__ opp,
   }
 }
 
-struct LearnCfg {
+// ---- the learner ------------------------------------------------------------
+
+// The learner's workspace: one row of kWsWidth floats per sampled window b
+// and timestep t < L, row b * L + t, so that a summation tile is
+// kWindows * L consecutive rows.  Each group starts on a multiple of 4
+// floats (16-byte loads); a 1 after a weight's first factor is its bias's
+// row.  The host writes the ones and zeros once (ops/fused_drqn.py:
+// WS_GROUPS mirrors the columns); in_kernel and rec_kernel write the rest.
+constexpr int kWsX = 0;      // in: obs (10); 1 (b1), 0
+constexpr int kWsZ1r = 12;   // in: relu(z1) (200); 1 (b2), 0, 0, 0
+constexpr int kWsDz1 = 216;  // rec: dz1 (200)
+constexpr int kWsDx2 = 416;  // rec: dx2 (16)
+constexpr int kWsX2h = 432;  // in: x2 (16); rec: h_{t-1} (16); 1 (b_ih, b_hh)
+constexpr int kWsDa = 468;   // rec: da (64)
+constexpr int kWsH = 532;    // rec: h (16); 1 (b3), 0, 0, 0
+constexpr int kWsDz3 = 552;  // rec: dz3 (16)
+constexpr int kWsZ3r = 568;  // rec: relu(z3) (16); 1 (b4, the loss)
+constexpr int kWsDq = 588;   // rec: dq (5), mask * diff^2; 0, 0
+constexpr int kWsWidth = 596;
+
+__device__ __forceinline__ float* ws_row(float* ws, int b, int L, int t) {
+  return ws + (static_cast<size_t>(b) * L + t) * kWsWidth;
+}
+
+// ---- 2. the input side ----------------------------------------------------
+
+// The three layers of in_kernel as a Q-net of widths (in, h1, h2, a): fc1
+// 10 -> 200, fc2 200 -> 16, the gates' input term 16 -> 64.  Its shared
+// memory is qnet_tiled.cuh:QnetSmem of these widths (x, relu(z1), x2) with
+// kInRowInts ints a row after it: the row's workspace row (-1 past t = L - 1
+// and on the target net) and its row of gx.
+__host__ __device__ inline MlpDims in_dims() {
+  return MlpDims{kIn, kH1, kHid, kG};
+}
+constexpr int kInRowInts = 2;
+
+struct InCfg {
   int n, B, L, burn_in, round, col;
+};
+
+struct EpiFc1 {  // z1 = sum + b1; relu(z1) to shared memory and ws
+  const float* b1;
+  float* y;
+  int ys;
+  float* ws;
+  const int* wsrow;
+  __device__ __forceinline__ void sum(int r, int j, float acc) {
+    const float v = relu(__fadd_rn(acc, b1[j]));
+    y[r * ys + j] = v;
+    if (wsrow[r] >= 0)
+      ws[static_cast<size_t>(wsrow[r]) * kWsWidth + kWsZ1r + j] = v;
+  }
+};
+
+struct EpiFc2 {  // x2 = sum + b2, to shared memory and ws
+  const float* b2;
+  float* y;
+  int ys;
+  float* ws;
+  const int* wsrow;
+  __device__ __forceinline__ void sum(int r, int j, float acc) {
+    const float v = __fadd_rn(acc, b2[j]);
+    y[r * ys + j] = v;
+    if (wsrow[r] >= 0)
+      ws[static_cast<size_t>(wsrow[r]) * kWsWidth + kWsX2h + j] = v;
+  }
+};
+
+struct EpiGx {  // x2 w_ih + b_ih into gx [net][b][t][64]
+  const float* bih;
+  float* gx;
+  const int* gxrow;
+  __device__ __forceinline__ void sum(int r, int j, float acc) {
+    gx[static_cast<size_t>(gxrow[r]) * kG + j] = __fadd_rn(acc, bih[j]);
+  }
+};
+
+// Block (x, net) owns `g.rows` rows of net `net` (0 eval, 1 target): its
+// row r is timestep t = R / B of window b = R % B, R = x * rows + r, so
+// consecutive rows are consecutive windows and the gather from the ring
+// reads whole lines.
+template <int RM, int RN>
+__global__ void __launch_bounds__(kQnetThreads)
+in_kernel(const float* __restrict__ p, const float* __restrict__ tgt,
+          const float* __restrict__ ring, float* __restrict__ ws,
+          float* __restrict__ gx, int* __restrict__ cnt, InCfg ic,
+          QnetGeom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_count;
+  const QnetSmem S(in_dims(), g, sizeof(float), kInRowInts);
+  float* const wbuf = reinterpret_cast<float*>(smem);
+  float* const s_in = reinterpret_cast<float*>(smem + S.in);
+  float* const s_h1 = reinterpret_cast<float*>(smem + S.h1);
+  float* const s_x2 = reinterpret_cast<float*>(smem + S.h2);
+  int* const wsrow = reinterpret_cast<int*>(smem + S.q);
+  int* const gxrow = wsrow + g.rows;
+  const int st_in = act_stride(kIn), st_h1 = act_stride(kH1),
+            st_x2 = act_stride(kHid);
+  const int net = blockIdx.y;
+  const bool eval = net == 0;
+  const float* const pp = eval ? p : tgt;
+  const int L = ic.L, B = ic.B, T1 = L + 1;
+  const int R0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, B * T1 - R0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t sN = static_cast<size_t>(ic.n);
+  // Window b of the batch is lane col * B + b of ring round `round`.
+  const float* const slab = ring +
+                            static_cast<size_t>(ic.round) * T1 * kSlot * sN +
+                            static_cast<size_t>(ic.col) * B;
+
+  if (tid == 0) s_count = 0;
+  int c = 0;  // this thread's rows of the valid count (eval)
+  for (int r = tid; r < rows; r += nt) {
+    const int R = R0 + r, t = R / B, b = R - t * B;
+    wsrow[r] = eval && t < L ? b * L + t : -1;
+    gxrow[r] = (net * B + b) * T1 + t;
+    if (!eval || t >= L || t < ic.burn_in) continue;
+    float ended = 0.0f;
+    for (int s = 0; s < t; ++s)
+      ended = fmaxf(ended,
+                    slab[(static_cast<size_t>(s + 1) * kSlot + kIn + 2) * sN +
+                         b]);
+    c += __fsub_rn(1.0f, ended) != 0.0f ? 1 : 0;
+  }
+  for (int i = tid; i < rows * kIn; i += nt) {  // obs of every row
+    const int f = i / rows, r = i - f * rows;
+    const int R = R0 + r, t = R / B, b = R - t * B;
+    const float x = slab[(static_cast<size_t>(t) * kSlot + f) * sN + b];
+    s_in[r * st_in + f] = x;
+    if (eval && t < L) ws_row(ws, b, L, t)[kWsX + f] = x;
+  }
+  __syncthreads();
+  if (eval) atomicAdd(&s_count, c);  // integers: the same in any order
+  // fc1 (200 wide) and the input term (64 wide) take 8 x 4 micro-tiles, a
+  // few passes of the block; fc2 (16 wide, the longest chains) the
+  // host's RM x RN, which spreads it over every thread.
+  EpiFc1 e1{pp + kB1, s_h1, st_h1, ws, wsrow};
+  layer_sums<float, 8, 4>(pp + kW1, kIn, kH1, g.chunk, wbuf, s_in, st_in,
+                          rows, e1);
+  EpiFc2 e2{pp + kB2, s_x2, st_x2, ws, wsrow};
+  layer_sums<float, RM, RN>(pp + kW2, kH1, kHid, g.chunk, wbuf, s_h1, st_h1,
+                            rows, e2);
+  EpiGx e3{pp + kBih, gx, gxrow};
+  layer_sums<float, 8, 4>(pp + kWih, kHid, kG, g.chunk, wbuf, s_x2, st_x2,
+                          rows, e3);
+  if (eval && tid == 0) cnt[blockIdx.x] = s_count;
+}
+
+// ---- 3. the recurrence ---------------------------------------------------
+
+struct RecCfg {
+  int n, B, L, burn_in, round, col, W, ncnt;
   float gamma;
 };
 
-// Offsets (in floats) of the learner's shared arrays for W = kWindows
-// windows of L steps; T1 = L + 1 timesteps of the forward, rows (w, t) at
-// w * T1 + t, backward rows at w * L + t.
-struct LearnLayout {
-  int X, act, rew, dn, mask, lterm, x2e, x2t, gates, cprev, tc, he, ht,
-      hst, cst, gpre, z3e, z3t, qe, qt, dq, dz3, dhh, da, dx2, dhn, dcn, ta,
-      tb, total;
-  __host__ __device__ explicit LearnLayout(int L) {
-    constexpr int W = kWindows;
-    const int T1 = L + 1, WT = W * T1, WL = W * L;
+// rec_kernel's shared memory, in floats: both nets' heads, b_hh, the eval
+// net's w2 with rows padded to 17 (for dz1), dx2 of every window's rows
+// (row w * L + t), then per window `per` floats: one step's da, the eval
+// net's gates after their activations, c_{t-1} and tanh(c_t) at t < L,
+// both nets' h, fc3 pre-activations and q at t <= L, the window's actions,
+// rewards and dones, dq, dz3 and dh from the heads.  The windows and da
+// start on 16 bytes.  ops/fused_drqn.py:rec_smem mirrors it.
+struct RecLayout {
+  int w3, b3, w4, b4, bhh, w2, dx2, win;
+  int da, gates, cprev, tc, hs, z3, qv, act, rew, dn, dq, dz3, dhh, per;
+  int total;
+  __host__ __device__ RecLayout(int W, int L) {
+    const int T1 = L + 1;
     int o = 0;
-    X = o;     o += WT * kIn;   // the windows' obs
-    act = o;   o += WL;         // action, reward, done, mask, mask * diff^2
-    rew = o;   o += WL;
-    dn = o;    o += WL;
-    mask = o;  o += WL;
-    lterm = o; o += WL;
-    x2e = o;   o += WT * kHid;  // fc2 outputs, eval and target
-    x2t = o;   o += WT * kHid;
-    gates = o; o += WT * kG;    // eval: i, f, g, o after their activations
-    cprev = o; o += WT * kHid;  // eval: c_{t-1}, tanh(c_t), h_t
-    tc = o;    o += WT * kHid;
-    he = o;    o += WT * kHid;
-    ht = o;    o += WT * kHid;  // target: h_t
-    hst = o;   o += 2 * W * kHid;  // recurrent state of both nets
-    cst = o;   o += 2 * W * kHid;
-    gpre = o;  o += 2 * W * kG;    // gate pre-activations of one step
-    z3e = o;   o += WT * kHid;  // fc3 pre-activations, q
-    z3t = o;   o += WT * kHid;
-    qe = o;    o += WT * kA;
-    qt = o;    o += WT * kA;
-    dq = o;    o += WL * kA;    // backward rows
-    dz3 = o;   o += WL * kHid;
-    dhh = o;   o += WL * kHid;
-    da = o;    o += WL * kG;
-    dx2 = o;   o += WL * kHid;
-    dhn = o;   o += W * kHid;   // dh, dc carried to the step before
-    dcn = o;   o += W * kHid;
-    ta = o;    o += T1 * kH1;   // fc1 of one window (pre-activation)
-    tb = o;    o += L * kH1;    // dz1 of one window
-    total = o;
+    w3 = o;   o += 2 * kHid * kHid;
+    b3 = o;   o += 2 * kHid;
+    w4 = o;   o += 2 * kHid * kA;
+    b4 = o;   o += 2 * kA;
+    bhh = o;  o += 2 * kG;
+    w2 = o;   o += kH1 * (kHid + 1);
+    dx2 = o;  o += W * L * kHid;
+    win = (o + 3) & ~3;
+    int q = 0;
+    da = q;    q += kG;
+    gates = q; q += L * kG;
+    cprev = q; q += L * kHid;
+    tc = q;    q += L * kHid;
+    hs = q;    q += 2 * T1 * kHid;
+    z3 = q;    q += 2 * T1 * kHid;
+    qv = q;    q += 2 * T1 * kA;
+    act = q;   q += L;
+    rew = q;   q += L;
+    dn = q;    q += L;
+    dq = q;    q += L * kA;
+    dz3 = q;   q += L * kHid;
+    dhh = q;   q += L * kHid;
+    per = (q + 3) & ~3;
+    total = win + W * per;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-learn_kernel(const float* __restrict__ p, const float* __restrict__ tgt,
-             const float* __restrict__ ring, float* __restrict__ work,
-             int* __restrict__ msum_out, LearnCfg lc) {
+constexpr int kRecWindowsMax = kThreads / 64;  // two warps a window
+
+// Warp w < W of a block is the eval net on window blockIdx.x * W + w, warp
+// W + w the target net on the same window.  No block-wide barrier falls
+// inside the forward or the backward steps: a warp's lanes exchange h and
+// the gates by shuffles and da through their own shared row.
+__global__ void __launch_bounds__(kThreads, 2)
+rec_kernel(const float* __restrict__ p, const float* __restrict__ tgt,
+           const float* __restrict__ ring, const float* __restrict__ gx,
+           const int* __restrict__ cnt, float* __restrict__ ws,
+           int* __restrict__ msum_out, RecCfg rc) {
   extern __shared__ __align__(16) float sm[];
-  __shared__ int s_count;
-  const LearnLayout lay(lc.L);
-  constexpr int W = kWindows;
-  const int L = lc.L, T1 = L + 1, WT = W * T1, WL = W * L;
-  float* X = sm + lay.X;
-  float* act = sm + lay.act;
-  float* rew = sm + lay.rew;
-  float* dn = sm + lay.dn;
-  float* mask = sm + lay.mask;
-  float* lterm = sm + lay.lterm;
-  float* x2[2] = {sm + lay.x2e, sm + lay.x2t};
-  float* gates = sm + lay.gates;
-  float* cprev = sm + lay.cprev;
-  float* tcs = sm + lay.tc;
-  float* hb[2] = {sm + lay.he, sm + lay.ht};
-  float* hst = sm + lay.hst;
-  float* cst = sm + lay.cst;
-  float* gpre = sm + lay.gpre;
-  float* z3[2] = {sm + lay.z3e, sm + lay.z3t};
-  float* q[2] = {sm + lay.qe, sm + lay.qt};
-  float* dq = sm + lay.dq;
-  float* dz3 = sm + lay.dz3;
-  float* dhh = sm + lay.dhh;
-  float* da = sm + lay.da;
-  float* dx2 = sm + lay.dx2;
-  float* dhn = sm + lay.dhn;
-  float* dcn = sm + lay.dcn;
-  float* ta = sm + lay.ta;
-  float* tb = sm + lay.tb;
-
+  __shared__ int s_msum;
+  const RecLayout lay(rc.W, rc.L);
+  const int L = rc.L, T1 = L + 1, W = rc.W;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t sN = static_cast<size_t>(lc.n);
-  const int WF = T1 * kSlot;
-  // Window b of the batch is lane col * B + b of ring round `round`.
-  const float* slab = ring + static_cast<size_t>(lc.round) * WF * sN +
-                      static_cast<size_t>(lc.col) * lc.B;
-  const int w0 = blockIdx.x * W;
+  const int lane = tid & 31, wi = tid >> 5;
+  const int net = wi >= W ? 1 : 0, w = wi - net * W;
+  const int b = blockIdx.x * W + w;
+  const bool hi = lane >= kHid;
+  const int u = lane & (kHid - 1);
+  float* const win = sm + lay.win + w * lay.per;
+  const size_t sN = static_cast<size_t>(rc.n);
+  const float* const slab = ring +
+                            static_cast<size_t>(rc.round) * T1 * kSlot * sN +
+                            static_cast<size_t>(rc.col) * rc.B;
 
-  // ---- the valid count over the whole batch, and this block's windows --
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-  int cnt = 0;
-  for (int b = tid; b < lc.B; b += nt) {
-    float ended = 0.0f;
-    for (int t = 0; t < L; ++t) {
-      const float valid = t >= lc.burn_in ? __fsub_rn(1.0f, ended) : 0.0f;
-      cnt += valid != 0.0f ? 1 : 0;
-      if (b >= w0 && b < w0 + W) mask[(b - w0) * L + t] = valid;
-      ended = fmaxf(ended, slab[((t + 1) * kSlot + 12) * sN + b]);
+  // ---- weights, the window's transitions, the valid count ---------------
+  auto both = [&](int dst, int off, int count) {  // eval's, then target's
+    for (int i = tid; i < 2 * count; i += nt) {
+      const int nn = i >= count ? 1 : 0;
+      sm[dst + i] = (nn ? tgt : p)[off + i - nn * count];
     }
-  }
-  atomicAdd(&s_count, cnt);  // integers: the total is the same in any order
-  for (int i = tid; i < WT * kIn; i += nt) {
-    const int w = i / (T1 * kIn), rem = i - w * T1 * kIn;
-    const int t = rem / kIn, f = rem - t * kIn;
-    X[i] = slab[(t * kSlot + f) * sN + w0 + w];
-  }
-  for (int i = tid; i < WL; i += nt) {
-    const int w = i / L, t = i - w * L;
-    const float* s = slab + ((t + 1) * kSlot + kIn) * sN + w0 + w;
-    act[i] = s[0];
-    rew[i] = s[sN];
-    dn[i] = s[2 * sN];
-  }
-  __syncthreads();
-  const int msum = max(s_count, 1);
-  if (blockIdx.x == 0 && tid == 0) *msum_out = msum;
-  const float two = __fdiv_rn(2.0f, static_cast<float>(msum));
-
-  // ---- forward, input side: fc1 and fc2 of both nets, all timesteps -----
-  for (int net = 0; net < 2; ++net) {
-    const float* pp = net ? tgt : p;
-    for (int w = 0; w < W; ++w) {
-      dense<float, true>(X + w * T1 * kIn, T1, kIn, pp + kW1, pp + kB1, kH1,
-                         ta);
-      __syncthreads();
-      dense<float, false>(ta, T1, kH1, pp + kW2, pp + kB2, kHid,
-                          x2[net] + w * T1 * kHid);
-      __syncthreads();
-    }
+  };
+  both(lay.w3, kW3, kHid * kHid);
+  both(lay.b3, kB3, kHid);
+  both(lay.w4, kW4, kHid * kA);
+  both(lay.b4, kB4, kA);
+  both(lay.bhh, kBhh, kG);
+  for (int i = tid; i < kH1 * kHid; i += nt) {
+    const int k = i / kHid, j = i - k * kHid;
+    sm[lay.w2 + k * (kHid + 1) + j] = p[kW2 + i];
   }
 
-  // ---- forward, the recurrence of both nets from zero state ------------
-  for (int i = tid; i < 2 * W * kHid; i += nt) {
-    hst[i] = 0.0f;
-    cst[i] = 0.0f;
+  if (net == 0) {
+    for (int t = lane; t < L; t += 32) {
+      const float* s =
+          slab + (static_cast<size_t>(t + 1) * kSlot + kIn) * sN + b;
+      win[lay.act + t] = s[0];
+      win[lay.rew + t] = s[sN];
+      win[lay.dn + t] = s[2 * sN];
+    }
+  }
+  if (wi == 0) {
+    int c = 0;
+    for (int i = lane; i < rc.ncnt; i += 32) c += cnt[i];
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(~0u, c, o);
+    if (lane == 0) {
+      s_msum = max(c, 1);
+      if (blockIdx.x == 0) *msum_out = s_msum;
+    }
   }
   __syncthreads();
-  for (int t = 0; t < T1; ++t) {
-    for (int i = tid; i < 2 * W * kG; i += nt) {
-      const int nw = i / kG, j = i - nw * kG;  // nw = net * W + w
-      const int net = nw / W, w = nw - net * W;
-      gpre[i] = gate_pre(net ? tgt : p, x2[net] + (w * T1 + t) * kHid,
-                         hst + nw * kHid, j);
+
+  // ---- the forward recurrence from zero state ----------------------------
+  // Lane l owns gate columns l and l + 32: i_u and g_u for l = u < 16, f_u
+  // and o_u for l = 16 + u.  Both lanes of unit u then hold all four gates
+  // and run its cell; h reaches every lane by shuffles.
+  {
+    const float* const pp = net ? tgt : p;
+    float wa[kHid], wb[kHid], h[kHid];
+#pragma unroll
+    for (int k = 0; k < kHid; ++k) {
+      wa[k] = pp[kWhh + k * kG + lane];
+      wb[k] = pp[kWhh + k * kG + lane + 32];
+      h[k] = 0.0f;
     }
-    __syncthreads();
-    for (int i = tid; i < 2 * W * kHid; i += nt) {
-      const int nw = i / kHid, u = i - nw * kHid;
-      const int net = nw / W, w = nw - net * W;
-      const int row = w * T1 + t;
-      const Cell o = cell_tail(gpre + nw * kG, u, cst[i]);
-      if (net == 0) {
-        float* gr = gates + row * kG;
-        gr[u] = o.gi;
-        gr[kHid + u] = o.gf;
-        gr[2 * kHid + u] = o.gg;
-        gr[3 * kHid + u] = o.go;
-        cprev[row * kHid + u] = cst[i];
-        tcs[row * kHid + u] = o.tc;
+    const float ba = sm[lay.bhh + net * kG + lane];
+    const float bb = sm[lay.bhh + net * kG + lane + 32];
+    const float* const gxw =
+        gx + (static_cast<size_t>(net) * rc.B + b) * T1 * kG;
+    float* const hs = win + lay.hs + net * T1 * kHid;
+    float c = 0.0f;
+    float g0 = gxw[lane], g1 = gxw[lane + 32];
+    for (int t = 0; t < T1; ++t) {
+      float n0 = 0.0f, n1 = 0.0f;  // the next step's input term, early
+      if (t + 1 < T1) {
+        n0 = gxw[(t + 1) * kG + lane];
+        n1 = gxw[(t + 1) * kG + lane + 32];
       }
-      hb[net][row * kHid + u] = o.h;
-      cst[i] = o.c;
-      hst[i] = o.h;
-    }
-    __syncthreads();
-  }
-
-  // ---- heads of both nets, all timesteps ---------------------------------
-  for (int i = tid; i < 2 * WT * kHid; i += nt) {
-    const int net = i / (WT * kHid), rem = i - net * WT * kHid;
-    const int row = rem / kHid, j = rem - row * kHid;
-    const float* pp = net ? tgt : p;
-    const float* hr = hb[net] + row * kHid;
-    float a = 0.0f;
-    for (int k = 0; k < kHid; ++k) a = madd(a, hr[k], pp[kW3 + k * kHid + j]);
-    z3[net][rem] = __fadd_rn(a, pp[kB3 + j]);
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * WT * kA; i += nt) {
-    const int net = i / (WT * kA), rem = i - net * WT * kA;
-    const int row = rem / kA, j = rem - row * kA;
-    const float* pp = net ? tgt : p;
-    const float* zr = z3[net] + row * kHid;
-    float a = 0.0f;
-    for (int k = 0; k < kHid; ++k)
-      a = madd(a, relu(zr[k]), pp[kW4 + k * kA + j]);
-    q[net][rem] = __fadd_rn(a, pp[kB4 + j]);
-  }
-  __syncthreads();
-
-  // ---- Double-DQN targets, dq and the loss terms, t < L ------------------
-  for (int i = tid; i < WL; i += nt) {
-    const int w = i / L, t = i - w * L;
-    const int r0 = w * T1 + t, r1 = r0 + 1;
-    const int star = argmax0(q[0] + r1 * kA, kA);
-    const float boot = q[1][r1 * kA + star];
-    const float target = __fadd_rn(
-        rew[i], __fmul_rn(__fmul_rn(lc.gamma, boot), __fsub_rn(1.0f, dn[i])));
-    const int a = static_cast<int>(act[i]);
-    const float diff = __fsub_rn(q[0][r0 * kA + a], target);
-    const float coef = __fmul_rn(__fmul_rn(two, mask[i]), diff);
-    for (int j = 0; j < kA; ++j)
-      dq[i * kA + j] = __fmul_rn(j == a ? 1.0f : 0.0f, coef);
-    lterm[i] = __fmul_rn(__fmul_rn(mask[i], diff), diff);
-  }
-  __syncthreads();
-
-  // ---- backward through the heads ---------------------------------------
-  for (int i = tid; i < WL * kHid; i += nt) {
-    const int r = i / kHid, k = i - r * kHid;
-    const int w = r / L, t = r - w * L;
-    float a = 0.0f;
-    for (int j = 0; j < kA; ++j)
-      a = madd(a, p[kW4 + k * kA + j], dq[r * kA + j]);
-    dz3[i] = __fmul_rn(a, z3[0][(w * T1 + t) * kHid + k] > 0.0f ? 1.0f : 0.0f);
-  }
-  __syncthreads();
-  for (int i = tid; i < WL * kHid; i += nt) {
-    const int r = i / kHid, k = i - r * kHid;
-    float a = 0.0f;
-    for (int j = 0; j < kHid; ++j)
-      a = madd(a, p[kW3 + k * kHid + j], dz3[r * kHid + j]);
-    dhh[i] = a;
-  }
-
-  // ---- backward through the recurrence, t = L - 1 down to 0 -------------
-  for (int i = tid; i < W * kHid; i += nt) {
-    dhn[i] = 0.0f;
-    dcn[i] = 0.0f;
-  }
-  __syncthreads();
-  for (int t = L - 1; t >= 0; --t) {
-    for (int i = tid; i < W * kHid; i += nt) {
-      const int w = i / kHid, u = i - w * kHid;
-      const int r = w * L + t, row = w * T1 + t;
-      const float* gr = gates + row * kG;
-      const float gi = gr[u], gf = gr[kHid + u], gg = gr[2 * kHid + u],
-                  go = gr[3 * kHid + u];
-      const float tcv = tcs[row * kHid + u];
-      const float dh = __fadd_rn(dhh[r * kHid + u], dhn[i]);
-      const float dov = __fmul_rn(dh, tcv);
-      const float dc = __fadd_rn(
-          __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.0f, __fmul_rn(tcv, tcv))),
-          dcn[i]);
-      float* dar = da + r * kG;
-      dar[u] = __fmul_rn(__fmul_rn(__fmul_rn(dc, gg), gi),
-                         __fsub_rn(1.0f, gi));
-      dar[kHid + u] = __fmul_rn(
-          __fmul_rn(__fmul_rn(dc, cprev[row * kHid + u]), gf),
-          __fsub_rn(1.0f, gf));
-      dar[2 * kHid + u] = __fmul_rn(__fmul_rn(dc, gi),
-                                    __fsub_rn(1.0f, __fmul_rn(gg, gg)));
-      dar[3 * kHid + u] = __fmul_rn(__fmul_rn(dov, go), __fsub_rn(1.0f, go));
-      dcn[i] = __fmul_rn(dc, gf);
-    }
-    __syncthreads();
-    for (int i = tid; i < W * kHid; i += nt) {
-      const int w = i / kHid, k = i - w * kHid;
-      const float* dar = da + (w * L + t) * kG;
-      float a = 0.0f;
-      for (int j = 0; j < kG; ++j) a = madd(a, p[kWhh + k * kG + j], dar[j]);
-      dhn[i] = a;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < WL * kHid; i += nt) {  // dx2 = w_ih da
-    const int r = i / kHid, k = i - r * kHid;
-    float a = 0.0f;
-    for (int j = 0; j < kG; ++j)
-      a = madd(a, p[kWih + k * kG + j], da[r * kG + j]);
-    dx2[i] = a;
-  }
-  __syncthreads();
-
-  // ---- this block's partial sums over its rows ---------------------------
-  float* out = work + static_cast<size_t>(blockIdx.x) * (kP + 1);
-  for (int i = kB2 + tid; i <= kP; i += nt) {
-    float acc = 0.0f;
-    for (int r = 0; r < WL; ++r) {
-      const int w = r / L, t = r - w * L, row = w * T1 + t;
-      if (i < kWih) {                     // b2
-        acc = __fadd_rn(acc, dx2[r * kHid + (i - kB2)]);
-      } else if (i < kBih) {              // w_ih[k][j]: x2 * da
-        const int k = (i - kWih) / kG, j = (i - kWih) - k * kG;
-        acc = madd(acc, x2[0][row * kHid + k], da[r * kG + j]);
-      } else if (i < kWhh) {              // b_ih
-        acc = __fadd_rn(acc, da[r * kG + (i - kBih)]);
-      } else if (i < kBhh) {              // w_hh[k][j]: h_{t-1} * da
-        const int k = (i - kWhh) / kG, j = (i - kWhh) - k * kG;
-        const float hp = t == 0 ? 0.0f : hb[0][(row - 1) * kHid + k];
-        acc = madd(acc, hp, da[r * kG + j]);
-      } else if (i < kW3) {               // b_hh
-        acc = __fadd_rn(acc, da[r * kG + (i - kBhh)]);
-      } else if (i < kB3) {               // w3[k][j]: h * dz3
-        const int k = (i - kW3) / kHid, j = (i - kW3) - k * kHid;
-        acc = madd(acc, hb[0][row * kHid + k], dz3[r * kHid + j]);
-      } else if (i < kW4) {               // b3
-        acc = __fadd_rn(acc, dz3[r * kHid + (i - kB3)]);
-      } else if (i < kB4) {               // w4[k][a]: relu(z3) * dq
-        const int k = (i - kW4) / kA, a = (i - kW4) - k * kA;
-        acc = madd(acc, relu(z3[0][row * kHid + k]), dq[r * kA + a]);
-      } else if (i < kP) {                // b4
-        acc = __fadd_rn(acc, dq[r * kA + (i - kB4)]);
-      } else {                            // mask * diff^2, for the loss
-        acc = __fadd_rn(acc, lterm[r]);
+      float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kHid; ++k) {
+        a0 = madd(a0, h[k], wa[k]);
+        a1 = madd(a1, h[k], wb[k]);
       }
-    }
-    out[i] = acc;
-  }
-  // fc1 and fc2, window by window: fc1 recomputed, dz1 = (w2 dx2) * relu'.
-  for (int w = 0; w < W; ++w) {
-    __syncthreads();
-    for (int i = tid; i < L * kH1; i += nt) {
-      const int t = i / kH1, k = i - t * kH1;
-      const float* xr = X + (w * T1 + t) * kIn;
-      float a = 0.0f;
-      for (int f = 0; f < kIn; ++f) a = madd(a, xr[f], p[kW1 + f * kH1 + k]);
-      ta[i] = __fadd_rn(a, p[kB1 + k]);
-    }
-    __syncthreads();
-    for (int i = tid; i < L * kH1; i += nt) {
-      const int t = i / kH1, k = i - t * kH1;
-      const float* d = dx2 + (w * L + t) * kHid;
-      float a = 0.0f;
-      for (int j = 0; j < kHid; ++j) a = madd(a, p[kW2 + k * kHid + j], d[j]);
-      tb[i] = __fmul_rn(a, ta[i] > 0.0f ? 1.0f : 0.0f);
-    }
-    __syncthreads();
-    for (int i = tid; i < kB2; i += nt) {
-      float acc = w == 0 ? 0.0f : out[i];  // this thread's running sum
-      for (int t = 0; t < L; ++t) {
-        if (i < kB1) {                    // w1[f][k]: x * dz1
-          const int f = i / kH1, k = i - f * kH1;
-          acc = madd(acc, X[(w * T1 + t) * kIn + f], tb[t * kH1 + k]);
-        } else if (i < kW2) {             // b1
-          acc = __fadd_rn(acc, tb[t * kH1 + (i - kB1)]);
-        } else {                          // w2[k][j]: relu(z1) * dx2
-          const int k = (i - kW2) / kHid, j = (i - kW2) - k * kHid;
-          acc = madd(acc, relu(ta[t * kH1 + k]),
-                     dx2[(w * L + t) * kHid + j]);
+      const float v0 = sigmoid(__fadd_rn(__fadd_rn(g0, a0), ba));
+      const float p1 = __fadd_rn(__fadd_rn(g1, a1), bb);
+      const float v1 = hi ? sigmoid(p1) : tanhf(p1);
+      const float o0 = __shfl_xor_sync(~0u, v0, kHid);
+      const float o1 = __shfl_xor_sync(~0u, v1, kHid);
+      const float gi = hi ? o0 : v0, gf = hi ? v0 : o0;
+      const float gg = hi ? o1 : v1, go = hi ? v1 : o1;
+      const float cn = __fadd_rn(__fmul_rn(gf, c), __fmul_rn(gi, gg));
+      const float tcv = tanhf(cn);
+      const float hv = __fmul_rn(go, tcv);
+      if (!hi) {
+        hs[t * kHid + u] = hv;
+        if (net == 0 && t < L) {
+          float* const gr = win + lay.gates + t * kG;
+          gr[u] = gi;
+          gr[kHid + u] = gf;
+          gr[2 * kHid + u] = gg;
+          gr[3 * kHid + u] = go;
+          win[lay.cprev + t * kHid + u] = c;
+          win[lay.tc + t * kHid + u] = tcv;
         }
       }
-      out[i] = acc;
+      c = cn;
+#pragma unroll
+      for (int k = 0; k < kHid; ++k) h[k] = __shfl_sync(~0u, hv, k);
+      g0 = n0;
+      g1 = n1;
     }
+  }
+  __syncwarp();
+
+  // ---- the heads of both nets at every timestep --------------------------
+  {
+    const float* const hs = win + lay.hs + net * T1 * kHid;
+    const float* const w3 = sm + lay.w3 + net * kHid * kHid;
+    const float* const b3 = sm + lay.b3 + net * kHid;
+    const float* const w4 = sm + lay.w4 + net * kHid * kA;
+    const float* const b4 = sm + lay.b4 + net * kA;
+    float* const z3 = win + lay.z3 + net * T1 * kHid;
+    float* const qv = win + lay.qv + net * T1 * kA;
+    for (int e = lane; e < T1 * kHid; e += 32) {
+      const int t = e / kHid, j = e - t * kHid;
+      float a = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kHid; ++k)
+        a = madd(a, hs[t * kHid + k], w3[k * kHid + j]);
+      z3[e] = __fadd_rn(a, b3[j]);
+    }
+    __syncwarp();
+    for (int e = lane; e < T1 * kA; e += 32) {
+      const int t = e / kA, j = e - t * kA;
+      float a = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kHid; ++k)
+        a = madd(a, relu(z3[t * kHid + k]), w4[k * kA + j]);
+      qv[e] = __fadd_rn(a, b4[j]);
+    }
+  }
+  __syncthreads();  // the target warps' q, for the eval warps
+
+  if (net == 0) {
+    const float* const he = win + lay.hs;
+    const float* const z3 = win + lay.z3;
+    const float* const qe = win + lay.qv;
+    const float* const qt = win + lay.qv + T1 * kA;
+    float* const dq = win + lay.dq;
+    float* const dz3 = win + lay.dz3;
+    float* const dhh = win + lay.dhh;
+
+    // ---- Double-DQN targets, dq and the loss terms, t < L -----------------
+    const float two = __fdiv_rn(2.0f, static_cast<float>(s_msum));
+    for (int t = lane; t < L; t += 32) {
+      float ended = 0.0f;
+      for (int s = 0; s < t; ++s) ended = fmaxf(ended, win[lay.dn + s]);
+      const float mask = t >= rc.burn_in ? __fsub_rn(1.0f, ended) : 0.0f;
+      const int star = argmax0(qe + (t + 1) * kA, kA);
+      const float boot = qt[(t + 1) * kA + star];
+      const float target = __fadd_rn(
+          win[lay.rew + t], __fmul_rn(__fmul_rn(rc.gamma, boot),
+                                      __fsub_rn(1.0f, win[lay.dn + t])));
+      const int a = static_cast<int>(win[lay.act + t]);
+      const float diff = __fsub_rn(qe[t * kA + a], target);
+      const float coef = __fmul_rn(__fmul_rn(two, mask), diff);
+      float* const row = ws_row(ws, b, L, t);
+      for (int j = 0; j < kA; ++j) {
+        const float d = __fmul_rn(j == a ? 1.0f : 0.0f, coef);
+        dq[t * kA + j] = d;
+        row[kWsDq + j] = d;
+      }
+      row[kWsDq + kA] = __fmul_rn(__fmul_rn(mask, diff), diff);
+    }
+    __syncwarp();
+
+    // ---- backward through the heads; the heads' rows of the workspace -----
+    const float* const w3 = sm + lay.w3;
+    const float* const w4 = sm + lay.w4;
+    for (int e = lane; e < L * kHid; e += 32) {
+      const int t = e / kHid, k = e - t * kHid;
+      float a = 0.0f;
+      for (int j = 0; j < kA; ++j) a = madd(a, w4[k * kA + j], dq[t * kA + j]);
+      const float z = z3[t * kHid + k];
+      const float d = __fmul_rn(a, z > 0.0f ? 1.0f : 0.0f);
+      dz3[e] = d;
+      float* const row = ws_row(ws, b, L, t);
+      row[kWsDz3 + k] = d;
+      row[kWsZ3r + k] = relu(z);
+      row[kWsH + k] = he[t * kHid + k];
+      row[kWsX2h + kHid + k] = t == 0 ? 0.0f : he[(t - 1) * kHid + k];
+    }
+    __syncwarp();
+    for (int e = lane; e < L * kHid; e += 32) {
+      const int t = e / kHid, k = e - t * kHid;
+      float a = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kHid; ++j)
+        a = madd(a, w3[k * kHid + j], dz3[t * kHid + j]);
+      dhh[e] = a;
+    }
+    __syncwarp();
+
+    // ---- backward through the recurrence, t = L - 1 down to 0 -------------
+    // Lane u < 16 runs unit u's cell and then dh_{t-1}[u] = sum_j w_hh[u][j]
+    // da[j]; lane 16 + u takes dx2[u] = sum_j w_ih[u][j] da[j] meanwhile,
+    // each with its row of 64 weights in registers.
+    float* const da = win + lay.da;
+    float* const dx2 = sm + lay.dx2 + w * L * kHid;
+    float wr[kG];
+    {
+      const float* const row = p + (hi ? kWih : kWhh) + u * kG;
+#pragma unroll
+      for (int j = 0; j < kG; ++j) wr[j] = row[j];
+    }
+    float dhn = 0.0f, dcn = 0.0f;
+    for (int t = L - 1; t >= 0; --t) {
+      if (!hi) {
+        const float* const gr = win + lay.gates + t * kG;
+        const float gi = gr[u], gf = gr[kHid + u], gg = gr[2 * kHid + u],
+                    go = gr[3 * kHid + u];
+        const float tcv = win[lay.tc + t * kHid + u];
+        const float dh = __fadd_rn(dhh[t * kHid + u], dhn);
+        const float dov = __fmul_rn(dh, tcv);
+        const float dc = __fadd_rn(
+            __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.0f, __fmul_rn(tcv, tcv))),
+            dcn);
+        da[u] = __fmul_rn(__fmul_rn(__fmul_rn(dc, gg), gi),
+                          __fsub_rn(1.0f, gi));
+        da[kHid + u] = __fmul_rn(
+            __fmul_rn(__fmul_rn(dc, win[lay.cprev + t * kHid + u]), gf),
+            __fsub_rn(1.0f, gf));
+        da[2 * kHid + u] = __fmul_rn(__fmul_rn(dc, gi),
+                                     __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+        da[3 * kHid + u] = __fmul_rn(__fmul_rn(dov, go), __fsub_rn(1.0f, go));
+        dcn = __fmul_rn(dc, gf);
+      }
+      __syncwarp();
+      float a = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kG; j += 4) {
+        const float4 d4 = *reinterpret_cast<const float4*>(da + j);
+        a = madd(a, wr[j], d4.x);
+        a = madd(a, wr[j + 1], d4.y);
+        a = madd(a, wr[j + 2], d4.z);
+        a = madd(a, wr[j + 3], d4.w);
+      }
+      float* const row = ws_row(ws, b, L, t);
+      if (hi) {
+        dx2[t * kHid + u] = a;
+        row[kWsDx2 + u] = a;
+      } else {
+        dhn = a;
+      }
+      row[kWsDa + lane] = da[lane];
+      row[kWsDa + lane + 32] = da[lane + 32];
+      __syncwarp();
+    }
+  }
+  __syncthreads();  // every window's dx2, for the whole block
+
+  // ---- dz1 = (w2 dx2) * relu'(z1) of the block's rows --------------------
+  // The block's rows are workspace rows blockIdx.x * W * L + rr, rr = w * L
+  // + t.  kDz1 outputs a thread at once: their relu(z1) loads issued
+  // first, then their chains side by side.
+  constexpr int kDz1 = 4;
+  const float* const w2 = sm + lay.w2;
+  float* const wsb = ws + static_cast<size_t>(blockIdx.x) * W * L * kWsWidth;
+  const int n1 = W * L * kH1;
+  for (int e0 = tid; e0 < n1; e0 += kDz1 * nt) {
+    int rr[kDz1], ks[kDz1];
+    float z[kDz1], a[kDz1];
+#pragma unroll
+    for (int x = 0; x < kDz1; ++x) {
+      const int e = min(e0 + x * nt, n1 - 1);
+      rr[x] = e / kH1;
+      ks[x] = e - rr[x] * kH1;
+      z[x] = wsb[static_cast<size_t>(rr[x]) * kWsWidth + kWsZ1r + ks[x]];
+      a[x] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kHid; ++j)
+#pragma unroll
+      for (int x = 0; x < kDz1; ++x)
+        a[x] = madd(a[x], w2[ks[x] * (kHid + 1) + j],
+                    sm[lay.dx2 + rr[x] * kHid + j]);
+#pragma unroll
+    for (int x = 0; x < kDz1; ++x)
+      if (e0 + x * nt < n1)
+        wsb[static_cast<size_t>(rr[x]) * kWsWidth + kWsDz1 + ks[x]] =
+            __fmul_rn(a[x], z[x] > 0.0f ? 1.0f : 0.0f);
   }
 }
 
-struct AdamCfg {
-  int blocks, sync;
+// ---- 4. the gradients and Adam -------------------------------------------
+
+// One gradient job: the sum over rows of ws[h + k] * ws[d + j] for k < K,
+// j < J.  Entry (k, j) is parameter out + k * stride + j; the last row of
+// each first factor is the column of ones, so its entries are the bias.
+struct GradJob {
+  int h, K, d, J, out, stride;
+};
+
+constexpr int kJobs = 5;
+
+__host__ __device__ inline GradJob grad_job(int i) {
+  switch (i) {
+    case 0:  // w1 [10][200], b1
+      return {kWsX, kIn + 1, kWsDz1, kH1, kW1, kH1};
+    case 1:  // w2 [200][16], b2
+      return {kWsZ1r, kH1 + 1, kWsDx2, kHid, kW2, kHid};
+    case 2:  // w_ih [16][64] (k < 16), w_hh (16 <= k < 32), b_ih = b_hh
+      return {kWsX2h, 2 * kHid + 1, kWsDa, kG, kWih, kG};
+    case 3:  // w3 [16][16], b3
+      return {kWsH, kHid + 1, kWsDz3, kHid, kW3, kHid};
+    default:  // w4 [16][5], b4; column 5 of the bias row is the loss
+      return {kWsZ3r, kHid + 1, kWsDq, kA + 1, kW4, kA};
+  }
+}
+
+// A block of NT threads (256, 512 or 1,024, from the host's geometry) owns
+// a kGradK x kGradJ rectangle of one job's entries.  Each of its groups of
+// 8 threads sums one summation tile at a time, each
+// thread a 4 x 4 micro-tile of the rectangle, reading its 4 + 4 factors of
+// every row straight from the workspace (16-byte loads, four rows ahead;
+// the workspace stays in the L2 cache).  A round's partials are parked in
+// shared memory and one thread per entry adds them into its total in tile
+// order.
+constexpr int kGradK = 16, kGradJ = 8;
+constexpr int kGradEntries = kGradK * kGradJ;  // 128
+constexpr int kGradGroup = kGradEntries / 16;  // threads a summation tile
+
+__host__ __device__ inline int grad_rects(int K, int J) {
+  return (K + kGradK - 1) / kGradK * ((J + kGradJ - 1) / kGradJ);
+}
+
+__host__ __device__ inline int grad_blocks() {
+  int n = 0;
+  for (int i = 0; i < kJobs; ++i)
+    n += grad_rects(grad_job(i).K, grad_job(i).J);
+  return n;
+}
+
+// Bytes of grad_kernel's shared memory (ops/fused_drqn.py:learn_tiling): the
+// groups' partial sums, 64 bytes a thread.
+__host__ __device__ constexpr size_t grad_smem(int threads) {
+  return static_cast<size_t>(threads) / kGradGroup * kGradEntries *
+         sizeof(float);
+}
+
+struct GradCfg {
+  int B, L, sync;
   AdamHyper h;
 };
 
-// The shared Adam step (learn_math.cuh), with the loss divided by the
-// learner's valid count.
-__global__ void adam_kernel(const float* __restrict__ work,
-                            float* __restrict__ p, float* __restrict__ tp,
-                            float* __restrict__ m, float* __restrict__ v,
-                            float* __restrict__ loss,
-                            const int* __restrict__ msum, AdamCfg c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > kP) return;
-  const float g = sum_partials(work, c.blocks, kP + 1, i);
-  if (i == kP) {
-    *loss = __fdiv_rn(g, static_cast<float>(*msum));
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4& h,
+                                       const float4& d) {
+  const float hv[4] = {h.x, h.y, h.z, h.w};
+  const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(hv[i], dv[c]));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
+grad_kernel(const float* __restrict__ ws, float* __restrict__ p,
+            float* __restrict__ tp, float* __restrict__ m,
+            float* __restrict__ v, float* __restrict__ loss,
+            const int* __restrict__ msum, GradCfg gc) {
+  constexpr int kGroups = NT / kGradGroup;  // summation tiles in flight
+  static_assert(kGradEntries <= NT, "one thread per entry adds partials");
+  int rect = blockIdx.x, ji = 0;
+  for (; ji < kJobs - 1; ++ji) {
+    const GradJob j = grad_job(ji);
+    const int n = grad_rects(j.K, j.J);
+    if (rect < n) break;
+    rect -= n;
+  }
+  const GradJob job = grad_job(ji);
+  const int njb = (job.J + kGradJ - 1) / kGradJ;
+  const int k0 = rect / njb * kGradK, j0 = rect % njb * kGradJ;
+
+  extern __shared__ __align__(16) float s_part[];  // [group][entry]
+  const int tid = threadIdx.x;
+  const int grp = tid / kGradGroup, mk = (tid % kGradGroup) >> 1,
+            mj = tid & 1;  // a 4 x 4 micro-tile of the 16 x 8 rectangle
+  const int TR = kWindows * gc.L;  // rows of a summation tile
+  const int ntiles = gc.B / kWindows;
+  // This thread's columns; a micro-tile wholly past K or J reads nothing
+  // (its entries are not stored).  The groups are padded so that a
+  // micro-tile that starts inside its job stays inside its group.
+  const bool mine = k0 + 4 * mk < job.K && j0 + 4 * mj < job.J;
+  const float* const hcol = ws + job.h + k0 + 4 * mk;
+  const float* const dcol = ws + job.d + j0 + 4 * mj;
+  auto ld = [](const float* q) {
+    return __ldg(reinterpret_cast<const float4*>(q));
+  };
+
+  float total = 0.0f;  // entry tid < 128: (tid / kGradJ, tid % kGradJ)
+  for (int q0 = 0; q0 < ntiles; q0 += kGroups) {
+    const int tile = q0 + grp;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+    if (tile < ntiles && mine) {
+      const size_t base = static_cast<size_t>(tile) * TR * kWsWidth;
+      int r = 0;
+      for (; r + 4 <= TR; r += 4) {  // rows in order, four loaded at once
+        float4 h4[4], d4[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          h4[u] = ld(hcol + base + static_cast<size_t>(r + u) * kWsWidth);
+          d4[u] = ld(dcol + base + static_cast<size_t>(r + u) * kWsWidth);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) outer4(acc, h4[u], d4[u]);
+      }
+      for (; r < TR; ++r)
+        outer4(acc, ld(hcol + base + static_cast<size_t>(r) * kWsWidth),
+               ld(dcol + base + static_cast<size_t>(r) * kWsWidth));
+    }
+    __syncthreads();  // the last round's partials have been added
+    if (tile < ntiles) {
+      float* const part = s_part + grp * kGradEntries;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[(4 * mk + i) * kGradJ + 4 * mj + c] = acc[i][c];
+    }
+    __syncthreads();
+    if (tid < kGradEntries)
+      for (int g = 0; g < kGroups && q0 + g < ntiles; ++g)
+        total = __fadd_rn(total, s_part[g * kGradEntries + tid]);
+  }
+
+  if (tid >= kGradEntries) return;
+  const int k = k0 + tid / kGradJ, j = j0 + tid % kGradJ;
+  if (k >= job.K || j >= job.J) return;
+  if (ji == kJobs - 1 && j == kA) {  // column 5: sum of mask * diff^2
+    if (k == kHid) *loss = __fdiv_rn(total, static_cast<float>(*msum));
     return;
   }
-  if (c.sync) tp[i] = p[i];  // the target sync comes before the update
-  adam_step(g, p, m, v, i, c.h);
+  int i = job.out + k * job.stride + j, i2 = -1;
+  if (ji == 2 && k >= kHid) {
+    if (k < 2 * kHid) {
+      i = kWhh + (k - kHid) * kG + j;
+    } else {  // b_ih and b_hh: the same sum, two parameters
+      i = kBih + j;
+      i2 = kBhh + j;
+    }
+  }
+  if (gc.sync) {  // the target sync comes before the update
+    tp[i] = p[i];
+    if (i2 >= 0) tp[i2] = p[i2];
+  }
+  adam_step(total, p, m, v, i, gc.h);
+  if (i2 >= 0) adam_step(total, p, m, v, i2, gc.h);
+}
+
+template <int NT>
+cudaError_t launch_grad(const float* ws, float* p, float* tp, float* m,
+                        float* v, float* loss, const int* msum, GradCfg gc,
+                        int smem, cudaStream_t stream) {
+  if (gc.B <= 0 || gc.B % kWindows != 0 || gc.L < 1 ||
+      grad_smem(NT) > static_cast<size_t>(smem))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(grad_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  grad_kernel<NT><<<grad_blocks(), NT, smem, stream>>>(ws, p, tp, m, v, loss,
+                                                       msum, gc);
+  return cudaGetLastError();
+}
+
+template <int RM, int RN>
+cudaError_t launch_in(const float* p, const float* tgt, const float* ring,
+                      float* ws, float* gx, int* cnt, InCfg ic, QnetGeom g,
+                      cudaStream_t stream) {
+  cudaError_t err = allow_smem(in_kernel<RM, RN>, g.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((ic.B * (ic.L + 1) + g.rows - 1) / g.rows, 2);
+  in_kernel<RM, RN><<<grid, kQnetThreads, g.smem, stream>>>(p, tgt, ring, ws,
+                                                            gx, cnt, ic, g);
+  return cudaGetLastError();
+}
+
+// Whether (B, L, round, col) name B whole windows of a ring of n lanes.
+inline bool batch_ok(int n, int B, int L, int round, int col) {
+  return B > 0 && B % kWindows == 0 && L >= 1 && round >= 0 && col >= 0 &&
+         static_cast<long long>(col + 1) * B <= n;
 }
 
 }  // namespace drqn
@@ -704,35 +1056,67 @@ extern "C" int mgt_drqn_act(const float* p, const float* opp, float* env,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mgt_drqn_learn(const float* p, const float* tgt,
-                              const float* ring, float* work, int* msum,
-                              int n, int B, int L, int burn_in, int round,
-                              int col, float gamma, cudaStream_t stream) {
+extern "C" int mgt_drqn_learn_in(const float* p, const float* tgt,
+                                 const float* ring, float* ws, float* gx,
+                                 int* cnt, int n, int B, int L, int burn_in,
+                                 int round, int col, int rows, int rm, int rn,
+                                 int chunk, int smem, cudaStream_t stream) {
   using namespace mgt;
   using namespace mgt::drqn;
-  if (B <= 0 || B % kWindows != 0 || L < 1 || round < 0 || col < 0 ||
-      static_cast<long long>(col + 1) * B > n)
+  const QnetGeom g{rows, chunk, smem};
+  if (!batch_ok(n, B, L, round, col) ||
+      !qnet_geom_ok<float>(in_dims(), g, kInRowInts))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(LearnLayout(L).total) *
-                      sizeof(float);
-  cudaError_t err = allow_smem(learn_kernel, smem);
+  const InCfg ic{n, B, L, burn_in, round, col};
+  switch (rm * 16 + rn) {
+#define MGT_CASE(M, N)                                                   \
+  case M * 16 + N:                                                       \
+    return static_cast<int>(                                             \
+        launch_in<M, N>(p, tgt, ring, ws, gx, cnt, ic, g, stream));
+    MGT_QNET_TILES(MGT_CASE)
+#undef MGT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int mgt_drqn_learn_rec(const float* p, const float* tgt,
+                                  const float* ring, const float* gx,
+                                  const int* cnt, float* ws, int* msum, int n,
+                                  int B, int L, int burn_in, int round,
+                                  int col, int W, int ncnt, int smem,
+                                  float gamma, cudaStream_t stream) {
+  using namespace mgt::drqn;
+  if (!batch_ok(n, B, L, round, col) || W < 1 || W > kRecWindowsMax ||
+      B % W != 0 || ncnt < 1 ||
+      static_cast<size_t>(RecLayout(W, L).total) * sizeof(float) >
+          static_cast<size_t>(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = mgt::allow_smem(rec_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  LearnCfg lc{n, B, L, burn_in, round, col, gamma};
-  learn_kernel<<<B / kWindows, kThreads, smem, stream>>>(p, tgt, ring, work,
-                                                          msum, lc);
+  const RecCfg rc{n, B, L, burn_in, round, col, W, ncnt, gamma};
+  rec_kernel<<<B / W, 64 * W, smem, stream>>>(p, tgt, ring, gx, cnt, ws, msum,
+                                              rc);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mgt_drqn_adam(const float* work, float* p, float* tp, float* m,
-                             float* v, float* loss, const int* msum,
-                             int blocks, int sync, float lr, float b1,
-                             float b2, float omb1, float omb2, float eps,
-                             float c1, float c2, cudaStream_t stream) {
+extern "C" int mgt_drqn_learn_grad(const float* ws, float* p, float* tp,
+                                   float* m, float* v, float* loss,
+                                   const int* msum, int B, int L, int sync,
+                                   float lr, float b1, float b2, float omb1,
+                                   float omb2, float eps, float c1, float c2,
+                                   int threads, int smem,
+                                   cudaStream_t stream) {
   using namespace mgt::drqn;
-  if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  AdamCfg c{blocks, sync, {lr, b1, b2, omb1, omb2, eps, c1, c2}};
-  const int threads = 256;
-  adam_kernel<<<(kP + threads) / threads, threads, 0, stream>>>(
-      work, p, tp, m, v, loss, msum, c);
-  return static_cast<int>(cudaGetLastError());
+  const GradCfg gc{B, L, sync, {lr, b1, b2, omb1, omb2, eps, c1, c2}};
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (threads) {
+#define MGT_CASE(T)                                                   \
+  case T:                                                             \
+    err = launch_grad<T>(ws, p, tp, m, v, loss, msum, gc, smem, stream); \
+    break;
+    MGT_CASE(256) MGT_CASE(512) MGT_CASE(1024)
+#undef MGT_CASE
+  }
+  return static_cast<int>(err);
 }

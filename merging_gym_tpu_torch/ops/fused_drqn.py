@@ -16,13 +16,18 @@ sync before the update; last the metrics and the h/c of both seats zeroed
 where the episode ended.
 
 On the TPU the T steps of a chunk were the sequential grid of one launch.
-On the H100 a step is up to three hand-written kernels
-(``kernels/csrc/drqn_trainer.cu``) issued by :func:`launch_drqn` in a host
-loop on one stream, K5's design: ``drqn_act`` (act / env / window /
-flush), then on a learning step ``drqn_learn`` (per-block partial sums of
-every gradient over its 4 windows) and ``drqn_adam`` (the partials summed
-in block order, Adam).  The flush comes before the learner, which may
-sample the round flushed this step.  The learn gate, the learn count, the
+On the H100 a step is one hand-written kernel before the ring has filled
+and four after (``kernels/csrc/drqn_trainer.cu``), issued by
+:func:`launch_drqn` in a host loop on one stream, K5's design:
+``drqn_act`` (act / env / window / flush), then on a learning step the
+three kernels of :class:`Learner`: ``drqn_learn_in`` (the valid count and
+the input side of both nets, register-tiled), ``drqn_learn_rec`` (one warp
+per window and net: the recurrence forward and back, the heads, the
+targets) and ``drqn_learn_grad`` (every gradient summed in the plain
+version's order, the target sync, Adam).  Their geometry comes from
+:func:`learn_geometry`, and the row factors pass between them through a
+workspace (:data:`WS_GROUPS`).  The flush comes before the learner, which
+may sample the round flushed this step.  The learn gate, the learn count, the
 target sync and Adam's step depend only on the host counters ``warm``,
 ``steps % (L * R)`` and ``learns``, so nothing is read back inside a chunk.
 The plain version (:func:`fused_drqn_chunk_plain`) repeats the kernels'
@@ -62,7 +67,9 @@ as int32; explicit streams stay injectable.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,6 +80,7 @@ from merging_gym_tpu_torch.core import env as core_env
 from merging_gym_tpu_torch.core.geometry import lon2coord
 from merging_gym_tpu_torch.device import resolve_device
 from merging_gym_tpu_torch.nn.lstm import LSTM_HIDDEN, drqn_init
+from merging_gym_tpu_torch.ops import fused_mlp as FM
 from merging_gym_tpu_torch.ops import fused_trainer as FT
 from merging_gym_tpu_torch.ops import philox
 from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, select
@@ -95,18 +103,19 @@ LAYOUT = (("fc1.w", (IN_DIM, H1)), ("fc1.b", (H1,)),
           ("fc4.w", (HID, A)), ("fc4.b", (A,)))
 P = sum(math.prod(s) for _, s in LAYOUT)  # 7,949
 
-# Windows per block of drqn_learn (drqn_trainer.cu:kWindows): the batch-sum
-# tile (its 4 * L rows are summed in order, window by window), which the
-# plain version repeats, and B / 4 rows of partial sums for drqn_adam.
+# Windows per summation tile (drqn_trainer.cu:kWindows): a gradient entry
+# sums each tile's 4 * L rows in order, window by window, then the tiles in
+# order; the plain version repeats it.
 LEARN_WINDOWS = 4
 
 _ACT_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_uint32] * 4 + [ctypes.c_int] + [ctypes.c_float] * 5
              + [ctypes.c_void_p])
-_LEARN_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-               + [ctypes.c_float] + [ctypes.c_void_p])
-_ADAM_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-              + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+_IN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_REC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float]
+             + [ctypes.c_void_p])
+_GRAD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+              + [ctypes.c_float] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +660,7 @@ def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     draws; with explicit ``rounds``/``cols`` (i32 ``[num_steps]``; default:
     drawn on the host from ``seed ^ 0xD7D7``) the chunk is then
     deterministic.  A carry on the CPU runs the plain version; on the card
-    K9 runs, one launch per step before the ring has filled and three
+    K9 runs, one launch per step before the ring has filled and four
     after, with no read-back until the chunk ends.  The input carry is
     left as it was.
     """
@@ -666,6 +675,192 @@ def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     return _finish(carry, st, num_steps)
 
 
+# ---------------------------------------------------------------------------
+# The learner on the card: geometry, workspace, launches
+# ---------------------------------------------------------------------------
+
+# in_kernel's three layers as a Q-net of widths (in, h1, h2, a): fc1, fc2
+# and the gates' input term x2 w_ih (drqn_trainer.cu:in_dims); its shared
+# memory is ops/fused_mlp.py:qnet_smem of these widths.
+IN_WIDTHS = (IN_DIM, H1, HID, 4 * HID)
+IN_ROWS_MAX = 64
+# Micro-tiles of fc2 (200 -> 16, the longest chains) per block: every
+# thread of the block (the rows sweep of chip_smoke.py times the rows).
+IN_MIN_TILES = 256
+# Ints per row after in_kernel's layout: its workspace row and gx row
+# (drqn_trainer.cu:kInRowInts).
+IN_ROW_INTS = 2
+REC_WINDOWS_MAX = 4  # rec_kernel: two warps a window, at most 256 threads
+# grad_kernel: 256, 512 or 1,024 threads a block, each summing 16 entries
+# of a summation tile (drqn_trainer.cu:launch_grad); its shared memory
+# parks the partial sums of the tiles in flight, 64 bytes a thread.
+GRAD_THREADS = (256, 512, 1024)
+
+# The workspace (drqn_trainer.cu:kWs*): one row per sampled window b and
+# timestep t < L, row b * L + t, of these column groups in order, each a
+# multiple of 4 floats.  A 1 follows the first factor of every weight
+# (x, relu(z1), x2 with h_{t-1}, h, relu(z3)): its bias's row.
+WS_GROUPS = (("x", 12), ("z1r", 204), ("dz1", 200), ("dx2", 16),
+             ("x2h", 36), ("da", 64), ("h", 20), ("dz3", 16), ("z3r", 20),
+             ("dq", 8))
+WS_COLS = {name: sum(w for _, w in WS_GROUPS[:i])
+           for i, (name, _) in enumerate(WS_GROUPS)}
+WS_WIDTH = sum(w for _, w in WS_GROUPS)  # 596
+WS_ONES = (WS_COLS["x"] + IN_DIM, WS_COLS["z1r"] + H1,
+           WS_COLS["x2h"] + 2 * HID, WS_COLS["h"] + HID,
+           WS_COLS["z3r"] + HID)
+
+
+class LearnGeometry(NamedTuple):
+    """Launch geometry of the learner: ``in_rows`` rows (timestep, window)
+    per block of ``drqn_learn_in``, its ``in_rm`` x ``in_rn`` micro-tiles,
+    ``in_chunk`` floats per weight buffer and ``in_smem`` bytes;
+    ``rec_windows`` windows per block of ``drqn_learn_rec`` and its
+    ``rec_smem`` bytes; ``grad_threads`` threads per block of
+    ``drqn_learn_grad`` and its ``grad_smem`` bytes."""
+    in_rows: int
+    in_rm: int
+    in_rn: int
+    in_chunk: int
+    in_smem: int
+    rec_windows: int
+    rec_smem: int
+    grad_threads: int
+    grad_smem: int
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def rec_smem(windows: int, L: int) -> int:
+    """Shared-memory bytes of ``rec_kernel`` (``drqn_trainer.cu:
+    RecLayout``): both nets' fc3, fc4 and b_hh, the eval net's w2 in rows
+    of 17 and every window's rows of dx2, then per window one step's da,
+    the eval net's gates, c_{t-1} and tanh(c_t) at t < L, both nets' h,
+    fc3 and q at t <= L, the transitions, dq, dz3 and dh from the heads;
+    the windows start on 16 bytes."""
+    G, T1 = 4 * HID, L + 1
+    shared = (2 * (HID * HID + HID + HID * A + A + G) + H1 * (HID + 1)
+              + windows * L * HID)
+    per = (G + L * (G + 2 * HID) + 2 * T1 * (2 * HID + A) + 3 * L + L * A
+           + 2 * L * HID)
+    return 4 * (_pad4(shared) + windows * _pad4(per))
+
+
+def learn_tiling(B: int, L: int, in_rows: int, rec_windows: int,
+                 grad_threads: int = GRAD_THREADS[-1]
+                 ) -> LearnGeometry | None:
+    """The geometry of ``in_rows`` rows per input-side block,
+    ``rec_windows`` windows per recurrence block and ``grad_threads``
+    threads per gradient block, or None where the first two do not fit a
+    block's shared memory or the windows do not divide B."""
+    g = FM.qnet_tiling(IN_WIDTHS, in_rows, 4, q_per_row=IN_ROW_INTS,
+                       min_tiles=IN_MIN_TILES)
+    smem = rec_smem(rec_windows, L)
+    if g is None or smem > kernels.SMEM_LIMIT or B % rec_windows:
+        return None
+    return LearnGeometry(in_rows, g.rm, g.rn, g.chunk, g.smem, rec_windows,
+                         smem, grad_threads, 64 * grad_threads)
+
+
+@functools.lru_cache(maxsize=None)
+def learn_geometry(B: int, L: int, sm_count: int) -> LearnGeometry:
+    """The learner's geometry for B windows of L steps on ``sm_count``
+    SMs.  Input side: the largest power of two of rows per block, at most
+    ``IN_ROWS_MAX``, whose grid (both nets) has a block for every SM.
+    Recurrence: the most windows per block, at most ``REC_WINDOWS_MAX``,
+    that leave a block for every SM; two blocks of four windows fit an SM,
+    so at B 1,024 all 2,048 warps run in one wave.  Each halved while it
+    does not fit shared memory; an L whose recurrence does not fit one
+    window a block is refused.  Gradients: 1,024 threads a block, the most
+    summation tiles in flight (its sweep in chip_smoke.py)."""
+    if B <= 0 or B % LEARN_WINDOWS:
+        raise ValueError(f"the learner sums tiles of {LEARN_WINDOWS} "
+                         f"windows; B = {B} is not a multiple")
+    rows = IN_ROWS_MAX
+    while rows > 1 and 2 * -(-B * (L + 1) // rows) < sm_count:
+        rows //= 2
+    while rows > 1 and learn_tiling(B, L, rows, 1) is None:
+        rows //= 2
+    windows = REC_WINDOWS_MAX
+    while windows > 1 and (B % windows or B // windows < sm_count
+                           or rec_smem(windows, L) > kernels.SMEM_LIMIT):
+        windows //= 2
+    g = learn_tiling(B, L, rows, windows)
+    if g is None:
+        raise ValueError(f"a DRQN learner of L = {L} steps does not fit the "
+                         f"{kernels.SMEM_LIMIT} B of shared memory of a "
+                         "block")
+    return g
+
+
+def new_workspace(B: int, L: int, device) -> torch.Tensor:
+    """The learner's workspace, B * L rows of :data:`WS_WIDTH` floats:
+    zeros, and the ones of the bias rows (the kernels write the rest)."""
+    ws = torch.zeros(B * L, WS_WIDTH, device=device)
+    ws[:, list(WS_ONES)] = 1.0
+    return ws
+
+
+class Learner:
+    """The launches of K9's learner (``drqn_learn_in``, ``drqn_learn_rec``
+    and ``drqn_learn_grad`` of ``drqn_trainer.cu``) on the working state
+    ``st`` (see :func:`working_state`) of a carry of B windows of L steps,
+    with their workspace, the gates' input terms ``gx`` of both nets, each
+    input-side block's valid count and the batch's.  The state must lie on
+    the card: nothing here runs on the CPU.  ``geometry``: a
+    :class:`LearnGeometry` in place of :func:`learn_geometry`'s (the sweep
+    of chip_smoke.py)."""
+
+    def __init__(self, st, B: int, L: int, geometry=None):
+        dev = kernels.require_cuda(*(st[k] for k in (
+            "p", "tp", "m", "v", "ring", "loss")))
+        if st["p"].numel() != P:
+            raise ValueError("K9 needs the 7,949-parameter DRQN")
+        self.st, self.B, self.L = st, B, L
+        self.g = geometry or learn_geometry(B, L, FM.sm_count(dev))
+        self.ws = new_workspace(B, L, dev)
+        self.gx = torch.empty(2 * B * (L + 1) * 4 * HID, device=dev)
+        self.ncnt = -(-B * (L + 1) // self.g.in_rows)
+        self.cnt = torch.empty(self.ncnt, dtype=torch.int32, device=dev)
+        self.msum = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.stream = kernels.stream_ptr(dev)
+        self.fn = {name: kernels.function("drqn_trainer",
+                                          f"mgt_drqn_learn_{name}", args)
+                   for name, args in (("in", _IN_ARGS), ("rec", _REC_ARGS),
+                                      ("grad", _GRAD_ARGS))}
+
+    def _launch(self, name, *args):
+        rc = self.fn[name](*args, self.stream)
+        kernels.check("drqn_trainer", rc, f"drqn_learn_{name} launch")
+        kernels.launch_counts[f"drqn_learn_{name}"] += 1
+
+    def launch(self, cfg, round_: int, col: int, sync: bool, t: int):
+        """One learn on the B windows of ring round ``round_``, lanes
+        ``col * B ..``: the target is p on a sync step (``tp := p`` comes
+        before the update), Adam's step is ``t``; the loss goes to
+        ``st["loss"]``."""
+        st, g, ptr = self.st, self.g, kernels.ptr
+        n, B, L = st["ring"].shape[1], self.B, self.L
+        tgt = st["p"] if sync else st["tp"]
+        batch = (n, B, L, int(cfg.burn_in), int(round_), int(col))
+        self._launch("in", ptr(st["p"]), ptr(tgt), ptr(st["ring"]),
+                     ptr(self.ws), ptr(self.gx), ptr(self.cnt), *batch,
+                     g.in_rows, g.in_rm, g.in_rn, g.in_chunk, g.in_smem)
+        self._launch("rec", ptr(st["p"]), ptr(tgt), ptr(st["ring"]),
+                     ptr(self.gx), ptr(self.cnt), ptr(self.ws),
+                     ptr(self.msum), *batch, g.rec_windows, self.ncnt,
+                     g.rec_smem, float(cfg.gamma))
+        c1, c2 = FT.adam_bias_corrections(t)
+        self._launch("grad", ptr(self.ws), ptr(st["p"]), ptr(st["tp"]),
+                     ptr(st["m"]), ptr(st["v"]), ptr(st["loss"]),
+                     ptr(self.msum), B, L, int(sync), float(cfg.lr),
+                     FT.ADAM_B1, FT.ADAM_B2, 1.0 - FT.ADAM_B1,
+                     1.0 - FT.ADAM_B2, FT.ADAM_EPS, c1, c2, g.grad_threads,
+                     g.grad_smem)
+
+
 def launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
                 cols) -> None:
     """Issue K9's kernels for ``num_steps`` steps on the current stream,
@@ -676,41 +871,25 @@ def launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
     dev = kernels.require_cuda(*(st[k] for k in names))
     if st["p"].numel() != P or st["env"].shape != (ENV_ROWS, n):
         raise ValueError("K9 needs the 7,949-parameter DRQN and 75 env rows")
-    blocks = B // LEARN_WINDOWS
-    work = torch.empty(blocks, P + 1, dtype=torch.float32, device=dev)
-    msum = torch.zeros(1, dtype=torch.int32, device=dev)
+    learner = Learner(st, B, L)
     k0, k1 = philox.seed_key(seed)
     stream = kernels.stream_ptr(dev)
-    fn = {name: kernels.function("drqn_trainer", f"mgt_drqn_{name}", args)
-          for name, args in (("act", _ACT_ARGS), ("learn", _LEARN_ARGS),
-                             ("adam", _ADAM_ARGS))}
+    act = kernels.function("drqn_trainer", "mgt_drqn_act", _ACT_ARGS)
     ptr = kernels.ptr
     opp_code = {FT.OPP_L0: 0, FT.OPP_SELFPLAY: 1, FT.OPP_FROZEN: 2}[
         cfg.opponent]
     opp = st["opp"] if cfg.opponent == FT.OPP_FROZEN else st["p"]
     thr = greedy_threshold(cfg.epsilon)
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
-
-    def launch(name, *args):
-        rc = fn[name](*args, stream)
-        kernels.check("drqn_trainer", rc, f"drqn_{name} launch")
-        kernels.launch_counts[f"drqn_{name}"] += 1
-
     for i, wl, emit, r_cur, learn, sync, t in _schedule(
             carry, env_params, seed, num_steps, cfg.target_sync):
         gstep = (carry["steps"] + i) & philox.MASK32
-        launch("act", ptr(st["p"]), ptr(opp), ptr(st["env"]), ptr(st["win"]),
-               ptr(st["ring"]), ptr(st["met"]), n, L, wl, int(emit), r_cur,
-               int(opp_code != 0), int(greedy),
-               int(env_params.random_start), gstep, thr, k0, k1,
-               *env_args)
+        rc = act(ptr(st["p"]), ptr(opp), ptr(st["env"]), ptr(st["win"]),
+                 ptr(st["ring"]), ptr(st["met"]), n, L, wl, int(emit), r_cur,
+                 int(opp_code != 0), int(greedy),
+                 int(env_params.random_start), gstep, thr, k0, k1, *env_args,
+                 stream)
+        kernels.check("drqn_trainer", rc, "drqn_act launch")
+        kernels.launch_counts["drqn_act"] += 1
         if learn:
-            launch("learn", ptr(st["p"]), ptr(st["p"] if sync else st["tp"]),
-                   ptr(st["ring"]), ptr(work), ptr(msum), n, B, L,
-                   int(cfg.burn_in), int(rounds[i]), int(cols[i]),
-                   float(cfg.gamma))
-            c1, c2 = FT.adam_bias_corrections(t)
-            launch("adam", ptr(work), ptr(st["p"]), ptr(st["tp"]),
-                   ptr(st["m"]), ptr(st["v"]), ptr(st["loss"]), ptr(msum),
-                   blocks, int(sync), float(cfg.lr), FT.ADAM_B1, FT.ADAM_B2,
-                   1.0 - FT.ADAM_B1, 1.0 - FT.ADAM_B2, FT.ADAM_EPS, c1, c2)
+            learner.launch(cfg, rounds[i], cols[i], sync, t)

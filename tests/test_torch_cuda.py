@@ -489,12 +489,78 @@ def test_k9_equals_plain_and_repeats(cuda, case):
               for k in kernels.launch_counts}
     assert got["learns"] == 16 - 7 and got["episodes"] > 0
     assert counts["drqn_act"] == 2 * 16
-    assert counts["drqn_learn"] == counts["drqn_adam"] == 2 * 9
+    assert counts["drqn_learn_in"] == counts["drqn_learn_rec"] == \
+        counts["drqn_learn_grad"] == 2 * 9
     for k in ("p", "tp", "m", "v", "env", "win", "ring"):
         assert torch.equal(got[k], want[k]), k
         assert torch.equal(got[k], again[k]), k
     for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
         assert got[k] == want[k] == again[k], k
+
+
+# K9's learner at the shapes its kernels must take: the training CLI's (L
+# 16, burn-in 4, B 1,024 at 1,024 envs), L 1 and L 8, burn-in 0, burn-in
+# >= L (every step masked, so msum is floored at 1 and the loss is 0), B 4
+# (a single summation tile), B 4,096 at 4,096 envs, and a target sync on
+# every learn.  Each runs the 2 L - 1 warm-up steps and four learns.
+K9_SHAPES = {"cli_1024": dict(n=1024, L=16, burn_in=4),
+             "L1": dict(n=256, L=1, burn_in=0),
+             "L8": dict(n=256, L=8, burn_in=2),
+             "burn_in_0": dict(n=256, L=4, burn_in=0),
+             "burn_in_ge_L": dict(n=256, L=4, burn_in=4),
+             "B4": dict(n=128, L=4, burn_in=1, B=4),
+             "B4096": dict(n=4096, L=4, burn_in=1),
+             "sync_every_learn": dict(n=256, L=4, burn_in=1, sync=1)}
+
+
+@pytest.mark.parametrize("case", list(K9_SHAPES))
+def test_k9_learner_shapes_equal_plain_and_repeat(cuda, case):
+    kw = K9_SHAPES[case]
+    n, L = kw["n"], kw["L"]
+    cfg = DR.DRQNConfig(lr=1e-3, gamma=0.9, target_sync=kw.get("sync", 3),
+                        seq_len=L, burn_in=kw["burn_in"],
+                        memory_capacity=2 * n, opponent="selfplay")
+    ep = EnvParams(max_steps=20)
+    carry = FD.fused_drqn_init(0, cfg, ep, n, device=cuda)
+    carry["p"], carry["tp"] = _shrink_drqn(carry["p"]), _shrink_drqn(
+        carry["tp"])
+    carry["opp"] = carry["p"]
+    carry["env"][0:8] = _race_rows(carry["env"], n, cuda, 5)[0:8]
+    carry["win"][0:10] = FD._obs_rows(carry["env"][0:8])
+    carry["B"] = kw.get("B", n)
+    T = 2 * L - 1 + 4
+    before = dict(kernels.launch_counts)
+    got = FD.fused_drqn_chunk(cfg, ep, carry, T, 0, greedy=True)
+    want = FD.fused_drqn_chunk_plain(cfg, ep, carry, T, 0, greedy=True)
+    again = FD.fused_drqn_chunk(cfg, ep, carry, T, 0, greedy=True)
+    assert got["learns"] == 4 and got["episodes"] > 0
+    for k in ("drqn_learn_in", "drqn_learn_rec", "drqn_learn_grad"):
+        assert kernels.launch_counts[k] - before[k] == 2 * 4, k
+    for k in ("p", "tp", "m", "v", "env", "win", "ring"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
+    if case == "burn_in_ge_L":
+        assert got["last_loss"] == 0.0
+    else:
+        assert got["last_loss"] > 0.0
+
+
+def test_k9_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the host's geometry: shared memory short of the
+    input side's or the recurrence's layout is refused before the
+    launch."""
+    cfg = DR.DRQNConfig(seq_len=4, burn_in=1, memory_capacity=256)
+    carry = FD.fused_drqn_init(0, cfg, EnvParams(), 128, device=cuda)
+    st = FD.working_state(carry)
+    g = FD.learn_geometry(128, 4, FM.sm_count(cuda))
+    FD.Learner(st, 128, 4, g).launch(cfg, 0, 0, False, 1)
+    for bad in (g._replace(in_smem=g.in_smem - 16),
+                g._replace(rec_smem=g.rec_smem - 4),
+                g._replace(rec_windows=8)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FD.Learner(st, 128, 4, bad).launch(cfg, 0, 0, False, 1)
 
 
 def test_k3_refuses_a_geometry_its_layout_does_not_fit(cuda):

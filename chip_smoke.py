@@ -38,10 +38,10 @@ Phases, each of which raises (non-zero exit) on failure:
      three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``), also
      at each main-path batch (256, 1,024, 4,096; one call and the device
      time alone), and K3's device time at every rows-per-block choice;
-     K8 and K9 per step and per 200-step chunk; one warm step of K5, K7
-     and K9 split by kernel (device time of each launch, launches per
+     K8 and K9 per step and per 200-step chunk; one warm step of K5, K7,
+     K8 and K9 split by kernel (device time of each launch, launches per
      step, one learn beside its bound: the ``trainer_split`` line), and
-     one learn of K5 and of K9 at each choice of their geometry.
+     one learn of K5, K8 and K9 at each choice of their geometry.
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -121,8 +121,8 @@ K5_COUNTS = ("dqn_act_env_store", "dqn_learn_fwd", "dqn_learn_grad")
 K7_COUNTS = ("hdqn_act_env_store", "hdqn_learn_fwd_lower",
              "hdqn_learn_grad_lower", "hdqn_learn_fwd_upper",
              "hdqn_learn_grad_upper")
-K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn",
-             "rainbow_adam", "rainbow_post")
+K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn_fwd",
+             "rainbow_learn_grad", "rainbow_post")
 K9_COUNTS = ("drqn_act", "drqn_learn_in", "drqn_learn_rec",
              "drqn_learn_grad")
 
@@ -999,6 +999,88 @@ def drqn_learn_sweep(torch, kernels, FD, FM, DR, EnvParams, dev):
                 for t in FD.GRAD_THREADS}}
 
 
+def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
+    """One warm K8 learning step at the CLI defaults (L0, 1,024 envs, R 8,
+    B 1,024, uniform 1-step, f32) split by kernel (``kernel_split``):
+    device ms of each launch, launches per learning step, their sum, one
+    learn (every launch between the act and the post kernel) beside its
+    bound (``rb_learn_flops`` x B); the time per step of a warm 200-step
+    chunk and of a warm PER 3-step chunk (the CLI's ``--per --n-step 3
+    --obs-scale 0.01``, B 32), CUDA events, host launches included.  The
+    chunk's first launch (the post kernel that forms the carry's effective
+    weights) is listed but is not part of a step.  It calls only what every
+    version of ``ops.fused_rainbow`` has, so it splits a parent's step
+    too."""
+    ep = EnvParams()
+    cfg = RB.RainbowConfig(memory_capacity=8 * N_TRAIN, opponent="L0")
+    carry = FRB.fused_rainbow_chunk(cfg, ep, FRB.fused_rainbow_init(
+        0, cfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
+    st = FRB.working_state(carry)
+    one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+    split = kernel_split(torch, kernels, lambda: FRB.launch_rainbow(
+        st, carry, cfg, ep, 1, 1, False, one, zero,
+        np.zeros(1, np.float32)), dev)
+    step = split[1:]
+    r = np.random.default_rng(3)
+    streams = (r.integers(0, carry["R"], T_CHUNK).astype(np.int32),
+               np.zeros(T_CHUNK, np.int32), np.zeros(T_CHUNK, np.float32))
+    chunk_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
+        st, carry, cfg, ep, T_CHUNK, 1, False, *streams), 3)
+    pcfg = cfg.replace(per=True, n_step=3, obs_scale=0.01)
+    pcarry = FRB.fused_rainbow_chunk(pcfg, ep, FRB.fused_rainbow_init(
+        0, pcfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
+    pst = FRB.working_state(pcarry)
+    per_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
+        pst, pcarry, pcfg, ep, T_CHUNK, 1, False, zero.repeat(T_CHUNK),
+        zero.repeat(T_CHUNK), r.random(T_CHUNK).astype(np.float32)), 3)
+    return {"kernels": split, "launches_per_learning_step": len(step),
+            "step_device_ms": sum(ms for _, ms in step),
+            "learn_ms": sum(ms for _, ms in step[1:-1]),
+            "learn_bound_ms": bound(0, carry["B"] * rb_learn_flops())[0],
+            "chunk_step_ms": chunk_ms / T_CHUNK,
+            "per_3step_chunk_ms": per_ms}
+
+
+def rb_learn_sweep(torch, np, kernels, FRB, RB, EnvParams, dev):
+    """One K8 learn at the CLI defaults (L0, 1,024 envs, R 8, B 1,024),
+    device ms (the sum of the learn's launches by ``kernel_split``): at
+    every lanes per block (``FRB.LEARN_LANES``) and every gradient block size
+    (``FRB.GRAD_THREADS``), each with the picked rest, beside what
+    ``learn_geometry`` picks: the readings its rule stands on.  Each
+    geometry's parameters, moments and loss after one learning step must
+    equal the picked one's."""
+    ep = EnvParams()
+    cfg = RB.RainbowConfig(memory_capacity=8 * N_TRAIN, opponent="L0")
+    carry = FRB.fused_rainbow_chunk(cfg, ep, FRB.fused_rainbow_init(
+        0, cfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
+    B = carry["B"]
+    one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+
+    def step(g):
+        st = FRB.working_state(carry)
+        FRB.launch_rainbow(st, carry, cfg, ep, 1, 1, False, one, zero,
+                           np.zeros(1, np.float32), geometry=g)
+        return st
+
+    def time(g):
+        st = step(g)
+        if not all(torch.equal(st[k], want[k]) for k in (
+                "p", "m", "v", "loss")):
+            raise AssertionError(f"the K8 learner at {g} differs")
+        split = kernel_split(torch, kernels, lambda: step(g), dev)
+        return sum(ms for name, ms in split if "learn" in name)
+    picked = FRB.learn_geometry(
+        B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    want = step(picked)
+    return {"picked": picked._asdict(),
+            "device_ms_by_lanes": {
+                str(n): time(FRB.learn_tiling(B, n, picked.grad_threads))
+                for n in FRB.LEARN_LANES},
+            "device_ms_by_grad_threads": {
+                str(t): time(FRB.learn_tiling(B, picked.lanes, t))
+                for t in FRB.GRAD_THREADS}}
+
+
 def learn_lanes_times(torch, kernels, FT, FM, D, EnvParams, dev):
     """One K5 learn at the CLI defaults (L0, 1,024 envs, B 1,024, f32),
     device ms by ``graph_ms``: at every power of two of lanes per block up
@@ -1558,39 +1640,34 @@ def main():
                     "merging_gym_tpu/ops/fused_hdqn.py:86", "K7",
                     k7_chunk_ms / T_CHUNK, k7_plain, k7_b_ms, k7_b_by, None))
 
-    # K5's, K7's and K9's warm steps split by kernel (device time of each).
+    # K5's, K7's, K9's and K8's warm steps split by kernel (device time of
+    # each), and the learners' geometry sweeps.
     split = trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev)
     split["learn_geometry_sweep"] = learn_lanes_times(
         torch, kernels, FT, FM, D, EnvParams, dev)
     split["K9"] = drqn_split(torch, np, kernels, FD, DR, EnvParams, dev)
     split["k9_learn_geometry_sweep"] = drqn_learn_sweep(
         torch, kernels, FD, FM, DR, EnvParams, dev)
+    split["K8"] = rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev)
+    split["k8_learn_geometry_sweep"] = rb_learn_sweep(
+        torch, np, kernels, FRB, RB, EnvParams, dev)
 
     # K8: one training step at the CLI's defaults (L0, 1,024 envs, R 8,
-    # B 1,024, uniform 1-step), timed over a 200-step chunk of a warm carry
-    # (every step learns); the plain version per step over a short chunk.
+    # B 1,024, uniform 1-step): per step of a warm 200-step chunk (every
+    # step learns) and the PER 3-step chunk from its split above; a 1-step
+    # launch of a warm carry and the plain version per step over a short
+    # chunk here.
+    k8s = split["K8"]
     rcfg = RB.RainbowConfig(memory_capacity=8 * N_TRAIN, opponent="L0")
     rcarry = FRB.fused_rainbow_init(0, rcfg, ep, N_TRAIN, device=dev)
     rcarry = FRB.fused_rainbow_chunk(rcfg, ep, rcarry, T_CHUNK, 0)
-    r = np.random.default_rng(3)
-    rstreams = (r.integers(0, rcarry["R"], T_CHUNK).astype(np.int32),
-                np.zeros(T_CHUNK, np.int32), np.zeros(T_CHUNK, np.float32))
+    one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
     rst = FRB.working_state(rcarry)
-    k8_chunk_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
-        rst, rcarry, rcfg, ep, T_CHUNK, 1, False, *rstreams), 3)
     k8_step_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
-        rst, rcarry, rcfg, ep, 1, 1, False, *(x[:1] for x in rstreams)), 20)
+        rst, rcarry, rcfg, ep, 1, 1, False, one, zero,
+        np.zeros(1, np.float32)), 20)
     k8_plain = cuda_ms(torch, lambda: FRB.fused_rainbow_chunk_plain(
         rcfg, ep, rcarry, T_PLAIN_K8, 1), 1, warmup=0) / T_PLAIN_K8
-    # PER 3-step, the CLI's --per --n-step 3 (B 32 draws), for context.
-    pcfg = rcfg.replace(per=True, n_step=3, obs_scale=0.01)
-    pcarry = FRB.fused_rainbow_chunk(pcfg, ep, FRB.fused_rainbow_init(
-        0, pcfg, ep, N_TRAIN, device=dev), T_CHUNK, 0)
-    pst = FRB.working_state(pcarry)
-    k8_per_chunk_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
-        pst, pcarry, pcfg, ep, T_CHUNK, 1, False, np.zeros(T_CHUNK, np.int32),
-        np.zeros(T_CHUNK, np.int32),
-        r.random(T_CHUNK).astype(np.float32)), 3)
     B = rcarry["B"]
     # Bytes: env rows in and out, the slab stored, the sampled slabs read,
     # per learn p, target, m, v read and p, m, v written (7 x 4 B a
@@ -1605,18 +1682,19 @@ def main():
                 + B * rb_learn_flops() + RB_PARAMS * ADAM_FLOPS
                 + RB_ELEMS + 2 * 2 * RB_ELEMS)
     k8_b_ms, k8_b_by = bound(k8_bytes, k8_flops)
-    k8 = {"chunk_ms": k8_chunk_ms, "step_ms": k8_chunk_ms / T_CHUNK,
+    k8_step = k8s["chunk_step_ms"]
+    k8 = {"chunk_ms": k8_step * T_CHUNK, "step_ms": k8_step,
           "one_step_launch_ms": k8_step_ms,
-          "env_steps_per_s": T_CHUNK * N_TRAIN / (k8_chunk_ms / 1e3),
+          "env_steps_per_s": N_TRAIN / (k8_step / 1e3),
           "plain_step_ms": k8_plain, "bound_step_ms": k8_b_ms,
           "bound_by": k8_b_by, "step_mflop": k8_flops / 1e6,
           "forward_flops_per_row": rb_forward_flops(),
           "learn_flops_per_lane": rb_learn_flops(),
-          "per_3step_chunk_ms": k8_per_chunk_ms}
+          "per_3step_chunk_ms": k8s["per_3step_chunk_ms"]}
     results.append(("K8 rainbow_trainer", "rainbow_trainer",
                     "rainbow_trainer.cu",
                     "merging_gym_tpu/ops/fused_rainbow.py:545", "K8",
-                    k8_chunk_ms / T_CHUNK, k8_plain, k8_b_ms, k8_b_by, None))
+                    k8_step, k8_plain, k8_b_ms, k8_b_by, None))
 
     # K9: one training step at the CLI's defaults (L0, 1,024 envs, L 16,
     # R 4, B 1,024), timed over a 200-step chunk of a warm carry (every step

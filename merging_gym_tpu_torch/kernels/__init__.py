@@ -44,9 +44,11 @@ launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
                  "hdqn_learn_grad_lower": 0, "hdqn_learn_fwd_upper": 0,
                  "hdqn_learn_grad_upper": 0,
                  # K8's five: act/env/store, the PER pick, the learner's
-                 # partial sums, Adam, and the noise / sync / weights pass
-                 "rainbow_act": 0, "rainbow_per_pick": 0, "rainbow_learn": 0,
-                 "rainbow_adam": 0, "rainbow_post": 0,
+                 # forward/backward and its gradients + Adam, and the noise
+                 # / sync / weights pass
+                 "rainbow_act": 0, "rainbow_per_pick": 0,
+                 "rainbow_learn_fwd": 0, "rainbow_learn_grad": 0,
+                 "rainbow_post": 0,
                  # K9's four: act/env/window/flush, the learner's input
                  # side, its recurrence, its gradients + Adam
                  "drqn_act": 0, "drqn_learn_in": 0, "drqn_learn_rec": 0,

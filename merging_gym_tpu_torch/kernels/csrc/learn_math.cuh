@@ -1,12 +1,10 @@
-// Arithmetic shared by the trainers' learners and Adam kernels: K5 and K7
+// Arithmetic shared by the trainers' learners and Adam: K5 and K7
 // (dqn_trainer.cu), K8 (rainbow_trainer.cu) and K9 (drqn_trainer.cu).
 //
 // Every operation rounds once (__fmul_rn/__fadd_rn are never contracted
-// into an FMA), so the plain versions (ops/fused_trainer.py:_adam_plain and
-// the learners' block sums) repeat them bit for bit.
+// into an FMA), so the plain versions (ops/fused_trainer.py:_adam_plain)
+// repeat them bit for bit.
 #pragma once
-
-#include <cstddef>
 
 #include "common.cuh"
 
@@ -15,17 +13,6 @@ namespace mgt {
 // acc + x * y with two roundings.
 __device__ __forceinline__ float madd(float acc, float x, float y) {
   return __fadd_rn(acc, __fmul_rn(x, y));
-}
-
-// Entry i of the learner's per-block partial sums, rows of `stride` floats,
-// summed in block order from 0 (no atomics: the same bits on every run).
-__device__ __forceinline__ float sum_partials(const float* __restrict__ work,
-                                              int rows, size_t stride,
-                                              int i) {
-  float g = 0.0f;
-  for (int j = 0; j < rows; ++j)
-    g = __fadd_rn(g, work[static_cast<size_t>(j) * stride + i]);
-  return g;
 }
 
 // optax's Adam in f32; c1, c2 are the bias corrections 1 - b^t of this

@@ -413,4 +413,28 @@ __device__ __forceinline__ void layer_sums(const T* __restrict__ w, int K,
   }
 }
 
+// One layer K -> J of `rows` rows of x (as in layer_sums) whose weights
+// w [K][J] the caller has already brought whole into shared memory at wb:
+// epi.sum(row, column, s) receives each output's sum, in k order from 0.
+// No barrier (the Rainbow learner, rainbow_trainer.cu, streams its layers'
+// weights two layers ahead itself).
+template <typename T, int RM, int RN, typename Epi>
+__device__ __forceinline__ void staged_sums(const T* wb, int K, int J,
+                                            const T* x, int xs, int rows,
+                                            Epi& epi) {
+  const QLayer<T> L = qlayer<T>(wb, nullptr, K, J, K * J, rows, RM, RN);
+  for (int tile = threadIdx.x; tile < L.ntiles; tile += blockDim.x) {
+    float acc[RM][RN];
+    tile_acc<T, RM, RN>(acc, L, x, xs, wb, 0, K, true, rows, tile);
+    const int rg = tile / L.nj, jg = tile - rg * L.nj;
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        const int r = rg * RM + i, j = jg + c * L.nj;
+        if (r < rows && j < J) epi.sum(r, j, acc[i][c]);
+      }
+  }
+}
+
 }  // namespace mgt

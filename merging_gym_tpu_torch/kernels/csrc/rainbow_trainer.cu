@@ -28,32 +28,39 @@
 //      the B stratified targets, the inverse-CDF pick by a binary search
 //      over the chunk prefix and a scan inside the chunk
 //      (searchsorted(side='right'), clipped), the importance weights.
-//   3. rb_learn: a block owns `tile` lanes of the batch.  The n-step
-//      reconstruction from consecutive slabs, the target net's forward on
-//      the bootstrap obs (selection and evaluation), the hat-form
-//      projection with the faithful mask floor(b) != ceil(b), the online
-//      forward, the CE on the clamped selected-action distribution, and the
-//      hand backprop through the clamp (strict-inequality mask), the
-//      softmax, the dueling combine, the four noisy layers and the trunk.
-//      Each block writes its partial sums (its lanes in lane order) of the
-//      trunk and mu gradients and of the weighted CE; each lane's CE goes
-//      to `ce` for PER.
-//   4. rb_adam: one thread per parameter sums the partials in block order,
-//      forms a sigma gradient as dW * eps, and applies Adam (bias
+//   3. rb_learn_fwd (learn_fwd_kernel): a block owns `lanes` of the B
+//      sampled lanes, sized on the host from B and the SM count
+//      (ops/fused_rainbow.py:learn_geometry).  The n-step reconstruction
+//      from consecutive slabs, the target net's forward on the bootstrap
+//      obs (selection and evaluation), the hat-form projection with the
+//      faithful mask floor(b) != ceil(b), the online forward (its dueling
+//      combine and softmax for the sampled action only), the CE on the
+//      clamped selected-action distribution, and the hand backprop through
+//      the clamp (strict-inequality mask), the softmax, the dueling
+//      combine, the four noisy layers and the trunk.  Each lane writes its
+//      row factors to a workspace and its CE to `ce` (for PER).
+//   4. rb_learn_grad (learn_grad_kernel): every trunk and mu gradient
+//      entry and the weighted CE summed over the workspace's lanes in the
+//      plain version's order, then, in the same thread, Adam on that
+//      parameter and on its sigma with the gradient dW * eps (bias
 //      corrections from the host, as in K5).
 //   5. rb_post, every step: fresh factorised noise for both nets (after a
 //      learn, outside greedy mode), the episodic target sync decided from
 //      ep_step (tp := p when floor(total * (1 / sync_eps)) passes the
 //      synced count, env row 11), the effective weights mu + sigma * eps of
-//      both nets, and with PER the priority write-back
-//      max(ce + 1e-5, 1e-8) ** alpha at the sampled slots (duplicates of a
-//      slot share one ce, so any write order gives the same bits) and the
-//      running max (env row 13).
+//      both nets, the transposes of the online net's effective weights and
+//      of its w1 (the next learn's backward), and with PER the priority
+//      write-back max(ce + 1e-5, 1e-8) ** alpha at the sampled slots
+//      (duplicates of a slot share one ce, so any write order gives the
+//      same bits) and the running max (env row 13).
 //
-// Every sum is one thread's, in index order from 0, with one rounding per
+// Every sum is one thread's chain in a fixed order, with one rounding per
 // multiply and per add (-fmad=false), and expf/logf/sqrtf/cosf are the
-// accurate library functions; x ** a is expf(a * logf(max(x, 1e-30))).
-// Two runs on the same inputs give the same bits, and the plain version
+// accurate library functions; x ** a is expf(a * logf(max(x, 1e-30))).  A
+// forward or backward output is summed in index order from 0; a gradient
+// entry (and the loss) is, for each tile of learn_tile(B) lanes in order,
+// the tile's sum in lane order from 0, added into the total from 0.  Two
+// runs on the same inputs give the same bits, and the plain version
 // (ops/fused_rainbow.py:fused_rainbow_chunk_plain) repeats every order.
 //
 // Layouts (ops/fused_rainbow.py): a parameter set is one flat f32 buffer,
@@ -66,16 +73,33 @@
 // Bound on an H100: per step one or two actor forwards per env (~60,000
 // operations each) and on a learning step two forwards and a backward
 // (~250,000 operations) per sampled lane, all f32 on the CUDA cores; the
-// ring, env rows and the four parameter sets are a few MB, so K8 is bound
-// by operations.  The learner's grid is small (B / 16 blocks) and every sum
-// is a scalar chain kept for exact agreement with the plain version, so K8
-// sits far from that bound; the measured times are in PERF.md.
+// ring, env rows and the parameter sets are a few MB, so K8 is bound by
+// operations, and without FMA (bit-equality) at most half of that bound
+// is reachable.  What held the learner back, and what its design does:
+// the old learner ran B / 16 blocks (64 at B 1,024 on 132 SMs), every
+// output a scalar chain over weights read from global memory and never
+// reused across rows, about 20 barrier-separated phases with most threads
+// idle, then ~120 partial sums a thread into a 7.85 MB buffer that a
+// second kernel added up, one thread a parameter.  Now a block owns at
+// most 8 lanes (128 blocks at B 1,024); each of the learn's 17 layers
+// (both forwards, and the backward over the transposed weights that
+// rb_post forms) is one register-tiled pass of qnet_tiled.cuh
+// (staged_sums: micro-tiles of in-order chains) with its weights brought
+// whole into one of two shared buffers two layers ahead (cp.async); the
+// chains the plain version keeps sequential (softmax sums, E[Z], the
+// projection, the CE) are one thread's each, per (lane, action) or per
+// lane; and the gradients are summed by rectangles of 16 x 8 entries with
+// up to every summation tile of the batch in flight, Adam fused, from a
+// workspace of 784 floats a lane (3.2 MB at B 1,024).  The act kernel
+// still runs rb_forward's scalar chains.  The measured times are in
+// PERF.md (chip_smoke.py).
 #include <cstdint>
 
 #include "env_math.cuh"
 #include "learn_math.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
+#include "qnet_tiled.cuh"
 
 namespace mgt {
 
@@ -172,6 +196,16 @@ __device__ __forceinline__ float dense_out(const float* x, int K,
   return fadd(acc, b[j]);
 }
 
+// The dueling logit of action a at atom j: (zv[j] + adv[a][j]) - mean,
+// the mean being the sum of adv[.][j] over the actions in order times 0.2.
+__device__ __forceinline__ float duel_logit(const float* adv, const float* zv,
+                                            int a, int j) {
+  float mean = 0.0f;
+  for (int b = 0; b < kA; ++b) mean = fadd(mean, adv[b * kAtoms + j]);
+  mean = fmul(mean, 0.2f);
+  return __fsub_rn(fadd(zv[j], adv[a * kAtoms + j]), mean);
+}
+
 // The forward of `rows` rows of x [rows][10] (already scaled): the hidden
 // layers, dist [rows][A][ATOMS] and q [rows][A].  Starts and ends with a
 // block-wide barrier.
@@ -216,10 +250,7 @@ __device__ void rb_forward(const float* x, int rows, const RbNet& net,
     float* d = f.dist + r * kA * kAtoms + a * kAtoms;
     float lm = 0.0f;
     for (int j = 0; j < kAtoms; ++j) {
-      float mean = 0.0f;
-      for (int b = 0; b < kA; ++b) mean = fadd(mean, adv[b * kAtoms + j]);
-      mean = fmul(mean, 0.2f);
-      const float logit = __fsub_rn(fadd(zv[j], adv[a * kAtoms + j]), mean);
+      const float logit = duel_logit(adv, zv, a, j);
       d[j] = logit;
       if (j == 0 || logit > lm) lm = logit;
     }
@@ -464,7 +495,7 @@ __global__ void rb_per_pick_kernel(const float* __restrict__ ring,
 }
 
 // ---------------------------------------------------------------------------
-// 3. learner partial sums
+// 3. the learner's forward and backward (learn_fwd_kernel)
 // ---------------------------------------------------------------------------
 
 struct RbLearnCfg {
@@ -472,42 +503,266 @@ struct RbLearnCfg {
   float gamma, scale, inv_b;
 };
 
-__global__ void __launch_bounds__(kRbThreads)
-rb_learn_kernel(RbNet pnet, RbNet tnet, const float* __restrict__ ring,
-                const int32_t* __restrict__ rounds,
-                const int32_t* __restrict__ cols,
-                const int32_t* __restrict__ sel, const float* __restrict__ wts,
-                const float* __restrict__ gpow, float* __restrict__ work,
-                float* __restrict__ ce_out, int tile, RbLearnCfg lc) {
+// The workspace: one row of kWsWidth floats per sampled lane, written by
+// learn_fwd_kernel and read by learn_grad_kernel.  Each group starts on a
+// multiple of 4 floats (16-byte loads).  A 1 follows each first factor (x
+// and the online net's hidden layers): its bias's row.  The weighted CE
+// follows dl, so value2's bias row sums the loss beside the bias.  The
+// host writes the ones and zeros once (ops/fused_rainbow.py:WS_GROUPS
+// mirrors the columns); learn_fwd_kernel writes the rest.
+constexpr int kWsX = 0;       // x (10); 1 (linear1 b), 0
+constexpr int kWsH1 = 12;     // h1 (32); 1 (linear2 b), 0, 0, 0
+constexpr int kWsH2 = 48;     // h2 (64); 1 (value1 b, advantage1 b), 0, 0, 0
+constexpr int kWsHv1 = 116;   // hv1 (64); 1 (value2 b), 0, 0, 0
+constexpr int kWsHa1 = 184;   // ha1 (64); 1 (advantage2 b), 0, 0, 0
+constexpr int kWsDz1 = 252;   // dz1 (32)
+constexpr int kWsDz2 = 284;   // dz2 (64)
+constexpr int kWsDzv1 = 348;  // dzv1 (64)
+constexpr int kWsDl = 412;    // dl (51), ce * w
+constexpr int kWsDza1 = 464;  // dza1 (64)
+constexpr int kWsDza2 = 528;  // dza2 (255), 0
+constexpr int kWsWidth = 784;
+
+// The online net's weights transposed, which rb_post forms for the
+// backward: per noisy layer W^T [out][64], then w1^T [64][32].
+__host__ __device__ constexpr int toff(int l) {
+  return l == 0 ? 0 : toff(l - 1) + kH1 * out_of(l - 1);
+}
+constexpr int kNumT = toff(4) + kH0 * kH1;
+static_assert(kNumT == 29824, "K8 transposed layout");
+
+// learn_fwd_kernel's shared memory: two weight buffers of kChunk floats
+// (the widest layer, advantage2, fits whole), then each array below with
+// `lanes` rows, each row a multiple of 4 floats (16-byte rows for load4):
+// the scaled obs and bootstrap obs; the hidden layers (the target's, then
+// the online net's); the value2 and advantage2 outputs; the target's
+// distribution [5][52] (column 51: the row's max, then its sum); the
+// projection's mass, b and result; the sampled action's distribution
+// (column 51 as in dist), proj * log c, g; dl; dza2 (first the target's
+// d * z); dzv1, dza1, dz2 and the first of dz2's two sums; per lane the
+// action, return, done, weight and sv, and from column 8 the target's q.
+// ops/fused_rainbow.py:LANE_FLOATS mirrors the total.
+constexpr int kChunk = kH1 * kA * kAtoms;  // 16,320
+constexpr int kYx = 0, kYxn = 16, kYh1 = 32, kYh2 = 68, kYhv1 = 136,
+              kYha1 = 204, kYzv2 = 272, kYza2 = 328, kYdist = 588,
+              kYmass = 848, kYbb = 900, kYproj = 952, kYdsel = 1004,
+              kYpce = 1056, kYg = 1108, kYdl = 1160, kYdza2 = 1216,
+              kYdzv1 = 1476, kYdza1 = 1544, kYdz2 = 1612, kYav = 1680,
+              kYsc = 1748;
+// Row strides of those arrays.
+constexpr int kSx = 16, kSh1 = 36, kSh = 68, kSv = 56, kSa = 260, kS51 = 52,
+              kSsc = 16;
+constexpr int kLaneFloats = 1764;
+static_assert(kYsc + kSsc == kLaneFloats && kSa == kA * kS51,
+              "learn_fwd_kernel layout");
+constexpr int kLearnThreads = 256;
+
+__host__ __device__ constexpr size_t learn_smem(int lanes) {
+  return (2 * static_cast<size_t>(kChunk) +
+          static_cast<size_t>(lanes) * kLaneFloats) *
+         sizeof(float);
+}
+
+// Rows of a thread's micro-tile in a layer of J outputs over `lanes` rows:
+// the fewest that leave no output without a thread of the block.
+__host__ __device__ constexpr int learn_rm(int lanes, int J) {
+  return lanes <= 1 || lanes * J <= kLearnThreads
+             ? 1
+             : 2 * learn_rm(lanes / 2, J);
+}
+
+// The 17 layers of one learn in order, and where each one's weights f32
+// [K][J] (n = K * J floats) are: the target's and then the online net's
+// linear1, linear2, value1, advantage1, value2, advantage2, each with its
+// bias [J] right after its weights (in the parameter and the element
+// layout alike); then the backward's value2^T, advantage2^T, value1^T,
+// advantage1^T and w1^T.
+constexpr int kLayers = 17;
+constexpr int kBiased = 12;  // layers 0-11 have a bias
+
+__device__ __forceinline__ const float* layer_w(int i, const RbNet& p,
+                                                const RbNet& t,
+                                                const float* wpt, int& n) {
+  const RbNet& net = i < 6 ? t : p;
+  switch (i < kBiased ? i % 6 : i) {
+    case 0: n = kIn * kH0; return net.w0;
+    case 1: n = kH0 * kH1; return net.w1;
+    case 2: n = kH1 * kH1; return net.W[0];
+    case 3: n = kH1 * kH1; return net.W[2];
+    case 4: n = kH1 * kAtoms; return net.W[1];
+    case 5: n = kH1 * kA * kAtoms; return net.W[3];
+    case 12: n = kAtoms * kH1; return wpt + toff(1);
+    case 13: n = kA * kAtoms * kH1; return wpt + toff(3);
+    case 14: n = kH1 * kH1; return wpt + toff(0);
+    case 15: n = kH1 * kH1; return wpt + toff(2);
+    default: n = kH0 * kH1; return wpt + toff(4);
+  }
+}
+
+// The layers' weights pass through the two buffers a whole layer at a
+// time: layer i's go to buffer i & 1, requested (cp.async) two layers
+// ahead, once layer i - 2 is done with it.
+struct LayerPipe {
+  float* buf;
+  RbNet p, t;
+  const float* wpt;
+  __device__ __forceinline__ void fetch(int i) const {
+    if (i < kLayers) {
+      int n;
+      const float* w = layer_w(i, p, t, wpt, n);
+      stage(buf + (i & 1) * kChunk, w, n);
+    }
+    cp_async_commit();
+  }
+  // Layer i's weights, once they and everything stored before have landed.
+  __device__ __forceinline__ const float* wait(int i) const {
+    cp_async_wait_prev();
+    __syncthreads();
+    return buf + (i & 1) * kChunk;
+  }
+  __device__ __forceinline__ void release(int i) const {
+    __syncthreads();
+    fetch(i + 2);
+  }
+};
+
+// Where a layer's sums go: + a first sum (add: dz2 = (dzv1 V1^T + dza1
+// A1^T) * relu'(h2)), + the bias b (global), ReLU, * relu'(mask), to
+// shared rows y and to the workspace at column col of the block's rows.
+struct LearnEpi {
+  bool rl;
+  const float* add;
+  int as;
+  const float* mk;
+  int ms;
+  float* y;
+  int ys;
+  float* ws;
+  int col;
+  const float* b = nullptr;
+  __device__ __forceinline__ void sum(int r, int j, float acc) {
+    float v = acc;
+    if (add != nullptr) v = fadd(add[r * as + j], v);
+    if (b != nullptr) v = fadd(v, b[j]);
+    if (rl) v = relu(v);
+    if (mk != nullptr) v = fmul(v, mask(mk[r * ms + j]));
+    if (y != nullptr) y[r * ys + j] = v;
+    if (ws != nullptr) ws[static_cast<size_t>(r) * kWsWidth + col + j] = v;
+  }
+};
+
+template <int LANES, int J>
+__device__ __forceinline__ void learn_layer(const LayerPipe& pipe, int i,
+                                            int K, const float* x, int xs,
+                                            int rows, LearnEpi e) {
+  if (i < kBiased) {
+    int n;
+    e.b = layer_w(i, pipe.p, pipe.t, pipe.wpt, n) + n;
+  }
+  staged_sums<float, learn_rm(LANES, J), 1>(pipe.wait(i), K, J, x, xs, rows,
+                                            e);
+  pipe.release(i);
+}
+
+// The six layers of a net (pipeline layers l0 ..) on the rows of x: the
+// hidden layers and the value2 and advantage2 outputs; with ws, the hidden
+// layers also go to the workspace.
+template <int LANES>
+__device__ __forceinline__ void net_layers(const LayerPipe& pipe, int l0,
+                                           const float* x,
+                                           float* h1, float* h2, float* hv1,
+                                           float* ha1, float* zv2,
+                                           float* za2, int rows, float* ws) {
+  learn_layer<LANES, kH0>(pipe, l0, kIn, x, kSx, rows,
+                          {true, nullptr, 0, nullptr, 0, h1, kSh1, ws,
+                           kWsH1});
+  learn_layer<LANES, kH1>(pipe, l0 + 1, kH0, h1, kSh1, rows,
+                          {true, nullptr, 0, nullptr, 0, h2, kSh, ws, kWsH2});
+  learn_layer<LANES, kH1>(pipe, l0 + 2, kH1, h2, kSh, rows,
+                          {true, nullptr, 0, nullptr, 0, hv1, kSh, ws,
+                           kWsHv1});
+  learn_layer<LANES, kH1>(pipe, l0 + 3, kH1, h2, kSh, rows,
+                          {true, nullptr, 0, nullptr, 0, ha1, kSh, ws,
+                           kWsHa1});
+  learn_layer<LANES, kAtoms>(pipe, l0 + 4, kH1, hv1, kSh, rows,
+                             {false, nullptr, 0, nullptr, 0, zv2, kSv,
+                              nullptr, 0});
+  learn_layer<LANES, kA * kAtoms>(pipe, l0 + 5, kH1, ha1, kSh, rows,
+                                  {false, nullptr, 0, nullptr, 0, za2, kSa,
+                                   nullptr, 0});
+}
+
+// d[51] := the largest of d[0..50] (the first-occurrence scan of
+// rb_forward), or their sum in order from 0.
+__device__ __forceinline__ void atom_max(float* d) {
+  float lm = d[0];
+  for (int j = 1; j < kAtoms; ++j)
+    if (d[j] > lm) lm = d[j];
+  d[kAtoms] = lm;
+}
+
+__device__ __forceinline__ void atom_sum(float* d) {
+  float s = 0.0f;
+  for (int j = 0; j < kAtoms; ++j) s = fadd(s, d[j]);
+  d[kAtoms] = s;
+}
+
+// A block of kLearnThreads threads owns LANES of the B sampled lanes.
+// Every layer is one staged_sums pass over the block's lanes; between
+// them, the phases
+// that the plain version writes elementwise run one thread an element,
+// and its ordered sums (max, softmax sum, E[Z], projection, CE) one thread
+// a chain.  The target net's distribution is needed for every action (its
+// argmax picks one), the online net's only for the sampled one: each
+// (lane, action) is computed on its own, so that keeps dsel's bits.
+template <int LANES>
+__global__ void __launch_bounds__(kLearnThreads)
+learn_fwd_kernel(RbNet pnet, RbNet tnet, const float* __restrict__ wpt,
+                 const float* __restrict__ ring,
+                 const int32_t* __restrict__ rounds,
+                 const int32_t* __restrict__ cols,
+                 const int32_t* __restrict__ sel, const float* __restrict__ wts,
+                 const float* __restrict__ gpow, float* __restrict__ ws,
+                 float* __restrict__ ce_out, RbLearnCfg lc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = tile;
-  float* x = reinterpret_cast<float*>(smem);  // [L][10] scaled obs
-  float* xn = x + L * kIn;                    // [L][10] scaled bootstrap obs
-  float* act = xn + L * kIn;                  // [L]
-  float* rew = act + L;
-  float* dn = rew + L;
-  float* wgt = dn + L;
-  float* sv = wgt + L;                        // [L] sum_j g * dsel
-  float* cew = sv + L;                        // [L] ce * w
-  RbFwd f = RbFwd::at(cew + L, L);
-  float* proj = f.q + L * kA;                 // [L][51]
-  float* tmp = proj + L * kAtoms;             // [L][51] mass, then log c
-  float* bk = tmp + L * kAtoms;               // [L][51] b, then g
-  float* dsel = bk + L * kAtoms;              // [L][51]
-  float* dl = dsel + L * kAtoms;              // [L][51]
-  float* dza2 = dl + L * kAtoms;              // [L][255]
-  float* dzv1 = dza2 + L * kA * kAtoms;       // [L][64]
-  float* dza1 = dzv1 + L * kH1;               // [L][64]
-  float* dz2 = dza1 + L * kH1;                // [L][64]
-  float* dz1 = dz2 + L * kH1;                 // [L][32]
+  float* const wbuf = reinterpret_cast<float*>(smem);
+  float* const y = wbuf + 2 * kChunk;
+  float* const x = y + LANES * kYx;
+  float* const xn = y + LANES * kYxn;
+  float* const h1 = y + LANES * kYh1;
+  float* const h2 = y + LANES * kYh2;
+  float* const hv1 = y + LANES * kYhv1;
+  float* const ha1 = y + LANES * kYha1;
+  float* const zv2 = y + LANES * kYzv2;
+  float* const za2 = y + LANES * kYza2;
+  float* const dist = y + LANES * kYdist;
+  float* const mass = y + LANES * kYmass;
+  float* const bk = y + LANES * kYbb;
+  float* const proj = y + LANES * kYproj;
+  float* const dsel = y + LANES * kYdsel;
+  float* const pce = y + LANES * kYpce;
+  float* const g = y + LANES * kYg;
+  float* const dl = y + LANES * kYdl;
+  float* const dza2 = y + LANES * kYdza2;
+  float* const dzv1 = y + LANES * kYdzv1;
+  float* const dza1 = y + LANES * kYdza1;
+  float* const dz2 = y + LANES * kYdz2;
+  float* const av = y + LANES * kYav;
+  float* const sc = y + LANES * kYsc;
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int b0 = blockIdx.x * L;
+  const int b0 = blockIdx.x * LANES;
+  const int rows = min(LANES, lc.B - b0);
   const size_t sN = static_cast<size_t>(lc.n);
+  float* const wsb = ws + static_cast<size_t>(b0) * kWsWidth;
+  const LayerPipe pipe{wbuf, pnet, tnet, wpt};
+  pipe.fetch(0);
+  pipe.fetch(1);
 
-  // Gather and the n-step reconstruction (nstep_batch_from_slabs).
-  for (int r = tid; r < L; r += nt) {
-    const int b = b0 + r;
+  // Gather and the n-step reconstruction (nstep_batch_from_slabs), one
+  // thread per (lane, obs field).
+  for (int i = tid; i < rows * kIn; i += nt) {
+    const int r = i / kIn, q = i - r * kIn, b = b0 + r;
     int round, lane;
     if (lc.per) {
       round = sel[b];
@@ -516,227 +771,352 @@ rb_learn_kernel(RbNet pnet, RbNet tnet, const float* __restrict__ ring,
       round = rounds[0];
       lane = cols[0] * lc.B + b;
     }
-    float ret = 0.0f, alive = 1.0f, nxt[10];
-    for (int k = 0; k < 10; ++k) nxt[k] = 0.0f;
+    float ret = 0.0f, alive = 1.0f, nxt = 0.0f;
     for (int k = 0; k < lc.n_step; ++k) {
       const int rk = (round + k) % lc.R;
       const float* s = ring + static_cast<size_t>(rk) * kRbNumF * sN + lane;
       const float done_k = s[22 * sN];
       ret = fadd(ret, fmul(fmul(gpow[k], s[21 * sN]), alive));
       const float sl = k < lc.n_step - 1 ? fmul(alive, done_k) : alive;
-      for (int q = 0; q < 10; ++q)
-        nxt[q] = fadd(nxt[q], fmul(sl, s[(10 + q) * sN]));
+      nxt = fadd(nxt, fmul(sl, s[(10 + q) * sN]));
       alive = fmul(alive, __fsub_rn(1.0f, done_k));
     }
     const float* s0 = ring + static_cast<size_t>(round) * kRbNumF * sN + lane;
-    for (int q = 0; q < 10; ++q) {
-      x[r * kIn + q] = fmul(s0[q * sN], lc.scale);
-      xn[r * kIn + q] = fmul(nxt[q], lc.scale);
+    const float xv = fmul(s0[q * sN], lc.scale);
+    x[r * kSx + q] = xv;
+    xn[r * kSx + q] = fmul(nxt, lc.scale);
+    wsb[static_cast<size_t>(r) * kWsWidth + kWsX + q] = xv;
+    if (q == 0) {
+      float* const c = sc + r * kSsc;
+      c[0] = s0[20 * sN];
+      c[1] = ret;
+      c[2] = alive < 0.5f ? 1.0f : 0.0f;
+      c[3] = lc.per ? wts[b] : 1.0f;
     }
-    act[r] = s0[20 * sN];
-    rew[r] = ret;
-    dn[r] = alive < 0.5f ? 1.0f : 0.0f;
-    wgt[r] = lc.per ? wts[b] : 1.0f;
   }
 
-  // Target: selection and evaluation through the target net, projection.
-  rb_forward(xn, L, tnet, f);
-  for (int i = tid; i < L * kAtoms; i += nt) {
-    const int r = i / kAtoms, k = i - r * kAtoms;
-    const int star = argmax0(f.q + r * kA, kA);
-    const float np_ = f.dist[r * kA * kAtoms + star * kAtoms + k];
-    const float z = zsup(k);
-    float mass = lc.faithful ? fmul(np_, z) : np_;
-    const float nd = __fsub_rn(1.0f, dn[r]);
-    const float tz =
-        fminf(fmaxf(fadd(rew[r], fmul(fmul(nd, lc.gamma), z)), -10.0f),
-              10.0f);
-    const float bb = fmul(__fsub_rn(tz, -10.0f), 2.5f);
-    if (lc.faithful) mass = fmul(mass, floorf(bb) != ceilf(bb) ? 1.0f : 0.0f);
-    tmp[i] = mass;
-    bk[i] = bb;
+  // ---- the target net on the bootstrap obs: every action's distribution,
+  // E[Z], the argmax and the projection
+  net_layers<LANES>(pipe, 0, xn, h1, h2, hv1, ha1, zv2, za2, rows, nullptr);
+  const int nra = rows * kA;  // dist's row ra = r * kA + a
+  for (int i = tid; i < nra * kAtoms; i += nt) {
+    const int ra = i / kAtoms, j = i - ra * kAtoms, r = ra / kA;
+    dist[ra * kS51 + j] = duel_logit(za2 + r * kSa, zv2 + r * kSv,
+                                     ra - r * kA, j);
   }
   __syncthreads();
-  for (int i = tid; i < L * kAtoms; i += nt) {
+  for (int ra = tid; ra < nra; ra += nt) atom_max(dist + ra * kS51);
+  __syncthreads();
+  for (int i = tid; i < nra * kAtoms; i += nt) {
+    float* const d = dist + (i / kAtoms) * kS51;
+    const int j = i % kAtoms;
+    d[j] = expf(__fsub_rn(d[j], d[kAtoms]));
+  }
+  __syncthreads();
+  for (int ra = tid; ra < nra; ra += nt) atom_sum(dist + ra * kS51);
+  __syncthreads();
+  for (int i = tid; i < nra * kAtoms; i += nt) {
+    const int ra = i / kAtoms, j = i - ra * kAtoms;
+    float* const d = dist + ra * kS51;
+    const float pr = __fdiv_rn(d[j], d[kAtoms]);
+    d[j] = pr;
+    dza2[ra * kS51 + j] = fmul(pr, zsup(j));
+  }
+  __syncthreads();
+  for (int ra = tid; ra < nra; ra += nt) {
+    float acc = 0.0f;
+    for (int j = 0; j < kAtoms; ++j) acc = fadd(acc, dza2[ra * kS51 + j]);
+    sc[(ra / kA) * kSsc + 8 + ra % kA] = acc;
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * kAtoms; i += nt) {
+    const int r = i / kAtoms, k = i - r * kAtoms;
+    const float* const c = sc + r * kSsc;
+    const int star = argmax0(c + 8, kA);
+    const float np_ = dist[(r * kA + star) * kS51 + k];
+    const float z = zsup(k);
+    float m = lc.faithful ? fmul(np_, z) : np_;
+    const float nd = __fsub_rn(1.0f, c[2]);
+    const float tz =
+        fminf(fmaxf(fadd(c[1], fmul(fmul(nd, lc.gamma), z)), -10.0f), 10.0f);
+    const float bb = fmul(__fsub_rn(tz, -10.0f), 2.5f);
+    if (lc.faithful) m = fmul(m, floorf(bb) != ceilf(bb) ? 1.0f : 0.0f);
+    mass[r * kS51 + k] = m;
+    bk[r * kS51 + k] = bb;
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * kAtoms; i += nt) {
     const int r = i / kAtoms, a = i - r * kAtoms;
     const float fi = static_cast<float>(a);
     float acc = 0.0f;
     for (int k = 0; k < kAtoms; ++k) {
       const float hat =
-          fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(bk[r * kAtoms + k], fi))),
+          fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(bk[r * kS51 + k], fi))),
                 0.0f);
-      acc = fadd(acc, fmul(tmp[r * kAtoms + k], hat));
+      acc = fadd(acc, fmul(mass[r * kS51 + k], hat));
     }
-    proj[i] = acc;
+    proj[r * kS51 + a] = acc;
   }
 
-  // Online forward, CE and its gradient w.r.t. the selected distribution.
-  rb_forward(x, L, pnet, f);
-  for (int i = tid; i < L * kAtoms; i += nt) {
+  // ---- the online net on the obs: the sampled action's distribution, the
+  // CE, its gradient and the dueling backward
+  net_layers<LANES>(pipe, 6, x, h1, h2, hv1, ha1, zv2, za2, rows, wsb);
+  for (int i = tid; i < rows * kAtoms; i += nt) {
     const int r = i / kAtoms, j = i - r * kAtoms;
-    const int a = static_cast<int>(act[r]);
-    const float d = f.dist[r * kA * kAtoms + a * kAtoms + j];
-    const float c = fminf(fmaxf(d, 0.01f), 0.99f);
-    const float inr = (d > 0.01f && d < 0.99f) ? 1.0f : 0.0f;
-    dsel[i] = d;
-    tmp[i] = logf(c);
-    bk[i] = fmul(fmul(-__fdiv_rn(proj[i], c), inr), fmul(wgt[r], lc.inv_b));
+    dsel[r * kS51 + j] = duel_logit(za2 + r * kSa, zv2 + r * kSv,
+                                    static_cast<int>(sc[r * kSsc]), j);
   }
   __syncthreads();
-  for (int r = tid; r < L; r += nt) {
+  for (int r = tid; r < rows; r += nt) atom_max(dsel + r * kS51);
+  __syncthreads();
+  for (int i = tid; i < rows * kAtoms; i += nt) {
+    float* const d = dsel + (i / kAtoms) * kS51;
+    const int j = i % kAtoms;
+    d[j] = expf(__fsub_rn(d[j], d[kAtoms]));
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += nt) atom_sum(dsel + r * kS51);
+  __syncthreads();
+  for (int i = tid; i < rows * kAtoms; i += nt) {
+    const int r = i / kAtoms, j = i - r * kAtoms, e = r * kS51 + j;
+    const float d = __fdiv_rn(dsel[e], dsel[r * kS51 + kAtoms]);
+    const float c = fminf(fmaxf(d, 0.01f), 0.99f);
+    const float inr = (d > 0.01f && d < 0.99f) ? 1.0f : 0.0f;
+    const float gv = fmul(fmul(-__fdiv_rn(proj[e], c), inr),
+                          fmul(sc[r * kSsc + 3], lc.inv_b));
+    dsel[e] = d;
+    g[e] = gv;
+    pce[e] = fmul(proj[e], logf(c));
+    mass[e] = fmul(gv, d);
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += nt) {
     float acc = 0.0f, s = 0.0f;
     for (int j = 0; j < kAtoms; ++j) {
-      acc = fadd(acc, fmul(proj[r * kAtoms + j], tmp[r * kAtoms + j]));
-      s = fadd(s, fmul(bk[r * kAtoms + j], dsel[r * kAtoms + j]));
+      acc = fadd(acc, pce[r * kS51 + j]);
+      s = fadd(s, mass[r * kS51 + j]);
     }
     const float ce = -acc;
     ce_out[b0 + r] = ce;
-    cew[r] = fmul(ce, wgt[r]);
-    sv[r] = s;
+    wsb[static_cast<size_t>(r) * kWsWidth + kWsDl + kAtoms] =
+        fmul(ce, sc[r * kSsc + 3]);
+    sc[r * kSsc + 4] = s;
   }
   __syncthreads();
-  for (int i = tid; i < L * kAtoms; i += nt) {
-    const int r = i / kAtoms;
-    dl[i] = __fsub_rn(fmul(dsel[i], bk[i]), fmul(dsel[i], sv[r]));
-  }
-  __syncthreads();
-  for (int i = tid; i < L * kA * kAtoms; i += nt) {  // dueling backward
+  for (int i = tid; i < rows * kA * kAtoms; i += nt) {
     const int r = i / (kA * kAtoms), ra = i - r * kA * kAtoms;
-    const int a = ra / kAtoms, j = ra - a * kAtoms;
-    const float oh = a == static_cast<int>(act[r]) ? 1.0f : 0.0f;
-    dza2[i] = fmul(__fsub_rn(oh, 0.2f), dl[r * kAtoms + j]);
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * L * kH1; i += nt) {  // value1 / advantage1 outs
-    const int s = i / (L * kH1), i2 = i - s * L * kH1;
-    const int r = i2 / kH1, k = i2 - r * kH1;
-    float acc = 0.0f;
-    if (s == 0) {
-      const float* W = pnet.W[1] + k * kAtoms;
-      for (int j = 0; j < kAtoms; ++j)
-        acc = fadd(acc, fmul(W[j], dl[r * kAtoms + j]));
-      dzv1[i2] = fmul(acc, mask(f.hv1[i2]));
-    } else {
-      const float* W = pnet.W[3] + k * kA * kAtoms;
-      for (int j = 0; j < kA * kAtoms; ++j)
-        acc = fadd(acc, fmul(W[j], dza2[r * kA * kAtoms + j]));
-      dza1[i2] = fmul(acc, mask(f.ha1[i2]));
+    const int a = ra / kAtoms, j = ra - a * kAtoms, e = r * kS51 + j;
+    const float d = dsel[e];
+    const float dlv = __fsub_rn(fmul(d, g[e]), fmul(d, sc[r * kSsc + 4]));
+    float* const wr = wsb + static_cast<size_t>(r) * kWsWidth;
+    if (a == 0) {
+      dl[r * kSv + j] = dlv;
+      wr[kWsDl + j] = dlv;
     }
+    const float oh = a == static_cast<int>(sc[r * kSsc]) ? 1.0f : 0.0f;
+    const float v = fmul(__fsub_rn(oh, 0.2f), dlv);
+    dza2[r * kSa + ra] = v;
+    wr[kWsDza2 + ra] = v;
   }
-  __syncthreads();
-  for (int i = tid; i < L * kH1; i += nt) {  // trunk layer 2
-    const int r = i / kH1, k = i - r * kH1;
-    const float* Wv = pnet.W[0] + k * kH1;
-    const float* Wa = pnet.W[2] + k * kH1;
-    float av = 0.0f, aa = 0.0f;
-    for (int j = 0; j < kH1; ++j) av = fadd(av, fmul(Wv[j], dzv1[r * kH1 + j]));
-    for (int j = 0; j < kH1; ++j) aa = fadd(aa, fmul(Wa[j], dza1[r * kH1 + j]));
-    dz2[i] = fmul(fadd(av, aa), mask(f.h2[i]));
-  }
-  __syncthreads();
-  for (int i = tid; i < L * kH0; i += nt) {  // trunk layer 1
-    const int r = i / kH0, k = i - r * kH0;
-    const float* W = pnet.w1 + k * kH1;
-    float acc = 0.0f;
-    for (int j = 0; j < kH1; ++j) acc = fadd(acc, fmul(W[j], dz2[r * kH1 + j]));
-    dz1[i] = fmul(acc, mask(f.h1[i]));
-  }
-  __syncthreads();
 
-  // This block's partial sums over its lanes, in lane order.
-  float* out = work + static_cast<size_t>(blockIdx.x) * (kNumG + 1);
-  for (int gi = tid; gi <= kNumG; gi += nt) {
-    const float *h, *dz;
-    int K, J, idx;
-    bool bias;
-    if (gi == kNumG) {
-      float acc = 0.0f;
-      for (int r = 0; r < L; ++r) acc = fadd(acc, cew[r]);
-      out[gi] = acc;
-      continue;
-    }
-    if (gi < kTrunkP) {
-      const int w0n = kIn * kH0, w1o = w0n + kH0, w1n = kH0 * kH1;
-      if (gi < w0n) {
-        h = x; K = kIn; dz = dz1; J = kH0; idx = gi; bias = false;
-      } else if (gi < w1o) {
-        dz = dz1; J = kH0; idx = gi - w0n; bias = true; h = nullptr; K = 0;
-      } else if (gi < w1o + w1n) {
-        h = f.h1; K = kH0; dz = dz2; J = kH1; idx = gi - w1o; bias = false;
-      } else {
-        dz = dz2; J = kH1; idx = gi - w1o - w1n; bias = true; h = nullptr;
-        K = 0;
-      }
-    } else {
-      const int e = gi - kTrunkP;
-      int l = 3;
-      while (e < eoff(l)) --l;
-      const int loc = e - eoff(l);
-      J = out_of(l);
-      K = kH1;
-      const float* hs[4] = {f.h2, f.hv1, f.h2, f.ha1};
-      const float* ds[4] = {dzv1, dl, dza1, dza2};
-      h = hs[l];
-      dz = ds[l];
-      bias = loc >= kH1 * J;
-      idx = bias ? loc - kH1 * J : loc;
-    }
-    float acc = 0.0f;
-    if (bias) {
-      for (int r = 0; r < L; ++r) acc = fadd(acc, dz[r * J + idx]);
-    } else {
-      const int k = idx / J, j = idx - k * J;
-      for (int r = 0; r < L; ++r)
-        acc = fadd(acc, fmul(h[r * K + k], dz[r * J + j]));
-    }
-    out[gi] = acc;
-  }
+  // ---- the backward through the four noisy layers and the trunk: sums
+  // over j of W[k][j] dz[j], in j order, as layers over the transposes
+  learn_layer<LANES, kH1>(pipe, 12, kAtoms, dl, kSv, rows,
+                          {false, nullptr, 0, hv1, kSh, dzv1, kSh, wsb,
+                           kWsDzv1});
+  learn_layer<LANES, kH1>(pipe, 13, kA * kAtoms, dza2, kSa, rows,
+                          {false, nullptr, 0, ha1, kSh, dza1, kSh, wsb,
+                           kWsDza1});
+  learn_layer<LANES, kH1>(pipe, 14, kH1, dzv1, kSh, rows,
+                          {false, nullptr, 0, nullptr, 0, av, kSh, nullptr,
+                           0});
+  learn_layer<LANES, kH1>(pipe, 15, kH1, dza1, kSh, rows,
+                          {false, av, kSh, h2, kSh, dz2, kSh, wsb, kWsDz2});
+  learn_layer<LANES, kH0>(pipe, 16, kH1, dz2, kSh, rows,
+                          {false, nullptr, 0, h1, kSh1, nullptr, 0, wsb,
+                           kWsDz1});
 }
 
 // ---------------------------------------------------------------------------
-// 4. Adam
+// 4. the gradients and Adam (learn_grad_kernel)
 // ---------------------------------------------------------------------------
 
-struct RbAdamCfg {
-  int tiles, B;
+// Parameter indices of the mu and sigma of element e.
+__device__ __forceinline__ void mu_sigma(int e, int& mu, int& sg) {
+  int l = 3;
+  while (e < eoff(l)) --l;
+  const int j = e - eoff(l), o = out_of(l), w = kH1 * o;
+  if (j < w) {
+    mu = poff(l) + j;
+    sg = mu + w;
+  } else {
+    mu = poff(l) + 2 * w + (j - w);
+    sg = mu + o;
+  }
+}
+
+// One gradient job: the sum over lanes of ws[h + k] * ws[d + j] for k < K,
+// j < J.  Entry (k, j < width) is index out + k * width + j of the
+// parameters (jobs 0 and 1, the trunk) or of a noisy layer's elements
+// (jobs 2-5): the last row of each first factor is the column of ones, so
+// its entries are the bias, which follows its weight in both layouts.
+// Column 51 of value2's job is the weighted CE, its bias row the loss.
+struct RbGradJob {
+  int h, K, d, J, width, out;
+};
+
+constexpr int kRbJobs = 6;
+
+__host__ __device__ inline RbGradJob rb_grad_job(int i) {
+  switch (i) {
+    case 0:  // linear1 w [10][32], b
+      return {kWsX, kIn + 1, kWsDz1, kH0, kH0, 0};
+    case 1:  // linear2 w [32][64], b
+      return {kWsH1, kH0 + 1, kWsDz2, kH1, kH1, kIn * kH0 + kH0};
+    case 2:  // value1
+      return {kWsH2, kH1 + 1, kWsDzv1, kH1, kH1, eoff(0)};
+    case 3:  // value2, and the loss
+      return {kWsHv1, kH1 + 1, kWsDl, kAtoms + 1, kAtoms, eoff(1)};
+    case 4:  // advantage1
+      return {kWsH2, kH1 + 1, kWsDza1, kH1, kH1, eoff(2)};
+    default:  // advantage2
+      return {kWsHa1, kH1 + 1, kWsDza2, kA * kAtoms, kA * kAtoms, eoff(3)};
+  }
+}
+
+// A block of NT threads (256, 512 or 1,024, from the host's geometry) owns
+// a kGradK x kGradJ rectangle of one job's entries.  Each of its groups of
+// 8 threads sums one summation tile (`tile` lanes, ops/fused_rainbow.py:
+// learn_tile) at a time, each thread a 4 x 4 micro-tile of the rectangle,
+// reading its 4 + 4 factors of every lane straight from the workspace
+// (16-byte loads, four lanes ahead; the workspace stays in the L2 cache).
+// A round's partials are parked in shared memory and one thread per entry
+// adds them into its total in tile order.
+constexpr int kGradK = 16, kGradJ = 8;
+constexpr int kGradEntries = kGradK * kGradJ;  // 128
+constexpr int kGradGroup = kGradEntries / 16;  // threads a summation tile
+
+__host__ __device__ inline int grad_rects(const RbGradJob& j) {
+  return (j.K + kGradK - 1) / kGradK * ((j.J + kGradJ - 1) / kGradJ);
+}
+
+__host__ __device__ inline int grad_blocks() {
+  int n = 0;
+  for (int i = 0; i < kRbJobs; ++i) n += grad_rects(rb_grad_job(i));
+  return n;
+}
+
+// Bytes of learn_grad_kernel's shared memory (ops/fused_rainbow.py:
+// learn_tiling): the groups' partial sums, 64 bytes a thread.
+__host__ __device__ constexpr size_t grad_smem(int threads) {
+  return static_cast<size_t>(threads) / kGradGroup * kGradEntries *
+         sizeof(float);
+}
+
+struct RbGradCfg {
+  int B, tile;
   AdamHyper h;
 };
 
-// The gradient index of parameter k and, for a sigma, its noise element
-// (-1 otherwise).
-__device__ __forceinline__ int grad_index(int k, int& e) {
-  e = -1;
-  if (k < kTrunkP) return k;
-  int l = 3;
-  while (k < poff(l)) --l;
-  const int j = k - poff(l), w = kH1 * out_of(l), o = out_of(l);
-  const int base = eoff(l);
-  if (j < w) return kTrunkP + base + j;
-  if (j < 2 * w) {
-    e = base + j - w;
-    return kTrunkP + e;
-  }
-  if (j < 2 * w + o) return kTrunkP + base + w + (j - 2 * w);
-  e = base + w + (j - 2 * w - o);
-  return kTrunkP + e;
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4& h,
+                                       const float4& d) {
+  const float hv[4] = {h.x, h.y, h.z, h.w};
+  const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = fadd(acc[i][c], fmul(hv[i], dv[c]));
 }
 
-__global__ void rb_adam_kernel(const float* __restrict__ work,
-                               float* __restrict__ p, float* __restrict__ m,
-                               float* __restrict__ v,
-                               const float* __restrict__ eps,
-                               float* __restrict__ loss, RbAdamCfg c) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k > kNumP) return;
-  int e = -1;
-  const int gi = k == kNumP ? kNumG : grad_index(k, e);
-  float g = sum_partials(work, c.tiles, kNumG + 1, gi);
-  if (k == kNumP) {
-    *loss = __fdiv_rn(g, static_cast<float>(c.B));
+template <int NT>
+__global__ void __launch_bounds__(NT)
+learn_grad_kernel(const float* __restrict__ ws, float* __restrict__ p,
+                  float* __restrict__ m, float* __restrict__ v,
+                  const float* __restrict__ eps, float* __restrict__ loss,
+                  RbGradCfg gc) {
+  constexpr int kGroups = NT / kGradGroup;  // summation tiles in flight
+  static_assert(kGradEntries <= NT, "one thread per entry adds partials");
+  int rect = blockIdx.x, ji = 0;
+  for (; ji < kRbJobs - 1; ++ji) {
+    const int n = grad_rects(rb_grad_job(ji));
+    if (rect < n) break;
+    rect -= n;
+  }
+  const RbGradJob job = rb_grad_job(ji);
+  const int njb = (job.J + kGradJ - 1) / kGradJ;
+  const int k0 = rect / njb * kGradK, j0 = rect % njb * kGradJ;
+
+  extern __shared__ __align__(16) float s_part[];  // [group][entry]
+  const int tid = threadIdx.x;
+  const int grp = tid / kGradGroup, mk = (tid % kGradGroup) >> 1,
+            mj = tid & 1;  // a 4 x 4 micro-tile of the 16 x 8 rectangle
+  const int TR = gc.tile;
+  const int ntiles = gc.B / gc.tile;
+  // This thread's columns; a micro-tile wholly past K or J reads nothing
+  // (its entries are not stored).  The groups are padded so that a
+  // micro-tile that starts inside its job stays inside its group.
+  const bool mine = k0 + 4 * mk < job.K && j0 + 4 * mj < job.J;
+  const float* const hcol = ws + job.h + k0 + 4 * mk;
+  const float* const dcol = ws + job.d + j0 + 4 * mj;
+  auto ld = [](const float* q) {
+    return __ldg(reinterpret_cast<const float4*>(q));
+  };
+  float total = 0.0f;  // entry tid < 128: (tid / kGradJ, tid % kGradJ)
+  for (int q0 = 0; q0 < ntiles; q0 += kGroups) {
+    const int tile = q0 + grp;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+    if (tile < ntiles && mine) {
+      const size_t base = static_cast<size_t>(tile) * TR * kWsWidth;
+      int r = 0;
+      for (; r + 4 <= TR; r += 4) {  // lanes in order, four loaded at once
+        float4 h4[4], d4[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          h4[u] = ld(hcol + base + static_cast<size_t>(r + u) * kWsWidth);
+          d4[u] = ld(dcol + base + static_cast<size_t>(r + u) * kWsWidth);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) outer4(acc, h4[u], d4[u]);
+      }
+      for (; r < TR; ++r)
+        outer4(acc, ld(hcol + base + static_cast<size_t>(r) * kWsWidth),
+               ld(dcol + base + static_cast<size_t>(r) * kWsWidth));
+    }
+    __syncthreads();  // the last round's partials have been added
+    if (tile < ntiles) {
+      float* const part = s_part + grp * kGradEntries;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[(4 * mk + i) * kGradJ + 4 * mj + c] = acc[i][c];
+    }
+    __syncthreads();
+    if (tid < kGradEntries)
+      for (int gi = 0; gi < kGroups && q0 + gi < ntiles; ++gi)
+        total = fadd(total, s_part[gi * kGradEntries + tid]);
+  }
+
+  if (tid >= kGradEntries) return;
+  const int k = k0 + tid / kGradJ, j = j0 + tid % kGradJ;
+  if (k >= job.K || j >= job.J) return;
+  if (j >= job.width) {  // value2's column 51: the loss, at the bias row
+    if (k == job.K - 1) *loss = __fdiv_rn(total, static_cast<float>(gc.B));
     return;
   }
-  if (e >= 0) g = fmul(g, eps[e]);
-  adam_step(g, p, m, v, k, c.h);
+  const int i = job.out + k * job.width + j;
+  if (ji < 2) {
+    adam_step(total, p, m, v, i, gc.h);
+    return;
+  }
+  int mu, sg;
+  mu_sigma(i, mu, sg);
+  adam_step(total, p, m, v, mu, gc.h);
+  adam_step(fmul(total, eps[i]), p, m, v, sg, gc.h);
 }
 
 // ---------------------------------------------------------------------------
@@ -777,24 +1157,11 @@ __device__ float fresh_eps(int e, int net, const RbPostCfg& c) {
   return scaled_normal(c.step, j - w, s + 2, c.k0, c.k1);
 }
 
-// Parameter indices of the mu and sigma of element e.
-__device__ __forceinline__ void mu_sigma(int e, int& mu, int& sg) {
-  int l = 3;
-  while (e < eoff(l)) --l;
-  const int j = e - eoff(l), o = out_of(l), w = kH1 * o;
-  if (j < w) {
-    mu = poff(l) + j;
-    sg = mu + w;
-  } else {
-    mu = poff(l) + 2 * w + (j - w);
-    sg = mu + o;
-  }
-}
-
 __global__ void rb_post_kernel(const float* __restrict__ p,
                                float* __restrict__ tp, float* __restrict__ eps,
                                float* __restrict__ teps,
                                float* __restrict__ wp, float* __restrict__ wt,
+                               float* __restrict__ wpt,
                                float* __restrict__ env,
                                float* __restrict__ ring,
                                int32_t* __restrict__ tot,
@@ -824,8 +1191,17 @@ __global__ void rb_post_kernel(const float* __restrict__ p,
     int mu, sg;
     mu_sigma(e, mu, sg);
     const float* src = (net == 1 && !sync) ? tp : p;
-    (net ? wt : wp)[e] = fadd(src[mu], fmul(src[sg], ep[e]));
+    const float w = fadd(src[mu], fmul(src[sg], ep[e]));
+    (net ? wt : wp)[e] = w;
+    if (net == 0) {  // W^T for the next learn's backward
+      int l = 3;
+      while (e < eoff(l)) --l;
+      const int j = e - eoff(l), o = out_of(l);
+      if (j < kH1 * o) wpt[toff(l) + (j % o) * kH1 + j / o] = w;
+    }
   }
+  if (k < kH0 * kH1)  // w1 [32][64] -> w1^T [64][32]
+    wpt[toff(4) + (k % kH1) * kH0 + k / kH1] = p[kIn * kH0 + kH0 + k];
   if (c.per_wb) {
     for (int b = k; b < c.B; b += stride) {
       const float pre = fmaxf(fadd(ce[b], 1e-5f), 1e-8f);
@@ -890,47 +1266,99 @@ extern "C" int mgt_rb_per_pick(const float* ring, const float* us,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mgt_rb_learn(const float* p, const float* tp, const float* wp,
-                            const float* wt, const float* ring,
-                            const int32_t* rounds, const int32_t* cols,
-                            const int32_t* sel, const float* wts,
-                            const float* gpow, float* work, float* ce, int n,
-                            int R, int B, int tile, int n_step, int per,
-                            int faithful, float gamma, float scale,
-                            float inv_b, cudaStream_t stream) {
-  using namespace mgt;
-  if (B <= 0 || tile <= 0 || B % tile != 0 || n_step < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  RbLearnCfg lc{n, R, B, n_step, per, faithful, gamma, scale, inv_b};
-  const size_t smem =
-      static_cast<size_t>(tile) *
-      (2 * kIn + 6 + RbFwd::kFloats + 5 * kAtoms + kA * kAtoms + 3 * kH1 +
-       kH0) *
-      sizeof(float);
-  cudaError_t err = allow_smem(rb_learn_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rb_learn_kernel<<<B / tile, kRbThreads, smem, stream>>>(
-      rb_net(p, wp), rb_net(tp, wt), ring, rounds, cols, sel, wts, gpow, work,
-      ce, tile, lc);
-  return static_cast<int>(cudaGetLastError());
+namespace mgt {
+
+template <int LANES>
+cudaError_t launch_learn_fwd(RbNet pnet, RbNet tnet, const float* wpt,
+                             const float* ring, const int32_t* rounds,
+                             const int32_t* cols, const int32_t* sel,
+                             const float* wts, const float* gpow, float* ws,
+                             float* ce, RbLearnCfg lc, int smem,
+                             cudaStream_t stream) {
+  cudaError_t err = allow_smem(learn_fwd_kernel<LANES>, smem);
+  if (err != cudaSuccess) return err;
+  learn_fwd_kernel<LANES>
+      <<<(lc.B + LANES - 1) / LANES, kLearnThreads, smem, stream>>>(
+          pnet, tnet, wpt, ring, rounds, cols, sel, wts, gpow, ws, ce, lc);
+  return cudaGetLastError();
 }
 
-extern "C" int mgt_rb_adam(const float* work, float* p, float* m, float* v,
-                           const float* eps, float* loss, int tiles, int B,
-                           float lr, float b1, float b2, float omb1,
-                           float omb2, float eps_adam, float c1, float c2,
-                           cudaStream_t stream) {
+template <int NT>
+cudaError_t launch_learn_grad(const float* ws, float* p, float* m, float* v,
+                              const float* eps, float* loss, RbGradCfg gc,
+                              int smem, cudaStream_t stream) {
+  if (grad_smem(NT) > static_cast<size_t>(smem)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(learn_grad_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  learn_grad_kernel<NT><<<grad_blocks(), NT, smem, stream>>>(ws, p, m, v, eps,
+                                                             loss, gc);
+  return cudaGetLastError();
+}
+
+}  // namespace mgt
+
+// The learner's forward and backward of one learn (learn_fwd_kernel):
+// `lanes` lanes a block, `smem` bytes of shared memory a block (checked
+// against learn_smem); each lane's row to `ws` (B rows of kWsWidth
+// floats) and its CE to `ce`.
+extern "C" int mgt_rb_learn_fwd(const float* p, const float* tp,
+                                const float* wp, const float* wt,
+                                const float* wpt, const float* ring,
+                                const int32_t* rounds, const int32_t* cols,
+                                const int32_t* sel, const float* wts,
+                                const float* gpow, float* ws, float* ce,
+                                int n, int R, int B, int n_step, int per,
+                                int faithful, float gamma, float scale,
+                                float inv_b, int lanes, int smem,
+                                cudaStream_t stream) {
   using namespace mgt;
-  RbAdamCfg c{tiles, B, {lr, b1, b2, omb1, omb2, eps_adam, c1, c2}};
-  const int threads = 256;
-  rb_adam_kernel<<<(kNumP + threads) / threads, threads, 0, stream>>>(
-      work, p, m, v, eps, loss, c);
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || n_step < 1 || lanes < 1 ||
+      learn_smem(lanes) > static_cast<size_t>(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RbLearnCfg lc{n, R, B, n_step, per, faithful, gamma, scale, inv_b};
+  const RbNet pnet = rb_net(p, wp), tnet = rb_net(tp, wt);
+  switch (lanes) {
+#define MGT_CASE(L)                                                       \
+  case L:                                                                 \
+    return static_cast<int>(launch_learn_fwd<L>(pnet, tnet, wpt, ring,    \
+                                                rounds, cols, sel, wts,   \
+                                                gpow, ws, ce, lc, smem,   \
+                                                stream));
+    MGT_CASE(1) MGT_CASE(2) MGT_CASE(4) MGT_CASE(8)
+#undef MGT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The gradients of one learn from `ws`, summed in tiles of `tile` lanes
+// (8 or 16, dividing B), then Adam (learn_grad_kernel); `threads` threads
+// a block.
+extern "C" int mgt_rb_learn_grad(const float* ws, float* p, float* m,
+                                 float* v, const float* eps, float* loss,
+                                 int B, int tile, float lr, float b1,
+                                 float b2, float omb1, float omb2,
+                                 float eps_adam, float c1, float c2,
+                                 int threads, int smem, cudaStream_t stream) {
+  using namespace mgt;
+  if (B <= 0 || (tile != 8 && tile != 16) || B % tile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RbGradCfg gc{B, tile, {lr, b1, b2, omb1, omb2, eps_adam, c1, c2}};
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (threads) {
+#define MGT_CASE(T)                                                        \
+  case T:                                                                  \
+    err = launch_learn_grad<T>(ws, p, m, v, eps, loss, gc, smem, stream); \
+    break;
+    MGT_CASE(256) MGT_CASE(512) MGT_CASE(1024)
+#undef MGT_CASE
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" int mgt_rb_post(const float* p, float* tp, float* eps, float* teps,
-                           float* wp, float* wt, float* env, float* ring,
-                           int32_t* tot, const int32_t* ep_step,
+                           float* wp, float* wt, float* wpt, float* env,
+                           float* ring, int32_t* tot, const int32_t* ep_step,
                            const float* ce, const int32_t* sel, int n, int R,
                            int B, int i, int regen, int per_wb,
                            int check_sync, uint32_t k0, uint32_t k1,
@@ -941,6 +1369,6 @@ extern "C" int mgt_rb_post(const float* p, float* tp, float* eps, float* teps,
               inv_sync, synced0};
   const int threads = 256;
   rb_post_kernel<<<(kNumP + threads - 1) / threads, threads, 0, stream>>>(
-      p, tp, eps, teps, wp, wt, env, ring, tot, ep_step, ce, sel, c);
+      p, tp, eps, teps, wp, wt, wpt, env, ring, tot, ep_step, ce, sel, c);
   return static_cast<int>(cudaGetLastError());
 }

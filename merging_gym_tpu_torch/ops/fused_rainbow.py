@@ -24,9 +24,12 @@ and the auto-reset.
 On the H100 a step is a sequence of hand-written kernels
 (``kernels/csrc/rainbow_trainer.cu``) issued by :func:`fused_rainbow_chunk`
 on the current stream, K5's design: ``rb_act`` (act / env / store), on a
-learning step ``rb_per_pick`` (PER only), ``rb_learn`` (per-block partial
-sums of every gradient) and ``rb_adam`` (summing them in block order), and
-on every step ``rb_post`` (noise, target sync, effective weights, PER
+learning step ``rb_per_pick`` (PER only), ``rb_learn_fwd`` (each sampled
+lane's forwards and backward, a few lanes a block, its row factors to a
+workspace; :class:`Learner`, geometry :func:`learn_geometry`) and
+``rb_learn_grad`` (every gradient summed over the workspace in the plain
+version's order, Adam fused), and on every step ``rb_post`` (noise,
+target sync, effective weights and the online ones transposed, PER
 write-back).  The learn gate, the learn count and Adam's bias corrections
 depend only on host counters.  The target sync depends on the data: the
 act kernel adds each step's finished episodes to ``ep_step[i]`` (integer
@@ -77,7 +80,9 @@ device memory, and JAX's ``_call_hbm`` computes what ``_call`` computes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,6 +97,7 @@ from merging_gym_tpu_torch.nn.rainbow_net import (NOISY_LAYERS, NUM_ATOMS,
                                                   TRUNK, V_MAX, V_MIN,
                                                   rainbow_init,
                                                   rainbow_sample_noise)
+from merging_gym_tpu_torch.ops import fused_mlp as FM
 from merging_gym_tpu_torch.ops import fused_trainer as FT
 from merging_gym_tpu_torch.ops import philox
 from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, phi
@@ -130,9 +136,9 @@ STREAM_FROZEN = philox.STREAM_OPPONENT
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _ACT_ARGS = [_P] * 7 + [_I] * 11 + [_U] * 5 + [_F] * 2 + [_I] + [_F] * 5 + [_P]
 _PICK_ARGS = [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P]
-_LEARN_ARGS = [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P]
-_ADAM_ARGS = [_P] * 6 + [_I] * 2 + [_F] * 8 + [_P]
-_POST_ARGS = [_P] * 12 + [_I] * 7 + [_U] * 3 + [_F] * 3 + [_P]
+_FWD_ARGS = [_P] * 13 + [_I] * 6 + [_F] * 3 + [_I] * 2 + [_P]
+_GRAD_ARGS = [_P] * 6 + [_I] * 2 + [_F] * 8 + [_I] * 2 + [_P]
+_POST_ARGS = [_P] * 13 + [_I] * 7 + [_U] * 3 + [_F] * 3 + [_P]
 
 # ---------------------------------------------------------------------------
 # Layouts: flat parameter / noise buffers <-> nested dicts <-> JAX packing
@@ -934,6 +940,146 @@ def fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
 
 
 # ---------------------------------------------------------------------------
+# The learner on the card: geometry, workspace, launches
+# ---------------------------------------------------------------------------
+
+# rb_learn_fwd (rainbow_trainer.cu:learn_fwd_kernel) is built for blocks of
+# each of LEARN_LANES sampled lanes; its shared memory is two weight
+# buffers of CHUNK floats (the widest layer, advantage2, whole) and
+# LANE_FLOATS floats a lane (kLaneFloats).
+LEARN_LANES = (1, 2, 4, 8)
+CHUNK = H1 * A * ATOMS                      # 16,320
+LANE_FLOATS = 1764
+# rb_learn_grad: 256, 512 or 1,024 threads a block, each summing 16
+# entries of a summation tile; its shared memory parks the partial sums of
+# the tiles in flight, 64 bytes a thread.
+GRAD_THREADS = (256, 512, 1024)
+
+# The workspace (rainbow_trainer.cu:kWs*): one row per sampled lane of
+# these column groups in order, each a multiple of 4 floats.  A 1 follows
+# each first factor (x and the online net's hidden layers): its bias's
+# row.  dl's group ends with the lane's ce * w, the loss's term.
+WS_GROUPS = (("x", 12), ("h1", 36), ("h2", 68), ("hv1", 68), ("ha1", 68),
+             ("dz1", 32), ("dz2", 64), ("dzv1", 64), ("dl", 52),
+             ("dza1", 64), ("dza2", 256))
+WS_COLS = {name: sum(w for _, w in WS_GROUPS[:i])
+           for i, (name, _) in enumerate(WS_GROUPS)}
+WS_WIDTH = sum(w for _, w in WS_GROUPS)     # 784
+WS_ONES = (WS_COLS["x"] + IN_DIM, WS_COLS["h1"] + H0, WS_COLS["h2"] + H1,
+           WS_COLS["hv1"] + H1, WS_COLS["ha1"] + H1)
+
+# The online net's effective weights transposed, which rb_post forms for
+# the learner's backward: per noisy layer W^T [out, 64], then w1^T [64, 32].
+T_OFF = tuple(H1 * sum(NOISY_OUT[:i]) for i in range(len(NOISY_OUT) + 1))
+NUM_T = T_OFF[-1] + H0 * H1                 # 29,824
+
+
+class LearnGeometry(NamedTuple):
+    """Launch geometry of the learner: ``lanes`` sampled lanes per block of
+    ``rb_learn_fwd`` and its ``smem`` bytes; ``grad_threads`` threads per
+    block of ``rb_learn_grad`` and its ``grad_smem`` bytes."""
+    lanes: int
+    smem: int
+    grad_threads: int
+    grad_smem: int
+
+
+def learn_smem(lanes: int) -> int:
+    """Shared-memory bytes of an ``rb_learn_fwd`` block of ``lanes``
+    lanes (``rainbow_trainer.cu:learn_smem``)."""
+    return 4 * (2 * CHUNK + lanes * LANE_FLOATS)
+
+
+def learn_tiling(B: int, lanes: int,
+                 grad_threads: int) -> LearnGeometry | None:
+    """The geometry of ``lanes`` lanes per forward block and
+    ``grad_threads`` threads per gradient block, or None where either is
+    not one the kernels are built for, a block does not fit its shared
+    memory, or the summation tile does not divide B."""
+    smem = learn_smem(lanes)
+    if (lanes not in LEARN_LANES or grad_threads not in GRAD_THREADS
+            or smem > kernels.SMEM_LIMIT or B <= 0 or B % learn_tile(B)):
+        return None
+    return LearnGeometry(lanes, smem, grad_threads, 64 * grad_threads)
+
+
+@functools.lru_cache(maxsize=None)
+def learn_geometry(B: int, sm_count: int) -> LearnGeometry:
+    """The learner's geometry for a batch of B lanes on ``sm_count`` SMs:
+    the fewest of ``LEARN_LANES`` per block that need no more blocks than
+    the card has SMs (else the most), as ``ops.fused_trainer.
+    learn_geometry`` sizes K5's; the gradients at 256 threads a block, 32
+    summation tiles in flight (the fastest of the sweep of chip_smoke.py
+    at B 1,024).  Per-lane arithmetic does not
+    depend on how lanes are grouped, so every geometry gives the same bits
+    (the sweep holds them to it)."""
+    if B <= 0 or B % learn_tile(B):
+        raise ValueError(f"the learner sums tiles of {learn_tile(B)} "
+                         f"lanes; B = {B} is not a multiple")
+    lanes = next((n for n in LEARN_LANES if -(-B // n) <= sm_count),
+                 LEARN_LANES[-1])
+    return learn_tiling(B, lanes, GRAD_THREADS[0])
+
+
+def new_workspace(B: int, device) -> torch.Tensor:
+    """The learner's workspace, B rows of :data:`WS_WIDTH` floats: zeros,
+    and the ones of the bias rows (the kernel writes the rest)."""
+    ws = torch.zeros(B, WS_WIDTH, device=device)
+    ws[:, list(WS_ONES)] = 1.0
+    return ws
+
+
+class Learner:
+    """The launches of K8's learner (``rb_learn_fwd`` and ``rb_learn_grad``
+    of ``rainbow_trainer.cu``) on the working state ``st`` (see
+    :func:`working_state`, with ``wpt``, the online net's transposed
+    weights that ``rb_post`` forms) for a batch of B lanes, with its
+    workspace.  The state must lie on the card: nothing here runs on the
+    CPU.  ``geometry``: a :class:`LearnGeometry` in place of
+    :func:`learn_geometry`'s (the sweep of chip_smoke.py)."""
+
+    def __init__(self, st, B: int, geometry=None):
+        dev = kernels.require_cuda(*(st[k] for k in (
+            "p", "tp", "m", "v", "eps", "wp", "wt", "wpt", "ring", "loss")))
+        self.st, self.B, self.tile = st, B, learn_tile(B)
+        self.g = geometry or learn_geometry(B, FM.sm_count(dev))
+        self.ws = new_workspace(B, dev)
+        self.stream = kernels.stream_ptr(dev)
+        self.fn = {name: kernels.function("rainbow_trainer",
+                                          f"mgt_rb_learn_{name}", args)
+                   for name, args in (("fwd", _FWD_ARGS),
+                                      ("grad", _GRAD_ARGS))}
+
+    def _launch(self, name, *args):
+        rc = self.fn[name](*args, self.stream)
+        kernels.check("rainbow_trainer", rc, f"rainbow_learn_{name} launch")
+        kernels.launch_counts[f"rainbow_learn_{name}"] += 1
+
+    def launch(self, cfg, rounds, cols, sel, wts, gpow, ce, t):
+        """One learn: the batch from the first draw of the i32 device
+        streams ``rounds``/``cols`` or, with ``cfg.per``, from ``sel``
+        (rounds, lanes) with importance weights ``wts``; ``gpow`` the f32
+        discounts gamma ** k, ``t`` Adam's step.  Each lane's CE goes to
+        ``ce``, the loss to ``st["loss"]``."""
+        st, g, ptr = self.st, self.g, kernels.ptr
+        n, B = st["ring"].shape[1], self.B
+        scale = 1.0 if cfg.obs_scale is None else float(cfg.obs_scale)
+        self._launch("fwd", ptr(st["p"]), ptr(st["tp"]), ptr(st["wp"]),
+                     ptr(st["wt"]), ptr(st["wpt"]), ptr(st["ring"]),
+                     ptr(rounds), ptr(cols), ptr(sel), ptr(wts), ptr(gpow),
+                     ptr(self.ws), ptr(ce), n,
+                     st["ring"].shape[0] // NUM_F, B, cfg.n_step,
+                     int(cfg.per), int(cfg.faithful_c51), float(cfg.gamma),
+                     scale, float(np.float32(1.0 / B)), g.lanes, g.smem)
+        c1, c2 = FT.adam_bias_corrections(t)
+        self._launch("grad", ptr(self.ws), ptr(st["p"]), ptr(st["m"]),
+                     ptr(st["v"]), ptr(st["eps"]), ptr(st["loss"]), B,
+                     self.tile, float(cfg.lr), FT.ADAM_B1, FT.ADAM_B2,
+                     1.0 - FT.ADAM_B1, 1.0 - FT.ADAM_B2, FT.ADAM_EPS, c1, c2,
+                     g.grad_threads, g.grad_smem)
+
+
+# ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
 
@@ -965,10 +1111,11 @@ def fused_rainbow_chunk(cfg, env_params, carry, num_steps, seed, *,
 
 
 def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
-                   rounds, cols, us) -> bool:
+                   rounds, cols, us, geometry=None) -> bool:
     """Issue K8's kernels for ``num_steps`` steps on the current stream,
     updating the working state ``st`` (see :func:`working_state`) in
-    place; returns whether the last step learned."""
+    place; returns whether the last step learned.  ``geometry``: the
+    learner's, in place of :func:`learn_geometry`'s."""
     n, R, B = carry["n"], carry["R"], carry.get("B", carry["n"])
     ns = cfg.n_step
     frozen = cfg.opponent == FT.OPP_FROZEN
@@ -979,6 +1126,8 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     opp_dims = FT._dims(carry["opp"]) if frozen else (IN_DIM, 1, 1, A)
     if frozen and (opp_dims[0] != IN_DIM or opp_dims[3] != A):
         raise ValueError("the frozen opponent must be a 10 -> 5 Q-net")
+    st["wpt"] = torch.empty(NUM_T, dtype=torch.float32, device=dev)
+    learner = Learner(st, B, geometry)
     total0, synced0 = _sync_start(st["env"])
     tot = torch.zeros(num_steps + 1, dtype=torch.int32)
     tot[0] = total0
@@ -987,9 +1136,6 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
     cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
     us_d = torch.as_tensor(us, dtype=torch.float32, device=dev)
-    tile = learn_tile(B)
-    tiles = B // tile
-    work = torch.empty(tiles, NUM_G + 1, dtype=torch.float32, device=dev)
     ce = torch.zeros(B, dtype=torch.float32, device=dev)
     sel = torch.zeros(2, B, dtype=torch.int32, device=dev)
     wts = torch.ones(B, dtype=torch.float32, device=dev)
@@ -997,7 +1143,6 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     stream = kernels.stream_ptr(dev)
     fn = {name: kernels.function("rainbow_trainer", f"mgt_rb_{name}", args)
           for name, args in (("act", _ACT_ARGS), ("per_pick", _PICK_ARGS),
-                             ("learn", _LEARN_ARGS), ("adam", _ADAM_ARGS),
                              ("post", _POST_ARGS))}
     ptr = kernels.ptr
     scale = 1.0 if cfg.obs_scale is None else float(cfg.obs_scale)
@@ -1019,9 +1164,10 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     def post(i, regen, per_wb, check_sync, gstep):
         launch("post", "rainbow_post", ptr(st["p"]), ptr(st["tp"]),
                ptr(st["eps"]), ptr(st["teps"]), ptr(st["wp"]), ptr(st["wt"]),
-               ptr(st["env"]), ptr(st["ring"]), ptr(tot), ptr(ep_step),
-               ptr(ce), ptr(sel), n, R, B, i, regen, per_wb, check_sync, k0,
-               k1, gstep, float(cfg.per_alpha), inv_sync, float(synced0))
+               ptr(st["wpt"]), ptr(st["env"]), ptr(st["ring"]), ptr(tot),
+               ptr(ep_step), ptr(ce), ptr(sel), n, R, B, i, regen, per_wb,
+               check_sync, k0, k1, gstep, float(cfg.per_alpha), inv_sync,
+               float(synced0))
 
     # The effective weights of the carry's nets, before the first step.
     post(0, 0, 0, 0, 0)
@@ -1042,17 +1188,7 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
                        ptr(us_d[i:]), ptr(sel), ptr(wts), n, R, B, r_cur,
                        stored, ns, float(np.float32(1.0 / B)),
                        float(cfg.per_beta))
-            c1, c2 = FT.adam_bias_corrections(t)
-            launch("learn", "rainbow_learn", ptr(st["p"]), ptr(st["tp"]),
-                   ptr(st["wp"]), ptr(st["wt"]), ptr(st["ring"]),
-                   ptr(rounds_d[i:]), ptr(cols_d[i:]), ptr(sel), ptr(wts),
-                   ptr(gpow), ptr(work), ptr(ce), n, R, B, tile, ns,
-                   int(cfg.per), int(cfg.faithful_c51), float(cfg.gamma),
-                   scale, float(np.float32(1.0 / B)))
-            launch("adam", "rainbow_adam", ptr(work), ptr(st["p"]),
-                   ptr(st["m"]), ptr(st["v"]), ptr(st["eps"]),
-                   ptr(st["loss"]), tiles, B, float(cfg.lr), FT.ADAM_B1,
-                   FT.ADAM_B2, 1.0 - FT.ADAM_B1, 1.0 - FT.ADAM_B2,
-                   FT.ADAM_EPS, c1, c2)
+            learner.launch(cfg, rounds_d[i:], cols_d[i:], sel, wts, gpow, ce,
+                           t)
         post(i, int(learn and not greedy), int(learn and cfg.per), 1, gstep)
     return learned

@@ -434,13 +434,101 @@ def test_k8_equals_plain_and_repeats(cuda, case):
               for k in kernels.launch_counts}
     assert got["learns"] == 16 - cfg.n_step and got["episodes"] > 0
     assert counts["rainbow_act"] == 2 * 16
-    assert counts["rainbow_adam"] == 2 * got["learns"]
+    assert counts["rainbow_learn_fwd"] == 2 * got["learns"]
+    assert counts["rainbow_learn_grad"] == 2 * got["learns"]
     assert counts["rainbow_per_pick"] == (2 * got["learns"] if cfg.per else 0)
+    assert "rainbow_adam" not in counts and "rainbow_learn" not in counts
     for k in ("p", "tp", "m", "v", "eps", "teps", "env", "ring"):
         assert torch.equal(got[k], want[k]), k
         assert torch.equal(got[k], again[k]), k
     for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
         assert got[k] == want[k] == again[k], k
+
+
+# K8's learner at the batches its kernels must take: the training CLI's (B
+# 1,024 at 1,024 envs), learn_batch 512, the PER batch 32 and a PER batch of
+# 24, whose summation tile is 8.  Each runs warm-up and ten learning steps.
+K8_SHAPES = {"cli_1024": dict(n=1024),
+             "learn_batch_512": dict(n=1024, learn_batch=512),
+             "per_32": dict(n=256, per=True, batch_size=32),
+             "per_24_tile_8": dict(n=256, per=True, batch_size=24)}
+K8_KEYS = ("p", "tp", "m", "v", "eps", "teps", "env", "ring")
+
+
+def _k8_case(cuda, n, per=False, batch_size=32, learn_batch=None, n_step=1):
+    cfg = RB.RainbowConfig(lr=1e-3, gamma=0.9, target_sync_episodes=3,
+                           memory_capacity=4 * n, obs_scale=0.01, per=per,
+                           batch_size=batch_size, n_step=n_step)
+    ep = EnvParams(max_steps=40)
+    kw = {} if learn_batch is None else dict(learn_batch=learn_batch)
+    carry = FRB.fused_rainbow_init(0, cfg, ep, n, device=cuda, **kw)
+    carry["env"] = _race_rows(carry["env"], n, cuda, 6)
+    return cfg, ep, carry
+
+
+@pytest.mark.parametrize("case", list(K8_SHAPES))
+def test_k8_learner_batches_equal_plain_and_repeat(cuda, case):
+    cfg, ep, carry = _k8_case(cuda, **K8_SHAPES[case])
+    B = carry["B"]
+    assert B == {"cli_1024": 1024, "learn_batch_512": 512, "per_32": 32,
+                 "per_24_tile_8": 24}[case]
+    assert FRB.learn_tile(B) == (8 if case == "per_24_tile_8" else 16)
+    warm = FRB.fused_rainbow_chunk(cfg, ep, carry, cfg.n_step, 0,
+                                   greedy=True)
+    before = dict(kernels.launch_counts)
+    got = FRB.fused_rainbow_chunk(cfg, ep, warm, 10, 1, greedy=True)
+    counts = {k: kernels.launch_counts[k] - before[k]
+              for k in kernels.launch_counts}
+    want = FRB.fused_rainbow_chunk_plain(cfg, ep, warm, 10, 1, greedy=True)
+    again = FRB.fused_rainbow_chunk(cfg, ep, warm, 10, 1, greedy=True)
+    assert got["learns"] - warm["learns"] == 10
+    # One post before the first step forms the effective weights; then 4
+    # launches a learning step, 5 with PER.
+    per_step = (sum(v for k, v in counts.items() if k.startswith("rainbow_"))
+                - 1) / 10
+    assert per_step == (5 if cfg.per else 4)
+    for k in K8_KEYS:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
+    assert got["last_loss"] > 0.0
+
+
+@pytest.mark.parametrize("lanes", FRB.LEARN_LANES)
+@pytest.mark.parametrize("threads", FRB.GRAD_THREADS)
+def test_k8_every_learner_geometry_equals_plain(cuda, lanes, threads):
+    """Each geometry of chip_smoke.py's rb_learn_sweep, at B 1,024: a
+    warm carry's four learning steps equal the plain version's, twice."""
+    cfg, ep, carry = _k8_case(cuda, 1024)
+    warm = FRB.fused_rainbow_chunk(cfg, ep, carry, 2, 0, greedy=True)
+    g = FRB.learn_tiling(1024, lanes, threads)
+    rounds, cols, us = FRB._prepare(cfg, ep, warm, 4, 1, True, None, None,
+                                    None)
+    want = FRB.fused_rainbow_chunk_plain(cfg, ep, warm, 4, 1, greedy=True)
+    for _ in range(2):
+        st = FRB.working_state(warm)
+        FRB.launch_rainbow(st, warm, cfg, ep, 4, 1, True, rounds, cols, us,
+                           geometry=g)
+        for k in K8_KEYS:
+            assert torch.equal(st[k], want[k]), k
+        assert float(st["loss"]) == want["last_loss"] > 0.0
+
+
+def test_k8_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the host's geometry: shared memory short of the
+    forward's layout or of the gradient kernel's partials, or more lanes
+    a block than it was built for, is refused before the launch."""
+    cfg, ep, carry = _k8_case(cuda, 128)
+    warm = FRB.fused_rainbow_chunk(cfg, ep, carry, 2, 0, greedy=True)
+    g = FRB.learn_geometry(128, FM.sm_count(cuda))
+    args = (warm, cfg, ep, 1, 1, True, [0], [0], [0.0])
+    FRB.launch_rainbow(FRB.working_state(warm), *args, geometry=g)
+    for bad in (g._replace(smem=g.smem - 4),
+                g._replace(grad_smem=g.grad_smem - 4),
+                g._replace(lanes=16, smem=FRB.learn_smem(16))):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FRB.launch_rainbow(FRB.working_state(warm), *args, geometry=bad)
 
 
 def _shrink_drqn(flat):

@@ -8,7 +8,8 @@ Phases, each of which raises (non-zero exit) on failure:
   1. print the card (nvidia-smi) and build the CUDA kernels from
      ``merging_gym_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel);
   2. run each kernel and its plain version on the same inputs on the card,
-     at the main path's shapes, and compare at the JAX tests' tolerances;
+     at the main path's shapes, and compare at the JAX tests' tolerances
+     (K6 bit for bit at each of its geometry choices: ``k6_cases``);
   3. the two main paths, each with every launch count set to 0 just before
      it and read just after.  Evaluation: the env rollout at 4,096 envs as
      ``bench.py`` drives it (K1 trajectories, K2 counters), then ``eval
@@ -41,7 +42,9 @@ Phases, each of which raises (non-zero exit) on failure:
      K8 and K9 per step and per 200-step chunk; one warm step of K5, K7,
      K8 and K9 split by kernel (device time of each launch, launches per
      step, one learn beside its bound: the ``trainer_split`` line), and
-     one learn of K5, K8 and K9 at each choice of their geometry.
+     one learn of K5, K8 and K9 at each choice of their geometry; K6 at
+     every envs a block and micro-tile (``k6_geometry_sweep``) and ``eval
+     --fused`` split by phase (``eval_fused_split``).
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -776,6 +779,176 @@ def check_k4(checks, torch, FA, FM, params, hdqn_nets, dev, rng):
     return kept
 
 
+def k6_cases(EnvParams, qnet_init, torch, p_l2, p_l1, dev):
+    """K6's checks, ``{label: (steps, envs, params1, params2, kwargs)}``:
+    every mode at 4,096 envs x ``T_POLICY`` (32 envs a block, both nets
+    resident), and every other geometry choice of the main paths and the
+    card tests at full width: ragged blocks (4,097 envs; 200 envs, 2 a
+    block), one net (L0), self-play, and nets too wide to stay resident
+    (``--hidden 1024 512``), which stream every step."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    wide = qnet_init(g, 10, 5, hidden=(1024, 512))
+    wide2 = qnet_init(g, 10, 5, hidden=(1024, 512))
+    t, n = T_POLICY, N_ENVS
+    return {
+        "greedy vs L0": (t, n, p_l2, None, dict(greedy=True)),
+        # Greedy L2 vs L1 both brake from the deterministic start; a
+        # 300-step cap makes the timeout and auto-reset part of the check.
+        "greedy L2 vs L1": (t, n, p_l2, p_l1, dict(
+            greedy=True, env_params=EnvParams(max_steps=300))),
+        "phi-greedy L2 vs L1": (t, n, p_l2, p_l1, dict(greedy=False, seed=1)),
+        "random_start": (t, n, p_l2, p_l1, dict(
+            greedy=False, seed=2, env_params=EnvParams(random_start=True))),
+        "bf16": (t, n, p_l2, p_l1, dict(greedy=False, seed=3,
+                                        compute_dtype="bfloat16")),
+        "phi-greedy vs L0": (300, n, p_l2, None, dict(greedy=False, seed=4)),
+        "self-play": (300, n, p_l2, p_l2, dict(greedy=False, seed=5)),
+        "4,097 envs": (300, n + 1, p_l2, p_l1, dict(greedy=False, seed=6)),
+        "4,097 envs bf16": (300, n + 1, p_l2, p_l1, dict(
+            greedy=False, seed=7, compute_dtype="bfloat16")),
+        "200 envs": (300, 200, p_l2, p_l1, dict(greedy=False, seed=8)),
+        "200 envs bf16 vs L0": (300, 200, p_l2, None, dict(
+            greedy=False, seed=9, compute_dtype="bfloat16")),
+        "streamed 1024x512": (16, n, wide, wide2, dict(greedy=False,
+                                                       seed=10)),
+        "streamed 1024x512 bf16": (16, n, wide, wide2, dict(
+            greedy=False, seed=11, compute_dtype="bfloat16")),
+    }
+
+
+def check_k6(checks, torch, FPR, cases):
+    """K6 against its plain version, bit for bit: every event and reward,
+    in each case of :func:`k6_cases`; prints each case's geometry and its
+    max |kernel - plain| over the rewards."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for what, (t, n, pa, pb, kw) in cases.items():
+        got = FPR.fused_policy_rollout(t, n, pa, pb, **kw)
+        want = FPR.fused_policy_rollout_plain(t, n, pa, pb, **kw)
+        checks.events("K6", what, got, want,
+                      ("actions", "done", "winner", "collision", "rewards"),
+                      {})
+        w = pa["fc1"]["w"]
+        elem = 2 if kw.get("compute_dtype") == "bfloat16" else 4
+        g = FPR.policy_geometry(n, (10, w.shape[0], w.shape[1], 5), elem,
+                                sms, pb is not None)
+        err = (got["rewards"] - want["rewards"]).abs().max().item()
+        print(f"K6 {what} ({t} x {n}, {g.rows} envs a block, "
+              f"{g.rm}x{g.rn}, {'resident' if g.resident else 'streamed'}): "
+              f"{int(got['done'].sum())} episodes agree, max_abs_err {err}",
+              flush=True)
+
+
+def k6_sweep(torch, FPR, FM, p1, p2, EnvParams, dev):
+    """K6 as ``eval --fused`` plays (Phi-greedy L2 vs L1, f32, seed 1) at
+    4,096 envs x ``T_POLICY``, CUDA-event ms, at 8, 16 and 32 envs a block with every micro-tile of
+    ``FM.QNET_TILES`` that fits (RM <= rows), beside what
+    ``policy_geometry`` picks: the readings its rule stands on.  Each
+    geometry's events must equal the picked one's, which ``check_k6``'s
+    "phi-greedy L2 vs L1" holds against the plain version."""
+    w1 = FM.cast_weights(p1, torch.float32, dev)
+    w2 = FM.cast_weights(p2, torch.float32, dev)
+    dims = (w1[0].shape[0], w1[0].shape[1], w1[2].shape[1], w1[4].shape[1])
+    kw = dict(greedy=False, epsilon=0.7, seed=1, env_params=EnvParams())
+    want = FPR.fused_policy_rollout(T_POLICY, N_ENVS, p1, p2, **kw)
+    ev = FPR.empty_events(T_POLICY, N_ENVS, dev)
+    times = {}
+    for rows in (8, 16, 32):
+        base = FPR.policy_tiling(dims, rows, 4, 2)
+        for rm, rn in FM.QNET_TILES:
+            if rm > rows:
+                continue
+            g = base._replace(rm=rm, rn=rn)
+            FPR.launch_policy_rollout(ev, w1, w2, geometry=g, **kw)
+            for k in want:
+                if not torch.equal(ev[k], want[k].to(ev[k].dtype)):
+                    raise AssertionError(f"K6 at {g} differs in {k}")
+            times[f"{rows} {rm}x{rn}"] = cuda_ms(
+                torch, lambda: FPR.launch_policy_rollout(ev, w1, w2,
+                                                         geometry=g, **kw),
+                5)
+    picked = FPR.policy_geometry(
+        N_ENVS, dims, 4, torch.cuda.get_device_properties(
+            dev).multi_processor_count, True)
+    return {"picked": picked._asdict(), "ms": times}
+
+
+def numpy_outcomes(np, done, winner, collision, rewards):
+    """``evaluate_fused``'s reduction as the JAX package takes it
+    (``merging_gym_tpu/agents/evaluate.py:146-165``), on host arrays: the
+    five counts and the two f32 return sums."""
+    d = done
+    counts = [int(d.sum()), int((d & (winner == 1)).sum()),
+              int((d & (winner == 2)).sum()), int((d & collision).sum()),
+              int((d & (winner == 0) & ~collision).sum())]
+    T = d.shape[0]
+    last_done = np.where(d.any(axis=0), T - 1 - d[::-1].argmax(axis=0), -1)
+    in_finished = np.arange(T)[:, None] <= last_done[None, :]
+    return counts, (rewards * in_finished[:, None, :]).sum(axis=(0, 2))
+
+
+def eval_fused_split(torch, np, FPR, FR, FM, load_params_npz,
+                     qnet_params_from_numpy, EnvParams, fused_outcomes, dev,
+                     reps=3):
+    """``eval --fused`` of model_zoo/L2 vs L1 at 4,096 x ``T_EVAL`` split
+    by phase, host ms around synchronised steps, median over ``reps``:
+    npz load and weight cast, output allocation, the kernel, the bool
+    events (``as_events``), then the host reduction of the JAX package
+    (the copy of done, winner, collision and rewards, and numpy) and,
+    where ``fused_outcomes`` is given, the reduction on the card with its
+    one read-back.  The counts must agree exactly and the card's f32
+    return sums must be within rtol 1e-6 of an f64 sum of the same rewards;
+    each f32 sum's relative error against the f64 one, and the card's
+    against numpy's, are printed."""
+    def clock(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    kw = dict(greedy=False, epsilon=0.7, seed=0, env_params=EnvParams())
+    rows, check = [], {}
+    for _ in range(reps):
+        r = {}
+
+        def load():
+            ps = [qnet_params_from_numpy(load_params_npz(f), dev)
+                  for f in (ZOO_L2, ZOO_L1)]
+            return [FM.cast_weights(p, torch.float32, dev) for p in ps]
+        (w1, w2), r["load_cast"] = clock(load)
+        out, r["alloc"] = clock(lambda: FPR.empty_events(T_EVAL, N_ENVS, dev))
+        _, r["kernel"] = clock(lambda: FPR.launch_policy_rollout(
+            out, w1, w2, **kw))
+        ev, r["as_events"] = clock(lambda: FR.as_events(out))
+        keys = ("done", "winner", "collision", "rewards")
+        host, r["copy"] = clock(lambda: [ev[k].cpu().numpy() for k in keys])
+        (counts, ret), r["reduce_numpy"] = clock(
+            lambda: numpy_outcomes(np, *host))
+        r["host_path"] = r["copy"] + r["reduce_numpy"]
+        if fused_outcomes is not None:
+            sums, r["reduce_card"] = clock(lambda: fused_outcomes(
+                *(ev[k] for k in keys)))
+            sums, r["readback"] = clock(lambda: sums.tolist())
+            r["card_path"] = r["reduce_card"] + r["readback"]
+            f64 = numpy_outcomes(np, *host[:3], host[3].astype(np.float64))[1]
+            card = np.asarray(sums[5:])
+            check = {"counts": counts, "return_sums_card": sums[5:],
+                     "return_sums_numpy_f32": ret.tolist(),
+                     "return_sums_f64": f64.tolist(),
+                     "rel_err_card": (abs(card - f64) / abs(f64)).tolist(),
+                     "rel_err_numpy": (abs(ret - f64) / abs(f64)).tolist(),
+                     "rel_card_vs_numpy": (abs(card - ret)
+                                           / abs(ret)).tolist()}
+            if sums[:5] != counts:
+                raise AssertionError(f"card counts {sums[:5]} != {counts}")
+            if not np.allclose(card, f64, rtol=1e-6, atol=0.0):
+                raise AssertionError(f"card return sums off the f64 sums: "
+                                     f"{check}")
+        rows.append(r)
+    split = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    return {"ms": split, "reductions": check}
+
+
 def qnet_batch_times(torch, FM, FA, params, dev, rng, reps=50):
     """K3 and K4 beside their library calls (three ``addmm`` + ReLU; K4:
     and ``argmax``) at each main-path batch, f32, in ms: CUDA-event medians
@@ -1224,7 +1397,8 @@ def main():
     from merging_gym_tpu_torch.agents import rainbow as RB
     from merging_gym_tpu_torch.agents.evaluate import (evaluate,
                                                        evaluate_drqn,
-                                                       evaluate_fused)
+                                                       evaluate_fused,
+                                                       fused_outcomes)
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.core.geometry import lon2coord
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
@@ -1305,25 +1479,8 @@ def main():
     hdqn_nets = (qnet_init(g, 10, 3), qnet_init(g, 11, 5))
     check_k3(checks, torch, FM, p_l2, hdqn_nets, dev, rng)
 
-    policy_cases = {
-        "greedy vs L0": (p_l2, None, dict(greedy=True)),
-        # Greedy L2 vs L1 both brake from the deterministic start; a
-        # 300-step cap makes the timeout and auto-reset part of the check.
-        "greedy L2 vs L1": (p_l2, p_l1, dict(
-            greedy=True, env_params=EnvParams(max_steps=300))),
-        "phi-greedy L2 vs L1": (p_l2, p_l1, dict(greedy=False, seed=1)),
-        "random_start": (p_l2, p_l1, dict(
-            greedy=False, seed=2, env_params=EnvParams(random_start=True))),
-        "bf16": (p_l2, p_l1, dict(greedy=False, seed=3,
-                                  compute_dtype="bfloat16")),
-    }
-    for what, (pa, pb, kw) in policy_cases.items():
-        got = FPR.fused_policy_rollout(T_POLICY, N_ENVS, pa, pb, **kw)
-        want = FPR.fused_policy_rollout_plain(T_POLICY, N_ENVS, pa, pb, **kw)
-        checks.events("K6", what, got, want,
-                      ("actions", "done", "winner", "collision"), ev_tol)
-        print(f"K6 {what}: {int(got['done'].sum())} episodes agree",
-              flush=True)
+    check_k6(checks, torch, FPR, k6_cases(EnvParams, qnet_init, torch,
+                                          p_l2, p_l1, dev))
 
     k4_kept = check_k4(checks, torch, FA, FM, p_l2, hdqn_nets, dev, rng)
     check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev)
@@ -1539,6 +1696,10 @@ def main():
         full, w1, w2, **kw), 3)
     full_bound, _ = bound(T_EVAL * N_ENVS * FPR.K6_BYTES_PER_ENV_STEP,
                           T_EVAL * N_ENVS * per_step)
+    k6_sweep_line = k6_sweep(torch, FPR, FM, p_l2, p_l1, EnvParams, dev)
+    eval_split = eval_fused_split(torch, np, FPR, FR, FM, load_params_npz,
+                                  qnet_params_from_numpy, EnvParams,
+                                  fused_outcomes, dev)
 
     # K4 at B = 4096, f32, as the step-loop actor calls it
     acts = torch.empty(B_MLP, dtype=torch.int32, device=dev)
@@ -1778,6 +1939,7 @@ def main():
     print(json.dumps({"card": card, "k3_k4_by_batch": by_batch,
                       "k3_device_ms_by_rows": by_rows}))
     print(json.dumps({"card": card, "trainer_split": split}))
+    print(json.dumps({"card": card, "k6_geometry_sweep": k6_sweep_line}))
     print(json.dumps({
         "card": card,
         "shapes": {"K1": [T_ROLLOUT, N_ENVS], "K2": [T_ROLLOUT, N_ENVS],
@@ -1805,6 +1967,7 @@ def main():
                            "env_steps_per_s": k2_rate},
         "k6_eval_launch": {"steps": T_EVAL, "envs": N_ENVS, "ms": full_ms,
                            "bound_ms": full_bound},
+        "eval_fused_split": eval_split,
         "main_path_s": phase_s,
         "occupancy_k1_k2": f"{(N_ENVS + 127) // 128} blocks of 128 threads "
                            f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs",

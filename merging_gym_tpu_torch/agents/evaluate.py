@@ -111,31 +111,40 @@ def evaluate_fused(params1, params2=None, env_params: EnvParams | None = None,
     ``params1``/``params2`` are Q-net param dicts; ``params2=None`` plays
     L0.  With the default ``num_steps`` above the 2,501-step timeout every
     env finishes at least one episode.  Returns of finished episodes only
-    enter the mean returns.
+    enter the mean returns.  The events are reduced where they lie
+    (:func:`fused_outcomes`), and only the seven sums come back.
     """
     out = fused_policy_rollout(
         num_steps, num_envs, params1, params2, greedy=greedy,
         epsilon=epsilon, seed=seed, env_params=env_params or EnvParams(),
         compute_dtype=compute_dtype, device=device)
-    d = out["done"].cpu().numpy()                 # [T, N]
-    winner = out["winner"].cpu().numpy()
-    collision = out["collision"].cpu().numpy()
-    rewards = out["rewards"].cpu().numpy()        # [T, 2, N]
+    sums = fused_outcomes(out["done"], out["winner"], out["collision"],
+                          out["rewards"]).tolist()     # the one read-back
+    counts = {k: int(v) for k, v in zip(OUTCOME_COUNTS, sums)}
+    return _finalize(counts, sums[len(OUTCOME_COUNTS):])
 
-    counts = {
-        "episodes": int(d.sum()),
-        "p1_first": int((d & (winner == 1)).sum()),
-        "p2_first": int((d & (winner == 2)).sum()),
-        "collisions": int((d & collision).sum()),
-        "timeouts": int((d & (winner == 0) & ~collision).sum()),
-    }
-    # Finished-episode returns: every reward up to each env's last done
-    # step (the tail after it belongs to an unfinished episode).
-    T = d.shape[0]
-    last_done = np.where(d.any(axis=0), T - 1 - d[::-1].argmax(axis=0), -1)
-    in_finished = np.arange(T)[:, None] <= last_done[None, :]   # [T, N]
-    ret_sums = (rewards * in_finished[:, None, :]).sum(axis=(0, 2))
-    return _finalize(counts, ret_sums)
+
+OUTCOME_COUNTS = ("episodes", "p1_first", "p2_first", "collisions",
+                  "timeouts")
+
+
+def fused_outcomes(done, winner, collision, rewards) -> torch.Tensor:
+    """The outcome counts and finished-episode return sums of a fused
+    rollout's events (``done``/``collision`` bool[T, N], ``winner``
+    i32[T, N], ``rewards`` f32[T, 2, N]) on their own device: f64[7], the
+    ``OUTCOME_COUNTS`` (exact int64 sums) then player 1's and player 2's
+    return sums (f32 sums, as the JAX package's numpy takes them).  A
+    finished episode's return is every reward up to its env's last done
+    step; the tail after it belongs to an unfinished episode.
+    """
+    counts = torch.stack([
+        done.sum(), (done & (winner == 1)).sum(), (done & (winner == 2)).sum(),
+        (done & collision).sum(), (done & (winner == 0) & ~collision).sum()])
+    steps = torch.arange(done.shape[0], device=done.device)[:, None]
+    last_done = torch.where(done, steps, -1).amax(dim=0)          # [N]
+    in_finished = steps <= last_done                              # [T, N]
+    ret_sums = (rewards * in_finished[:, None, :]).sum(dim=(0, 2))
+    return torch.cat([counts.double(), ret_sums.double()])
 
 
 def evaluate_drqn(params1, policy2: Policy | None = None,

@@ -1,9 +1,10 @@
 // The Q-net forward of a tile of rows, for all threads of a block.
 //
-// Shared by K3 (qnet_mlp.cu), K4 (fused_actor.cu), K5 (dqn_trainer.cu),
-// K6 (policy_rollout.cu) and K7 (hdqn_trainer.cu), so a greedy evaluation
-// through K3 and one through K6 pick the same actions, and the trainer's
-// actor is K4's.  Each output of a layer is one thread's sum over the
+// mlp_tile serves the act kernels of K5 (dqn_trainer.cu) and K7
+// (hdqn_trainer.cu) and K8's opponent forward (rainbow_trainer.cu); K3,
+// K4 and K6 run qnet_tiled.cuh's micro-tiles, whose sums are the same, so
+// every forward of the port gives the same q.  The types, argmax0 and
+// phi_select below serve them all.  Each output of a layer is one thread's sum over the
 // inputs in order, in f32, with one rounding per multiply and per add
 // (__fmul_rn/__fadd_rn are never contracted into an FMA) -- the arithmetic
 // of ops/fused_mlp.py:mlp_plain.

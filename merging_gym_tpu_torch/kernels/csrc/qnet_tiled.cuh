@@ -1,6 +1,7 @@
-// The Q-net forward of K3 (qnet_mlp.cu), K4 (fused_actor.cu) and the
-// learner of K5 and K7 (dqn_trainer.cu), register-tiled for Hopper.  The
-// learner also runs its dz1 = w1 dz2 pass through layer_sums.
+// The Q-net forward of K3 (qnet_mlp.cu), K4 (fused_actor.cu), K6
+// (policy_rollout.cu) and the learner of K5 and K7 (dqn_trainer.cu),
+// register-tiled for Hopper.  The learner also runs its dz1 = w1 dz2 pass
+// through layer_sums.
 //
 // A block owns `rows` rows of x (chosen on the host from B and the SM
 // count, ops/fused_mlp.py:qnet_geometry) and keeps their activations in
@@ -8,8 +9,8 @@
 // columns: RM * RN accumulators, each its own sequential chain over k in
 // input order from 0, with one rounding per multiply and per add
 // (__fmul_rn/__fadd_rn, never an FMA) -- mlp.cuh's dense, so the outputs
-// equal the plain version (ops/fused_mlp.py:mlp_plain_layers) and K6 bit
-// for bit.  The independent chains give the ILP; per k the RM activations
+// equal the plain version (ops/fused_mlp.py:mlp_plain_layers) and
+// mlp_tile's bit for bit.  The independent chains give the ILP; per k the RM activations
 // are broadcast reads (four k at a time) and each of the RN weights is
 // reused by the RM rows.  No tensor cores and no split-k: both would change
 // the order of the sums.
@@ -19,7 +20,10 @@
 // layer or the next) while the block computes on the current one, so a
 // layer of any width streams through.  Where a layer has more micro-tiles
 // than the block has threads, its chunks stream once per pass of tiles.
-// The last layer (the actions) takes one output per thread.
+// The last layer (the actions) takes one output per thread.  A block that
+// runs many forwards of the same nets (K6, once per env step) instead holds
+// the weights in shared memory for the whole launch (stage_net once, then
+// resident_layers each step): the same micro-tiles over all of k at once.
 // Its bf16 arithmetic is mlp.cuh's: products of bf16 operands exact in
 // f32, each sum rounded to bf16, the bf16 bias add, then ReLU.
 #pragma once
@@ -141,6 +145,10 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // One layer of the block: K -> J, its k-rows per chunk, micro-tiles.
@@ -435,6 +443,82 @@ __device__ __forceinline__ void staged_sums(const T* wb, int K, int J,
         if (r < rows && j < J) epi.sum(r, j, acc[i][c]);
       }
   }
+}
+
+// Byte offsets of one net's six tensors held whole in shared memory, each
+// 16-byte aligned (the cp.async destinations of stage_net), and its bytes.
+struct NetSmem {
+  size_t w0, b0, w1, b1, w2, b2, bytes;
+  __host__ __device__ NetSmem(MlpDims d, int elem) {
+    const size_t e = static_cast<size_t>(elem);
+    w0 = 0;
+    b0 = w0 + align16(static_cast<size_t>(d.in) * d.h1 * e);
+    w1 = b0 + align16(d.h1 * e);
+    b1 = w1 + align16(static_cast<size_t>(d.h1) * d.h2 * e);
+    w2 = b1 + align16(d.h2 * e);
+    b2 = w2 + align16(static_cast<size_t>(d.h2) * d.a * e);
+    bytes = b2 + align16(d.a * e);
+  }
+};
+
+// The net whose tensors lie at `base` in the layout of NetSmem.
+template <typename T>
+__device__ __forceinline__ Net<T> net_in_smem(const unsigned char* base,
+                                              const NetSmem& o) {
+  return Net<T>{reinterpret_cast<const T*>(base + o.w0),
+                reinterpret_cast<const T*>(base + o.b0),
+                reinterpret_cast<const T*>(base + o.w1),
+                reinterpret_cast<const T*>(base + o.b1),
+                reinterpret_cast<const T*>(base + o.w2),
+                reinterpret_cast<const T*>(base + o.b2)};
+}
+
+// Start copying a whole net into shared memory at `base` (NetSmem layout);
+// the caller commits, waits and syncs the block.
+template <typename T>
+__device__ __forceinline__ void stage_net(unsigned char* base,
+                                          const NetSmem& o, MlpDims d,
+                                          Net<T> net) {
+  stage(reinterpret_cast<T*>(base + o.w0), net.w0, d.in * d.h1);
+  stage(reinterpret_cast<T*>(base + o.b0), net.b0, d.h1);
+  stage(reinterpret_cast<T*>(base + o.w1), net.w1, d.h1 * d.h2);
+  stage(reinterpret_cast<T*>(base + o.b1), net.b1, d.h2);
+  stage(reinterpret_cast<T*>(base + o.w2), net.w2, d.h2 * d.a);
+  stage(reinterpret_cast<T*>(base + o.b2), net.b2, d.a);
+}
+
+// qnet_layers for a net whose weights and biases the block already holds
+// in shared memory (`net` points there, net_in_smem): each layer's
+// micro-tiles sum over all of k at once, with no chunks and no copies.
+// The same sums in the same order, so the same bits.  Starts with a
+// block-wide barrier (the caller's writes to x_in become visible) and ends
+// with one (the caller may read what epi stored).
+template <typename T, int RM, int RN, typename Epi>
+__device__ __forceinline__ void resident_layers(MlpDims d, Net<T> net,
+                                                const T* x_in, T* s_h1,
+                                                T* s_h2, int rows, Epi& epi) {
+  const int st_in = act_stride(d.in), st_h1 = act_stride(d.h1),
+            st_h2 = act_stride(d.h2);
+  const QLayer<T> L0 =
+      qlayer(net.w0, net.b0, d.in, d.h1, d.in * d.h1, rows, RM, RN);
+  const QLayer<T> L1 =
+      qlayer(net.w1, net.b1, d.h1, d.h2, d.h1 * d.h2, rows, RM, RN);
+  const QLayer<T> L2 = qlayer(net.w2, net.b2, d.h2, d.a, d.h2 * d.a, rows, 1, 1);
+  float acc[RM][RN];
+  float acc1[1][1];
+  __syncthreads();
+  for (int tile = threadIdx.x; tile < L0.ntiles; tile += blockDim.x)
+    tile_step<T, RM, RN, false>(acc, L0, x_in, st_in, L0.w, 0, d.in, true,
+                                true, rows, tile, s_h1, st_h1, epi);
+  __syncthreads();
+  for (int tile = threadIdx.x; tile < L1.ntiles; tile += blockDim.x)
+    tile_step<T, RM, RN, false>(acc, L1, s_h1, st_h1, L1.w, 0, d.h1, true,
+                                true, rows, tile, s_h2, st_h2, epi);
+  __syncthreads();
+  for (int tile = threadIdx.x; tile < L2.ntiles; tile += blockDim.x)
+    tile_step<T, 1, 1, true>(acc1, L2, s_h2, st_h2, L2.w, 0, d.h2, true,
+                             true, rows, tile, s_h2, 0, epi);
+  __syncthreads();
 }
 
 }  // namespace mgt

@@ -10,9 +10,9 @@ q written once.  :func:`qnet_geometry` sizes the blocks from the batch and
 the card's SM count.  Products accumulate in f32 on the CUDA cores, in
 input order, one rounding per multiply and per add (no TF32, no FMA): the
 plain version below does the same arithmetic, so the two agree bit for
-bit on the card, and so does the policy-rollout kernel (K6, whose forward
-is ``kernels/csrc/mlp.cuh``), so ``evaluate`` and ``evaluate_fused`` pick
-the same greedy actions.
+bit on the card, and so does the policy-rollout kernel (K6, which runs
+the same micro-tiles), so ``evaluate`` and ``evaluate_fused`` pick the same
+greedy actions.
 
 ``compute_dtype="bfloat16"``: weights and activations in bf16, f32
 accumulation, each layer's sum rounded to bf16 before its bf16 bias add,
@@ -76,27 +76,40 @@ def qnet_tiling(widths: tuple, rows: int, elem: int, q_per_row: int = 0,
     ``QNET_MIN_TILES`` (the learner's, which runs this forward,
     ``ops/fused_trainer.py:learn_tiling``).
 
-    The buffers take the rest of the block's shared memory, up to the
-    largest layer, in multiples of 8 elements: the second buffer then
-    starts 16-byte aligned, as its ``cp.async`` copies need.  The
-    micro-tile is the first of ``QNET_TILES`` that gives the largest layer
-    at least ``min_tiles`` tiles, else the one that gives it the most.
+    The buffers take the rest of the block's shared memory
+    (:func:`weight_chunk`).  The micro-tile is :func:`micro_tile`'s.
     """
-    layers = tuple(zip(widths[:3], widths[1:]))
-    full = -(-max(k * j for k, j in layers) // 8) * 8
-    room = (kernels.SMEM_LIMIT - extra
-            - qnet_smem(widths, rows, 0, elem, q_per_row))
-    chunk = min(full, room // (2 * elem) // 8 * 8)
-    if chunk < max(j for _, j in layers):
+    chunk = weight_chunk(widths, kernels.SMEM_LIMIT - extra - qnet_smem(
+        widths, rows, 0, elem, q_per_row), elem)
+    if chunk is None:
         return None
-    j_main = max(layers, key=lambda kj: kj[0] * kj[1])[1]
-    fits = [(rm, rn) for rm, rn in QNET_TILES if rm <= rows]
-    tiles = {t: -(-rows // t[0]) * -(-j_main // t[1]) for t in fits}
-    rm, rn = next((t for t in fits if tiles[t] >= min_tiles),
-                  max(fits, key=tiles.get))
+    rm, rn = micro_tile(widths, rows, min_tiles)
     return QnetGeometry(rows, rm, rn, chunk,
                         qnet_smem(widths, rows, chunk, elem, q_per_row)
                         + extra)
+
+
+def weight_chunk(widths: tuple, room: int, elem: int) -> int | None:
+    """Elements of each of two weight buffers in ``room`` bytes: up to the
+    largest layer, in multiples of 8 elements (the second buffer then
+    starts 16-byte aligned, as its ``cp.async`` copies need), or None
+    where they cannot hold one k-row of the widest layer."""
+    layers = tuple(zip(widths[:3], widths[1:]))
+    full = -(-max(k * j for k, j in layers) // 8) * 8
+    chunk = min(full, room // (2 * elem) // 8 * 8)
+    return chunk if chunk >= max(j for _, j in layers) else None
+
+
+def micro_tile(widths: tuple, rows: int, min_tiles: int) -> tuple:
+    """(RM, RN) for blocks of ``rows`` rows of a Q-net of ``widths``: the
+    first of ``QNET_TILES`` with RM <= rows that gives the largest layer at
+    least ``min_tiles`` tiles, else the one that gives it the most."""
+    layers = tuple(zip(widths[:3], widths[1:]))
+    j_main = max(layers, key=lambda kj: kj[0] * kj[1])[1]
+    fits = [(rm, rn) for rm, rn in QNET_TILES if rm <= rows]
+    tiles = {t: -(-rows // t[0]) * -(-j_main // t[1]) for t in fits}
+    return next((t for t in fits if tiles[t] >= min_tiles),
+                max(fits, key=tiles.get))
 
 
 @functools.lru_cache(maxsize=None)

@@ -119,23 +119,114 @@ def test_k3_wide_net_uses_a_smaller_tile(cuda):
     assert torch.equal(FM.qnet_apply_fused(p, x), FM.qnet_apply_plain(p, x))
 
 
-@pytest.mark.parametrize("case", ["greedy_l0", "greedy_selfplay", "phi",
-                                  "random_start", "bf16"])
+# K6's cases: (steps, envs, player 2, kwargs, nets' hidden widths or None
+# for model_zoo's L2 vs L1).  Every mode at 200 envs (2 a block); both
+# nets resident in f32 and bf16 at 4,096 envs (32 a block) and at ragged
+# 4,097 (a block of one env past 128 full ones); one net (L0); self-play;
+# and nets too wide to stay resident (--hidden 1024 512), streamed every
+# step, at a few steps.
+K6_CASES = {
+    "greedy_l0": (120, 200, "l0", dict(greedy=True), None),
+    "greedy_selfplay": (120, 200, "self", dict(
+        greedy=True, env_params=EnvParams(max_steps=50)), None),
+    "phi": (120, 200, "l1", dict(greedy=False, seed=3), None),
+    "random_start": (120, 200, "l1", dict(
+        greedy=False, seed=4, env_params=EnvParams(random_start=True)), None),
+    "bf16": (120, 200, "l1", dict(greedy=False, seed=5,
+                                  compute_dtype="bfloat16"), None),
+    "resident_4096": (120, 4096, "l1", dict(greedy=False, seed=6), None),
+    "resident_4096_bf16": (120, 4096, "l1", dict(
+        greedy=False, seed=7, compute_dtype="bfloat16"), None),
+    "resident_4097": (120, 4097, "l1", dict(greedy=False, seed=8), None),
+    "resident_4097_bf16": (120, 4097, "l1", dict(
+        greedy=False, seed=9, compute_dtype="bfloat16"), None),
+    "l0_4097": (120, 4097, "l0", dict(greedy=False, seed=10), None),
+    "selfplay_4096": (120, 4096, "self", dict(greedy=False, seed=11), None),
+    "streamed": (6, 4096, "other", dict(greedy=False, seed=12),
+                 (1024, 512)),
+    "streamed_bf16": (6, 4097, "other", dict(
+        greedy=False, seed=13, compute_dtype="bfloat16"), (1024, 512)),
+    "streamed_l0": (6, 200, "l0", dict(greedy=True), (1024, 512)),
+}
+
+
+def _k6_nets(cuda, hidden):
+    if hidden is None:
+        return [qnet_params_from_numpy(load_params_npz(
+            f"model_zoo/L{i}/params.npz"), cuda) for i in (2, 1)]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    return [qnet_init(g, 10, 5, hidden=hidden) for _ in range(2)]
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
 def test_k6_equals_plain(cuda, case):
-    p1 = qnet_params_from_numpy(load_params_npz("model_zoo/L2/params.npz"),
-                                cuda)
-    p2 = qnet_params_from_numpy(load_params_npz("model_zoo/L1/params.npz"),
-                                cuda)
-    kw = {"greedy_l0": dict(greedy=True),
-          "greedy_selfplay": dict(greedy=True,
-                                  env_params=EnvParams(max_steps=50)),
-          "phi": dict(greedy=False, seed=3),
-          "random_start": dict(greedy=False, seed=4,
-                               env_params=EnvParams(random_start=True)),
-          "bf16": dict(greedy=False, seed=5, compute_dtype="bfloat16")}[case]
-    other = None if case == "greedy_l0" else p2
-    _equal(FPR.fused_policy_rollout(120, 200, p1, other, **kw),
-           FPR.fused_policy_rollout_plain(120, 200, p1, other, **kw))
+    steps, envs, who, kw, hidden = K6_CASES[case]
+    p1, p2 = _k6_nets(cuda, hidden)
+    other = {"l0": None, "self": p1, "l1": p2, "other": p2}[who]
+    elem = 2 if kw.get("compute_dtype") == "bfloat16" else 4
+    g = FPR.policy_geometry(envs, (10, *(hidden or (200, 100)), 5), elem,
+                            FM.sm_count(cuda), other is not None)
+    assert g.resident == (hidden is None)
+    before = kernels.launch_counts["policy_rollout"]
+    got = FPR.fused_policy_rollout(steps, envs, p1, other, **kw)
+    assert kernels.launch_counts["policy_rollout"] == before + 1
+    _equal(got, FPR.fused_policy_rollout_plain(steps, envs, p1, other, **kw))
+
+
+def test_k6_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the host's geometry: shared memory short of its
+    layout, more envs a block than it has owner threads for, or streamed
+    buffers not 16-byte aligned or short of one k-row of the widest layer,
+    are refused before the launch."""
+    p1, p2 = _k6_nets(cuda, None)
+    w1, w2 = (FM.cast_weights(p, torch.float32, cuda) for p in (p1, p2))
+    out = FPR.empty_events(4, 256, cuda)
+    kw = dict(greedy=True, epsilon=0.7, seed=0, env_params=EnvParams())
+    g = FPR.policy_geometry(256, (10, 200, 100, 5), 4, FM.sm_count(cuda),
+                            True)
+    streamed = FPR.policy_tiling((10, 200, 100, 5), 32, 4, 2)._replace(
+        resident=False, chunk=2048, smem=FPR.policy_smem(
+            (10, 200, 100, 5), 32, 4, 2, False, 2048))
+    for ok in (g, streamed):
+        FPR.launch_policy_rollout(out, w1, w2, geometry=ok, **kw)
+        _equal(FPR.as_events(out), FPR.fused_policy_rollout_plain(
+            4, 256, p1, p2, greedy=True))
+    for bad in (g._replace(smem=g.smem - 4), g._replace(rows=64),
+                streamed._replace(chunk=2046), streamed._replace(chunk=192),
+                streamed._replace(smem=streamed.smem - 16)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FPR.launch_policy_rollout(out, w1, w2, geometry=bad, **kw)
+
+
+def test_evaluate_fused_on_the_card_equals_the_numpy_reduction(cuda):
+    """``evaluate_fused`` reduces the events on the card and reads back
+    seven numbers; the JAX package's numpy reduction of the same events
+    (the same launch, copied to the host) gives the same counts and mean
+    returns to rtol 1e-6, at 4,096 envs x 768 steps (numpy's f32 sum runs
+    in order over the steps, so its own error grows with their number:
+    ~1e-6 relative at 2,600, which chip_smoke.py's eval_fused_split
+    prints), and the card's return sums are within rtol 1e-6 of their f64
+    sum."""
+    p1, p2 = _k6_nets(cuda, None)
+    kw = dict(greedy=False, seed=3)
+    got = evaluate_fused(p1, p2, EnvParams(), num_envs=4096, num_steps=768,
+                         device=cuda, **kw)
+    ev = FPR.fused_policy_rollout(768, 4096, p1, p2, **kw)
+    d, w, c, r = (ev[k].cpu().numpy() for k in ("done", "winner",
+                                                "collision", "rewards"))
+    assert got["episodes"] == int(d.sum()) >= 4096
+    assert got["p1_first"] == int((d & (w == 1)).sum())
+    assert got["p2_first"] == int((d & (w == 2)).sum())
+    assert got["collisions"] == int((d & c).sum())
+    assert got["timeouts"] == int((d & (w == 0) & ~c).sum())
+    T = d.shape[0]
+    last_done = np.where(d.any(axis=0), T - 1 - d[::-1].argmax(axis=0), -1)
+    in_finished = np.arange(T)[:, None] <= last_done[None, :]
+    mine = np.array([got["mean_return_p1"], got["mean_return_p2"]])
+    for dtype in (np.float32, np.float64):
+        ret = (r.astype(dtype) * in_finished[:, None, :]).sum(axis=(0, 2))
+        np.testing.assert_allclose(mine, ret / got["episodes"], rtol=1e-6,
+                                   atol=0.0, err_msg=str(dtype))
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -120,6 +120,72 @@ def test_evaluate_fused_matches_jax(_interpret_mode):
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, err_msg=k)
 
 
+def _events(case, T=300, N=64, seed=7):
+    """Seeded event arrays [T, N] (rewards [T, 2, N]) of a fused rollout,
+    as numpy: env 0 never done, env 1 done only at the last step, env 2 a
+    collision that is also player 1's win; or every env done at every
+    step; or no env ever done."""
+    rng = np.random.default_rng(seed)
+    done = rng.random((T, N)) < 0.02
+    winner = rng.integers(0, 3, (T, N)).astype(np.int32)
+    collision = rng.random((T, N)) < 0.3
+    rewards = rng.standard_normal((T, 2, N)).astype(np.float32)
+    if case == "mixed":
+        done[:, 0] = False
+        done[:, 1] = False
+        done[-1, 1] = True
+        done[T // 2, 2], winner[T // 2, 2], collision[T // 2, 2] = True, 1, True
+    elif case == "all_done":
+        done[:] = True
+    else:
+        done[:] = False
+    return {"done": done, "winner": winner, "collision": collision,
+            "rewards": rewards}
+
+
+def _jax_numpy_return_sums(ev):
+    """merging_gym_tpu/agents/evaluate.py:159-162, on the same arrays."""
+    d, T = ev["done"], ev["done"].shape[0]
+    last_done = np.where(d.any(axis=0), T - 1 - d[::-1].argmax(axis=0), -1)
+    in_finished = np.arange(T)[:, None] <= last_done[None, :]
+    return (ev["rewards"] * in_finished[:, None, :]).sum(axis=(0, 2))
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_done", "none_done"])
+def test_fused_outcomes_match_jax_reduction(monkeypatch, case):
+    """``evaluate_fused``'s torch reduction against the JAX package's numpy
+    one, on the same synthetic events: both evaluators are handed them in
+    place of their rollouts.  Counts exact, return sums to rtol 1e-6."""
+    ev = _events(case)
+    tev = {k: torch.as_tensor(v) for k, v in ev.items()}
+    sums = E.fused_outcomes(tev["done"], tev["winner"], tev["collision"],
+                            tev["rewards"])
+    assert sums.dtype == torch.float64 and sums.shape == (7,)
+    np.testing.assert_allclose(sums[5:].numpy(), _jax_numpy_return_sums(ev),
+                               rtol=1e-6, atol=0.0)
+    monkeypatch.setattr(JFPR, "fused_policy_rollout", lambda *a, **k: ev)
+    monkeypatch.setattr(E, "fused_policy_rollout", lambda *a, **k: tev)
+    want = JE.evaluate_fused(None, None)
+    got = E.evaluate_fused(None, None, device=CPU)
+    assert got.keys() == want.keys()
+    for k in E.OUTCOME_COUNTS:
+        assert got[k] == want[k] and isinstance(got[k], int), k
+    for k in ("p1_first_rate", "p2_first_rate", "collision_rate",
+              "timeout_rate"):
+        assert got[k] == want[k], k
+    for k in ("mean_return_p1", "mean_return_p2"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-5,
+                                   err_msg=k)
+    d = ev["done"]
+    if case == "mixed":
+        assert got["collisions"] >= 1 and got["p1_first"] >= 1
+        assert got["episodes"] == int(d.sum())
+    elif case == "all_done":
+        assert got["episodes"] == d.size
+    else:
+        assert got["episodes"] == 0 and sums[5:].abs().sum() == 0.0
+
+
 def test_greedy_evaluate_matches_evaluate_fused_and_jax():
     # Deterministic greedy play from deterministic starts: every episode
     # of a matchup is the same, so the three evaluators must agree.

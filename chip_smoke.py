@@ -41,8 +41,11 @@ Phases, each of which raises (non-zero exit) on failure:
      time alone), and K3's device time at every rows-per-block choice;
      K8 and K9 per step and per 200-step chunk; one warm step of K5, K7,
      K8 and K9 split by kernel (device time of each launch, launches per
-     step, one learn beside its bound: the ``trainer_split`` line), and
-     one learn of K5, K8 and K9 at each choice of their geometry; K6 at
+     step, one learn beside its bound, K5's and K7's act kernel beside its
+     bound and the ``addmm`` chains of its forwards: the ``trainer_split``
+     line), one learn of K5, K8 and K9 at each choice of their geometry,
+     and one act launch of K5 and K7 at each envs a block and micro-tile
+     (``act_geometry_sweep``, on the same line); K6 at
      every envs a block and micro-tile (``k6_geometry_sweep``) and ``eval
      --fused`` split by phase (``eval_fused_split``).
 Prints one JSON line of per-kernel results, then, last,
@@ -327,7 +330,8 @@ def race_carry(torch, FT, lon2coord, cfg, ep, n, dev, seed=0, **kw):
     carry = FT.fused_dqn_init(seed, cfg, ep, n, device=dev, **kw)
     for k in ("p", "tp"):
         carry[k] = tuple((a - a.mean()) * 0.05 for a in carry[k])
-    carry["opp"] = carry["p"]
+    if cfg.opponent != "frozen":
+        carry["opp"] = carry["p"]
     carry["env"] = race_rows(torch, lon2coord, carry["env"], n, dev,
                              seed + 100)
     return carry
@@ -355,13 +359,15 @@ def compare_k5(checks, torch, what, got, want):
         raise AssertionError(f"K5 {what}: nothing learned or finished")
 
 
-def check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev):
+def check_k5(checks, torch, FT, D, EnvParams, lon2coord, qnet_init, dev):
     """K5 against its plain version at 1,024 envs, R = 4; returns the
     first case, run once more for the determinism check."""
     n = N_TRAIN
     sp = D.DQNConfig(lr=1e-3, target_sync=7, memory_capacity=4 * n,
                      opponent="selfplay")
     ep60 = EnvParams(max_steps=60)
+    frozen = dict(opp_params=qnet_init(
+        torch.Generator(device=dev).manual_seed(8), 10, 5))
     # (cfg, env, init kwargs, chunk lengths, greedy, race start).  The
     # 2-step first chunks stop short of the R-1 = 3 step warm-up, so the
     # global-step learn gate is held across launches.  learn_rounds = 4
@@ -373,6 +379,8 @@ def check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev):
             dict(learn_batch=512, learn_rounds=4), (30,), True, True),
         "greedy selfplay bf16": (sp.replace(compute_dtype="bfloat16"), ep60,
                                  {}, (2, 20), True, True),
+        "greedy frozen opponent": (sp.replace(opponent="frozen"), ep60,
+                                   frozen, (2, 20), True, True),
         "phi-greedy random_start": (sp, EnvParams(random_start=True,
                                                   max_steps=30), {}, (32,),
                                     False, False),
@@ -1040,13 +1048,47 @@ def kernel_split(torch, kernels, launch, dev):
     return split
 
 
+def addmm_chain_ms(torch, dev, nets, rows):
+    """Device ms (``graph_ms``) of the ``torch.addmm`` + ReLU chains of
+    Q-nets of widths ``nets`` on ``rows`` rows each, one after the other
+    (random f32 weights and inputs): one library call a layer for the
+    forwards of an act kernel, as K3's library time is taken."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    chains = []
+    for d in nets:
+        w = [torch.randn(k, j, generator=g, device=dev) * 0.1
+             for k, j in zip(d[:3], d[1:])]
+        b = [torch.randn(j, generator=g, device=dev) * 0.1 for j in d[1:]]
+        chains.append((torch.randn(rows, d[0], generator=g, device=dev), w,
+                       b))
+
+    def run():
+        for x, w, b in chains:
+            h = torch.relu(torch.addmm(b[0], x, w[0]))
+            h = torch.relu(torch.addmm(b[1], h, w[1]))
+            torch.addmm(b[2], h, w[2])
+    return graph_ms(torch, run)
+
+
+def act_numbers(torch, dev, split, nets):
+    """The act kernel of a split step (its first launch) beside its bound,
+    ``mlp_flops`` of the forwards ``nets`` x 1,024 envs at the f32 rate,
+    and the library's ``addmm`` chains of the same forwards."""
+    return {"act_ms": split[0][1],
+            "act_bound_ms": bound(0, N_TRAIN * sum(mlp_flops(*d)
+                                                   for d in nets))[0],
+            "act_library_ms": addmm_chain_ms(torch, dev, nets, N_TRAIN)}
+
+
 def trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev):
     """One warm step of K5 and of K7 at the CLI defaults (L0, 1,024 envs,
     B 1,024) split by kernel (``kernel_split``): device ms of each launch,
-    launches per warm step, their sum, and one learn (every launch after
-    the act kernel; K7: each of its two learners) beside its bound,
-    ``learn_flops`` x B at the f32 rate; and the time per step of a warm
-    200-step chunk (CUDA events, host launches included)."""
+    launches per warm step, their sum, the act kernel beside its bound and
+    the library's forwards (``act_numbers``: K5 one forward, K7 the upper,
+    lower and upper nets), and one learn (every launch after the act
+    kernel; K7: each of its two learners) beside its bound, ``learn_flops``
+    x B at the f32 rate; and the time per step of a warm 200-step chunk
+    (CUDA events, host launches included)."""
     ep = EnvParams()
     out = {}
     cfg = D.DQNConfig(memory_capacity=4 * N_TRAIN)
@@ -1066,7 +1108,8 @@ def trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev):
                  "chunk_step_ms": chunk_ms / T_CHUNK,
                  "step_device_ms": sum(ms for _, ms in split),
                  "learn_ms": sum(ms for _, ms in split[1:]),
-                 "learn_bound_ms": bound(0, carry["B"] * learn_flops(*dims))[0]}
+                 "learn_bound_ms": bound(0, carry["B"] * learn_flops(*dims))[0],
+                 **act_numbers(torch, dev, split, (dims,))}
     hcfg = H.HDQNConfig(memory_capacity=4 * N_TRAIN,
                         goal_memory_capacity=2 * N_TRAIN)
     hcarry = FH.fused_hdqn_chunk(hcfg, ep, FH.fused_hdqn_init(
@@ -1094,7 +1137,68 @@ def trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev):
                  "lower_learn_bound_ms": bound(
                      0, B * learn_flops(11, 200, 100, 5))[0],
                  "upper_learn_bound_ms": bound(
-                     0, B * learn_flops(10, 200, 100, 3))[0]}
+                     0, B * learn_flops(10, 200, 100, 3))[0],
+                 **act_numbers(torch, dev, split, ((10, 200, 100, 3),
+                                                   (11, 200, 100, 5),
+                                                   (10, 200, 100, 3)))}
+    return out
+
+
+def act_geometry_sweep(torch, np, kernels, FT, FH, FM, D, H, EnvParams,
+                       dev):
+    """One act launch of K5 and of K7 at the training CLI's defaults (L0,
+    1,024 envs, f32; step 0 of a cold carry, which launches the act kernel
+    alone), device ms by ``kernel_split``: at 4, 8, 16 and 32 envs a block
+    with every micro-tile of ``FM.QNET_TILES`` that fits (RM <= rows), the
+    nets held as ``act_tiling`` holds them, and at the picked rows and tile
+    with every net streamed, beside what ``act_geometry`` picks: the
+    readings its rule stands on.  Each geometry's step must equal the
+    picked one's, which ``check_k5`` and ``check_k7`` hold against the
+    plain versions."""
+    ep, n = EnvParams(), N_TRAIN
+    z = np.zeros(1, np.int32)
+    cfg = D.DQNConfig(memory_capacity=4 * n)
+    carry = FT.fused_dqn_init(0, cfg, ep, n, device=dev)
+    hcfg = H.HDQNConfig(memory_capacity=4 * n, goal_memory_capacity=2 * n)
+    hcarry = FH.fused_hdqn_init(0, hcfg, ep, n, device=dev)
+    trainers = {
+        "K5": (((10, 200, 100, 5),), ("env", "ring", "met"),
+               lambda: FT.working_state(carry, torch.float32),
+               lambda st, g: FT.launch_trainer(st, carry, cfg, ep, 1, 1,
+                                               False, z, z, act_geom=g)),
+        "K7": (((10, 200, 100, 3), (11, 200, 100, 5)),
+               ("state", "lo_ring", "up_ring", "met"),
+               lambda: FH.working_state(hcarry, torch.float32),
+               lambda st, g: FH.launch_hdqn(st, hcarry, hcfg, ep, 1, 1,
+                                            False, z, z,
+                                            np.zeros(2, np.int32),
+                                            act_geom=g))}
+    out = {}
+    for name, (nets, keys, state, launch) in trainers.items():
+        picked = FT.act_geometry(n, nets, 4, FM.sm_count(dev))
+        want = state()
+        launch(want, picked)
+
+        def time(g):
+            st = state()
+            launch(st, g)
+            for k in keys:
+                if not torch.equal(st[k], want[k]):
+                    raise AssertionError(f"{name}'s act kernel at {g} "
+                                         f"differs in {k}")
+            return kernel_split(torch, kernels, lambda: launch(state(), g),
+                                dev)[0][1]
+        times = {}
+        for rows in (4, 8, 16, 32):
+            base = FT.act_tiling(nets, rows, 4)
+            for rm, rn in FM.QNET_TILES:
+                if rm <= rows:
+                    times[f"{rows} {rm}x{rn}"] = time(base._replace(rm=rm,
+                                                                    rn=rn))
+        streamed = FT.act_tiling(nets, picked.rows, 4, resident=0)._replace(
+            rm=picked.rm, rn=picked.rn)
+        out[name] = {"picked": picked._asdict(), "device_ms": times,
+                     "streamed_ms": time(streamed)}
     return out
 
 
@@ -1483,7 +1587,7 @@ def main():
                                           p_l2, p_l1, dev))
 
     k4_kept = check_k4(checks, torch, FA, FM, p_l2, hdqn_nets, dev, rng)
-    check_k5(checks, torch, FT, D, EnvParams, lon2coord, dev)
+    check_k5(checks, torch, FT, D, EnvParams, lon2coord, qnet_init, dev)
     check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev)
     check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev)
     check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev)
@@ -1806,6 +1910,8 @@ def main():
     split = trainer_split(torch, np, kernels, FT, FH, D, H, EnvParams, dev)
     split["learn_geometry_sweep"] = learn_lanes_times(
         torch, kernels, FT, FM, D, EnvParams, dev)
+    split["act_geometry_sweep"] = act_geometry_sweep(
+        torch, np, kernels, FT, FH, FM, D, H, EnvParams, dev)
     split["K9"] = drqn_split(torch, np, kernels, FD, DR, EnvParams, dev)
     split["k9_learn_geometry_sweep"] = drqn_learn_sweep(
         torch, kernels, FD, FM, DR, EnvParams, dev)

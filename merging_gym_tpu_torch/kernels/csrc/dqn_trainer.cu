@@ -15,13 +15,17 @@
 // envs and lanes per launch, and plain kernels are each easier to hold
 // against the plain version.)
 //
-//   1. dqn_act_env_store: a block owns `tile` envs.  Both seats' actors
-//      (mlp_tile of mlp.cuh, then argmax0 and the shared phi_select on the
-//      four Philox words at (step, env, 0, 0); the opponent is the live
-//      net, a frozen net, or L0), the env step of env_math.cuh, the [24]
-//      transition slab stored into ring round r_cur (a lane whose ego has
-//      won keeps its old row), the per-env metrics (win tested on the
-//      pre-step obs) and the auto-reset.
+//   1. dqn_act_env_store: a block owns `rows` envs (sized from n and the SM
+//      count, ops/fused_trainer.py:act_geometry: 8 envs in 128 blocks at
+//      1,024).  Both seats' actors: the forwards on act_tiled.cuh's
+//      register micro-tiles (the player's net held in shared memory for
+//      the launch where it fits; in self-play one pass over both seats'
+//      rows, a frozen opponent's net streamed in a second pass), then
+//      argmax0 and the shared phi_select on the four Philox words at
+//      (step, env, 0, 0); the env step of env_math.cuh, the [24] transition
+//      slab stored into ring round r_cur (a lane whose ego has won keeps its
+//      old row), the per-env metrics (win tested on the pre-step obs) and
+//      the auto-reset.
 //   2. learn_fwd_kernel (only on a learning step): a block owns `lanes` of
 //      the B sampled lanes (sized from B and the SM count,
 //      ops/fused_trainer.py:learn_geometry), gathered from the (round,
@@ -64,51 +68,57 @@
 // sampled lane, all f32 on the CUDA cores; the ring, the env rows, the
 // 2.5 MB workspace and the parameters stay in L2, so the trainer is bound
 // by operations, and without FMA (bit-equality) at most half of that
-// bound is reachable.  The learner's forwards are register-tiled
-// (qnet_tiled.cuh) over 128 blocks at B 1,024 and its gradients a
-// register-tiled reduction over 133 blocks; the act kernel still runs
-// mlp.cuh's one-output-per-thread forward on 64 blocks.  The measured
-// times are in PERF.md (chip_smoke.py).
+// bound is reachable.  Every forward is register-tiled (qnet_tiled.cuh):
+// the act kernel's over 128 blocks at 1,024 envs, the learner's over 128
+// blocks at B 1,024, and the learner's gradients are a register-tiled
+// reduction over 133 blocks.  The measured times are in PERF.md
+// (chip_smoke.py).
 #include <cstdint>
 
+#include "act_tiled.cuh"
 #include "env_math.cuh"
 #include "learn_math.cuh"
-#include "mlp.cuh"
 #include "philox.cuh"
-#include "qnet_tiled.cuh"
 
 namespace mgt {
 
-constexpr int kTrainThreads = 256;
 constexpr int kNumF = 24;  // K5's ring fields per round: obs 10, next obs
                            // 10, action, reward, done, pad
 
 struct ActCfg {
-  int n, r_cur, opp, greedy, random_start;
+  int n, r_cur, opp, greedy, random_start;  // opp: kOppL0, kOppSelf, kOppFrozen
   uint32_t step, threshold, k0, k1;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kTrainThreads)
+// Kernel 1: a block owns `rows` envs, thread e < rows env env0 + e (its
+// state in registers, its observation written straight into the input
+// tile).  The player's forward runs on the block's rows (with the
+// opponent's half-swapped rows in the same pass in self-play), a frozen
+// opponent's in a second pass (act_tiled.cuh); then the picks, the env
+// step, the ring store, the metrics and the auto-reset of each env.
+template <typename T, int RM, int RN>
+__global__ void __launch_bounds__(kQnetThreads, 1)
 act_env_store_kernel(Net<T> pnet, Net<T> onet, float* __restrict__ env,
                      float* __restrict__ ring, float* __restrict__ met,
-                     int tile, MlpDims d, ActCfg ac, EnvCfg cfg) {
+                     ActGeom g, MlpDims d, ActCfg ac, EnvCfg cfg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* obs1 = reinterpret_cast<float*>(smem);  // [tile][10]
-  float* obs2 = obs1 + tile * 10;                // [tile][10]
-  float* q1 = obs2 + tile * 10;                  // [tile][a]
-  float* q2 = q1 + tile * d.a;                   // [tile][a]
-  T* s_in = reinterpret_cast<T*>(q2 + tile * d.a);
-  T* s_h1 = s_in + tile * d.in;
-  T* s_h2 = s_h1 + tile * d.h1;
+  const int seats = ac.opp == kOppSelf ? 2 : 1;
+  const ActSmem S(&d, 1, g, sizeof(T), seats);
+  T* const s_in = reinterpret_cast<T*>(smem + S.in);
+  const float* const q = reinterpret_cast<const float*>(smem + S.q);
+  const int st = act_stride(d.in);
 
-  const int env0 = blockIdx.x * tile;
-  const int rows = min(tile, ac.n - env0);
+  const int env0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, ac.n - env0);
   const int e = threadIdx.x;
   const bool owner = e < rows;
   const int lane = env0 + e;
   const size_t sN = static_cast<size_t>(ac.n);
 
+  if (g.resident) {  // the player's net into shared memory, while the env
+    stage_net(smem, NetSmem(d, sizeof(T)), d, pnet);  // rows load
+    cp_async_commit();
+  }
   EnvState s;
   float x1 = 0.f, y1 = 0.f, x2 = 0.f, y2 = 0.f, ep_rew = 0.f;
   float o[10];
@@ -127,23 +137,31 @@ act_env_store_kernel(Net<T> pnet, Net<T> onet, float* __restrict__ env,
     const float pre[10] = {x2 - x1, y2 - y1, s.vel2 - s.vel1,
                            kEndPoint - s.pos1, s.vel1, x1 - x2, y1 - y2,
                            s.vel1 - s.vel2, kEndPoint - s.pos2, s.vel2};
-    for (int k = 0; k < 10; ++k) {
-      o[k] = pre[k];
-      obs1[e * 10 + k] = pre[k];
-      obs2[e * 10 + k] = pre[(k + 5) % 10];
-    }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) o[k] = pre[k];
+    put_obs<0>(s_in + e * st, o);
+    if (seats == 2) put_obs<5>(s_in + (rows + e) * st, o);
   }
-  mlp_tile<T>(obs1, rows, d, pnet, s_in, s_h1, s_h2, q1);
-  if (ac.opp) mlp_tile<T>(obs2, rows, d, onet, s_in, s_h1, s_h2, q2);
+  cp_async_wait_all();  // act_forward's first barrier publishes the net
+  act_forward<T, RM, RN>(smem, S, g.chunk, d, pnet, g.resident ? 0 : -1,
+                         seats * rows);
+  int a1 = 0, a2 = -1;
+  if (owner) {
+    a1 = argmax0(q + e * d.a, d.a);
+    if (seats == 2) a2 = argmax0(q + (rows + e) * d.a, d.a);
+  }
+  if (ac.opp == kOppFrozen) {
+    if (owner) put_obs<5>(s_in + e * st, o);
+    act_forward<T, RM, RN>(smem, S, g.chunk, d, onet, -1, rows);
+    if (owner) a2 = argmax0(q + e * d.a, d.a);
+  }
   if (!owner) return;
 
-  int a1 = argmax0(q1 + e * d.a, d.a);
-  int a2 = ac.opp ? argmax0(q2 + e * d.a, d.a) : -1;
   if (!ac.greedy) {
     Bits4 b = draw(ac.step, static_cast<uint32_t>(lane), kStreamActions,
                    ac.k0, ac.k1);
     a1 = phi_select(a1, b.x, b.y, ac.threshold, d.a);
-    if (ac.opp) a2 = phi_select(a2, b.z, b.w, ac.threshold, d.a);
+    if (ac.opp != kOppL0) a2 = phi_select(a2, b.z, b.w, ac.threshold, d.a);
   }
   StepOut so = env_step(s, a1, a2, cfg);
 
@@ -291,14 +309,6 @@ inline bool learn_geom_ok(MlpDims d, LearnGeom g) {
   return g.lanes > 0 && g.chunk > 0 && g.chunk * sizeof(T) % 16 == 0 &&
          LearnSmem(d, g, sizeof(T)).total <= static_cast<size_t>(g.smem);
 }
-
-struct StoreRows {  // q of a forward's rows into shared memory, [row][a]
-  float* q;
-  int a;
-  __device__ __forceinline__ void store(int r, int j, float v) {
-    q[r * a + j] = v;
-  }
-};
 
 // dz1 = (w1 dz2) * relu'(h1) of a lane, into the workspace: f32, and in
 // bf16 also rounded to T.
@@ -601,19 +611,37 @@ learn_grad_kernel(const float* __restrict__ ws, int width,
   }
 }
 
+template <typename T, int RM, int RN>
+cudaError_t launch_act_tile(Net<T> p, Net<T> o, float* env, float* ring,
+                            float* met, ActGeom g, MlpDims d, ActCfg ac,
+                            EnvCfg cfg, cudaStream_t stream) {
+  cudaError_t err = allow_smem(act_env_store_kernel<T, RM, RN>, g.smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (ac.n + g.rows - 1) / g.rows;
+  act_env_store_kernel<T, RM, RN><<<blocks, kQnetThreads, g.smem, stream>>>(
+      p, o, env, ring, met, g, d, ac, cfg);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_act(const void* p, const void* opp, float* env,
-                       float* ring, float* met, int tile, MlpDims d,
-                       ActCfg ac, EnvCfg cfg, cudaStream_t stream) {
-  size_t smem = static_cast<size_t>(tile) * (20 + 2 * d.a) * sizeof(float) +
-                static_cast<size_t>(tile) * (d.in + d.h1 + d.h2) * sizeof(T);
-  cudaError_t err = allow_smem(act_env_store_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  int blocks = (ac.n + tile - 1) / tile;
-  act_env_store_kernel<T><<<blocks, kTrainThreads, smem, stream>>>(
-      net_at<T>(p, d), net_at<T>(ac.opp ? opp : p, d), env, ring, met, tile,
-      d, ac, cfg);
-  return cudaGetLastError();
+                       float* ring, float* met, ActGeom g, int rm, int rn,
+                       MlpDims d, ActCfg ac, EnvCfg cfg, cudaStream_t stream) {
+  if (!act_geom_ok<T>(&d, 1, g, ac.opp == kOppSelf ? 2 : 1,
+                      ac.opp == kOppFrozen || g.resident < 1))
+    return cudaErrorInvalidValue;
+  const Net<T> pn = net_at<T>(p, d);
+  const Net<T> on = net_at<T>(ac.opp == kOppFrozen ? opp : p, d);
+  switch (rm * 16 + rn) {
+#define MGT_CASE(M, N)                                                       \
+  case M * 16 + N:                                                           \
+    return launch_act_tile<T, M, N>(pn, on, env, ring, met, g, d, ac, cfg,   \
+                                    stream);
+    MGT_QNET_TILES(MGT_CASE)
+#undef MGT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int RM, int RN>
@@ -653,27 +681,34 @@ cudaError_t launch_fwd(const void* p, const void* tgt, const void* w1t,
 
 }  // namespace mgt
 
+// Kernel 1 of a step (act_env_store_kernel) on `n` envs in the geometry
+// (rows, rm x rn, resident, chunk, smem) of ops/fused_trainer.py:
+// act_geometry; opp: kOppL0, kOppSelf (opp unused) or kOppFrozen.  A
+// geometry its layout does not fit is refused (cudaErrorInvalidValue).
 extern "C" int mgt_dqn_act(const void* p, const void* opp, float* env,
                            float* ring, float* met, int n, int in, int h1,
-                           int h2, int a, int tile, int bf16, int opp_net,
-                           int greedy, int random_start, uint32_t step,
-                           int r_cur, uint32_t threshold, uint32_t k0,
-                           uint32_t k1, int max_steps, float r_first,
-                           float r_second, float r_collision,
+                           int h2, int a, int rows, int rm, int rn,
+                           int resident, int chunk, int smem, int bf16,
+                           int opp_mode, int greedy, int random_start,
+                           uint32_t step, int r_cur, uint32_t threshold,
+                           uint32_t k0, uint32_t k1, int max_steps,
+                           float r_first, float r_second, float r_collision,
                            float vel_penalty, float time_penalty,
                            cudaStream_t stream) {
   using namespace mgt;
   if (n <= 0) return 0;
-  if (tile > kTrainThreads || in != 10)
+  if (in != 10 || opp_mode < kOppL0 || opp_mode > kOppFrozen)
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims d{in, h1, h2, a};
-  ActCfg ac{n, r_cur, opp_net, greedy, random_start, step, threshold, k0, k1};
+  ActGeom g{rows, resident, chunk, smem};
+  ActCfg ac{n, r_cur, opp_mode, greedy, random_start, step, threshold, k0,
+            k1};
   EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
              max_steps};
   cudaError_t err =
-      bf16 ? launch_act<__nv_bfloat16>(p, opp, env, ring, met, tile, d, ac,
-                                       cfg, stream)
-           : launch_act<float>(p, opp, env, ring, met, tile, d, ac, cfg,
+      bf16 ? launch_act<__nv_bfloat16>(p, opp, env, ring, met, g, rm, rn, d,
+                                       ac, cfg, stream)
+           : launch_act<float>(p, opp, env, ring, met, g, rm, rn, d, ac, cfg,
                                stream);
   return static_cast<int>(err);
 }

@@ -9,7 +9,9 @@
 // sequence of kernels on one stream, issued by a host loop
 // (ops/fused_hdqn.py), with no read-back inside a chunk.  Per step:
 //
-//   1. hdqn_act_env_store (this file): a block owns `tile` envs.  Per env:
+//   1. hdqn_act_env_store (this file): a block owns `rows` envs (sized from
+//      n and the SM count, ops/fused_trainer.py:act_geometry: 8 envs in 128
+//      blocks at 1,024).  Per env:
 //      the meta forward on the obs gives a fresh goal where an option
 //      starts (the return is zeroed there); the low forward on
 //      [goal; obs]; unless the opponent is L0, its meta forward on the
@@ -24,8 +26,12 @@
 //      round r_up only where the option ended (other lanes keep their old
 //      row); the metrics (win tested on the post-step obs, episode reward
 //      accumulated unconditionally); the auto-reset; state rows 0-14.
-//      Each forward is mlp_tile of mlp.cuh on the block's tile of 10- or
-//      11-wide rows, then argmax0 and phi_select on the Philox words at
+//      Each forward is one pass of act_tiled.cuh's register micro-tiles
+//      over the block's 10- or 11-wide rows (the ego's upper and lower nets
+//      held in shared memory for the launch where they fit, a frozen
+//      opponent's streamed; in self-play the two seats' upper forwards are
+//      one pass over 2 x rows rows, and so are their lower ones: 3 passes
+//      a step, as against L0), then argmax0 and phi_select on the words at
 //      (step, env, stream, 0): stream 0 for the goal and the action,
 //      stream 2 for the opponent's goal and action, stream 3 for the
 //      re-chosen goal (stream 1 is the random start).  Every block also
@@ -58,19 +64,18 @@
 // on a learning step both learners' three forwards and backward per
 // sampled lane (about 5 x 23,000 multiply-adds each); the rings, state
 // rows and ten parameter sets are a few MB, so K7 is bound by operations.
-// Its act kernel uses few blocks (64 of 16 envs at 1,024) and mlp.cuh's
-// one-output-per-thread sums, far from that bound; the learners are K5's
-// register-tiled ones (dqn_trainer.cu).  The measured times are in
-// PERF.md (chip_smoke.py).
+// Its act kernel runs on qnet_tiled.cuh's register micro-tiles over 128
+// blocks at 1,024 envs, and the learners are K5's register-tiled ones
+// (dqn_trainer.cu); without FMA (bit-equality) at most half of the bound
+// is reachable.  The measured times are in PERF.md (chip_smoke.py).
 #include <cstdint>
 
+#include "act_tiled.cuh"
 #include "env_math.cuh"
-#include "mlp.cuh"
 #include "philox.cuh"
 
 namespace mgt {
 
-constexpr int kHdqnThreads = 256;
 constexpr int kObs = 10;
 constexpr int kLoF = 32;  // lower ring fields: [goal;obs] 11, [goal';obs'] 11,
                           // action, intrinsic reward, done, pad 7
@@ -78,7 +83,8 @@ constexpr int kUpF = 24;  // upper ring fields: obs 10, next obs 10, goal,
                           // extrinsic return, done, pad
 
 struct HdqnCfg {
-  int n, r_lo, r_up, opp, greedy, random_start;
+  int n, r_lo, r_up, opp, greedy, random_start;  // opp: kOppL0, kOppSelf,
+                                                 // kOppFrozen
   uint32_t step, threshold, k0, k1;
 };
 
@@ -87,7 +93,7 @@ __device__ __forceinline__ int goal_status(const float* o) {
   return o[0] < -0.5f * o[9] ? 0 : (o[0] < 0.5f * o[9] ? 1 : 2);
 }
 
-// The Phi(eps)-greedy pick of row e of q[tile][a].
+// The Phi(eps)-greedy pick of row e of q[rows][a].
 __device__ __forceinline__ int pick(const float* q, int e, int a,
                                     const HdqnCfg& hc, uint32_t mask,
                                     uint32_t rand) {
@@ -95,33 +101,49 @@ __device__ __forceinline__ int pick(const float* q, int e, int a,
   return hc.greedy ? best : phi_select(best, mask, rand, hc.threshold, a);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kHdqnThreads)
+// A block owns `rows` envs, thread e < rows env env0 + e (its state in
+// registers, its inputs written straight into the input tile).  Every
+// forward is one pass of the block over its rows (act_tiled.cuh); the upper
+// net, which runs twice a step, and the lower net are held in shared memory
+// for the launch as far as they fit (g.resident: 2, 1 or 0, in that order).
+template <typename T, int RM, int RN>
+__global__ void __launch_bounds__(kQnetThreads, 1)
 hdqn_act_env_store_kernel(Net<T> unet, Net<T> lnet, Net<T> opp_unet,
                           Net<T> opp_lnet, float* __restrict__ state,
                           float* __restrict__ lo_ring,
                           float* __restrict__ up_ring,
                           float* __restrict__ met,
-                          int32_t* __restrict__ any_end, int tile,
+                          int32_t* __restrict__ any_end, ActGeom g,
                           MlpDims du, MlpDims dl, HdqnCfg hc, EnvCfg cfg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int qa = max(du.a, dl.a);
-  float* xu = reinterpret_cast<float*>(smem);  // [tile][10]: meta input
-  float* xl = xu + tile * kObs;                // [tile][11]: [goal; obs]
-  float* q = xl + tile * (kObs + 1);           // [tile][qa]
-  T* s_in = reinterpret_cast<T*>(q + tile * qa);
-  T* s_h1 = s_in + tile * (kObs + 1);
-  T* s_h2 = s_h1 + tile * du.h1;
+  const MlpDims nets[2] = {du, dl};
+  const int seats = hc.opp == kOppSelf ? 2 : 1;
+  const ActSmem S(nets, 2, g, sizeof(T), seats);
+  const NetSmem WU(du, sizeof(T));
+  T* const s_in = reinterpret_cast<T*>(smem + S.in);
+  const float* const q = reinterpret_cast<const float*>(smem + S.q);
+  const int su = act_stride(du.in), sl = act_stride(dl.in);
+  const long at_u = g.resident >= 1 ? 0 : -1;
+  const long at_l = g.resident >= 2 ? static_cast<long>(WU.bytes) : -1;
 
-  const int env0 = blockIdx.x * tile;
-  const int rows = min(tile, hc.n - env0);
+  const int env0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, hc.n - env0);
   const int e = threadIdx.x;
   const bool owner = e < rows;
   const int lane = env0 + e;
   const size_t sN = static_cast<size_t>(hc.n);
 
-  // Every thread runs the forwards (mlp_tile is block-wide); thread e < rows
-  // owns env lane, in registers.
+  if (g.resident >= 1) {  // the upper net, then the lower, into shared
+    stage_net(smem, WU, du, unet);  // memory while the state rows load
+    cp_async_commit();
+  }
+  if (g.resident >= 2) {
+    stage_net(smem + WU.bytes, NetSmem(dl, sizeof(T)), dl, lnet);
+    cp_async_commit();
+  }
+
+  // Every thread runs the forwards (each pass is block-wide); thread e <
+  // rows owns env lane, in registers.
   EnvState s{};
   float x1 = 0.f, y1 = 0.f, x2 = 0.f, y2 = 0.f, ep_rew = 0.f, extr = 0.f;
   int goal = 0, goal_op = 0;
@@ -148,10 +170,10 @@ hdqn_act_env_store_kernel(Net<T> unet, Net<T> lnet, Net<T> opp_unet,
     const float pre[kObs] = {x2 - x1, y2 - y1, s.vel2 - s.vel1,
                              kEndPoint - s.pos1, s.vel1, x1 - x2, y1 - y2,
                              s.vel1 - s.vel2, kEndPoint - s.pos2, s.vel2};
-    for (int k = 0; k < kObs; ++k) {
-      o[k] = pre[k];
-      xu[e * kObs + k] = pre[k];
-    }
+#pragma unroll
+    for (int k = 0; k < kObs; ++k) o[k] = pre[k];
+    put_obs<0>(s_in + e * su, o);
+    if (seats == 2) put_obs<5>(s_in + (rows + e) * su, o);
     if (!hc.greedy) {
       const uint32_t l = static_cast<uint32_t>(lane);
       ba = draw(hc.step, l, kStreamActions, hc.k0, hc.k1);
@@ -159,34 +181,50 @@ hdqn_act_env_store_kernel(Net<T> unet, Net<T> lnet, Net<T> opp_unet,
       bg = draw(hc.step, l, kStreamGoal, hc.k0, hc.k1);
     }
   }
+  // The upper net's copy has landed (the lower one's may still be in
+  // flight); act_forward's first barrier publishes it.
+  if (g.resident >= 2) cp_async_wait_prev();
+  else cp_async_wait_all();
 
-  // Option boundaries: a fresh goal and a zeroed return (hdqn.py:283-286).
-  mlp_tile<T>(xu, rows, du, unet, s_in, s_h1, s_h2, q);
+  // Option boundaries: a fresh goal and a zeroed return (hdqn.py:283-286),
+  // in self-play the opponent's too, from the same pass.
+  act_forward<T, RM, RN>(smem, S, g.chunk, du, unet, at_u, seats * rows);
   if (owner) {
     const int fresh = pick(q, e, du.a, hc, ba.x, ba.y);
     if (opt_start) {
       goal = fresh;
       extr = 0.0f;
     }
-    xl[e * (kObs + 1)] = static_cast<float>(goal);
-    for (int k = 0; k < kObs; ++k) xl[e * (kObs + 1) + 1 + k] = o[k];
+    if (seats == 2) {
+      const int fresh_op = pick(q, rows + e, du.a, hc, bo.x, bo.y);
+      if (opt_start) goal_op = fresh_op;
+    }
+    // The lower net's input rows: [goal; obs] (and [goal_op; swapped obs]).
+    s_in[e * sl] = Num<T>::from_f(static_cast<float>(goal));
+    put_obs<0>(s_in + e * sl + 1, o);
+    if (seats == 2) {
+      s_in[(rows + e) * sl] = Num<T>::from_f(static_cast<float>(goal_op));
+      put_obs<5>(s_in + (rows + e) * sl + 1, o);
+    }
   }
-  mlp_tile<T>(xl, rows, dl, lnet, s_in, s_h1, s_h2, q);
+  cp_async_wait_all();
+  act_forward<T, RM, RN>(smem, S, g.chunk, dl, lnet, at_l, seats * rows);
   int a1 = 0, a2 = -1;  // -1: ACTION_NONE, the L0 opponent
-  if (owner) a1 = pick(q, e, dl.a, hc, ba.z, ba.w);
+  if (owner) {
+    a1 = pick(q, e, dl.a, hc, ba.z, ba.w);
+    if (seats == 2) a2 = pick(q, rows + e, dl.a, hc, bo.z, bo.w);
+  }
 
-  if (hc.opp) {  // the opponent's pair on the half-swapped obs
-    if (owner)
-      for (int k = 0; k < kObs; ++k) xu[e * kObs + k] = o[(k + 5) % kObs];
-    mlp_tile<T>(xu, rows, du, opp_unet, s_in, s_h1, s_h2, q);
+  if (hc.opp == kOppFrozen) {  // the frozen pair on the half-swapped obs
+    if (owner) put_obs<5>(s_in + e * su, o);
+    act_forward<T, RM, RN>(smem, S, g.chunk, du, opp_unet, -1, rows);
     if (owner) {
       const int fresh = pick(q, e, du.a, hc, bo.x, bo.y);
       if (opt_start) goal_op = fresh;
-      xl[e * (kObs + 1)] = static_cast<float>(goal_op);
-      for (int k = 0; k < kObs; ++k)
-        xl[e * (kObs + 1) + 1 + k] = o[(k + 5) % kObs];
+      s_in[e * sl] = Num<T>::from_f(static_cast<float>(goal_op));
+      put_obs<5>(s_in + e * sl + 1, o);
     }
-    mlp_tile<T>(xl, rows, dl, opp_lnet, s_in, s_h1, s_h2, q);
+    act_forward<T, RM, RN>(smem, S, g.chunk, dl, opp_lnet, -1, rows);
     if (owner) a2 = pick(q, e, dl.a, hc, bo.z, bo.w);
   }
 
@@ -198,13 +236,12 @@ hdqn_act_env_store_kernel(Net<T> unet, Net<T> lnet, Net<T> opp_unet,
                               kEndPoint - s.pos1, s.vel1, so.x1 - so.x2,
                               so.y1 - so.y2, s.vel1 - s.vel2,
                               kEndPoint - s.pos2, s.vel2};
-    for (int k = 0; k < kObs; ++k) {
-      nx[k] = next[k];
-      xu[e * kObs + k] = next[k];
-    }
+#pragma unroll
+    for (int k = 0; k < kObs; ++k) nx[k] = next[k];
+    put_obs<0>(s_in + e * su, nx);
   }
   // The goal re-chosen from the post-step obs (hdqn.py:303).
-  mlp_tile<T>(xu, rows, du, unet, s_in, s_h1, s_h2, q);
+  act_forward<T, RM, RN>(smem, S, g.chunk, du, unet, at_u, rows);
 
   bool opt_end = false;
   if (owner) {
@@ -281,58 +318,86 @@ hdqn_act_env_store_kernel(Net<T> unet, Net<T> lnet, Net<T> opp_unet,
     atomicOr(any_end, 1);
 }
 
+template <typename T, int RM, int RN>
+cudaError_t launch_tile(const Net<T> (&n)[4], float* state, float* lo_ring,
+                        float* up_ring, float* met, int32_t* any_end,
+                        ActGeom g, MlpDims du, MlpDims dl, HdqnCfg hc,
+                        EnvCfg cfg, cudaStream_t stream) {
+  cudaError_t err = allow_smem(hdqn_act_env_store_kernel<T, RM, RN>, g.smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (hc.n + g.rows - 1) / g.rows;
+  hdqn_act_env_store_kernel<T, RM, RN>
+      <<<blocks, kQnetThreads, g.smem, stream>>>(
+          n[0], n[1], n[2], n[3], state, lo_ring, up_ring, met, any_end, g,
+          du, dl, hc, cfg);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_hdqn_act(const void* up, const void* lp, const void* oup,
                             const void* olp, float* state, float* lo_ring,
                             float* up_ring, float* met, int32_t* any_end,
-                            int tile, MlpDims du, MlpDims dl, HdqnCfg hc,
-                            EnvCfg cfg, cudaStream_t stream) {
-  const int qa = du.a > dl.a ? du.a : dl.a;
-  const size_t smem =
-      static_cast<size_t>(tile) * (2 * kObs + 1 + qa) * sizeof(float) +
-      static_cast<size_t>(tile) * (kObs + 1 + du.h1 + du.h2) * sizeof(T);
-  cudaError_t err = allow_smem(hdqn_act_env_store_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (hc.n + tile - 1) / tile;
-  hdqn_act_env_store_kernel<T><<<blocks, kHdqnThreads, smem, stream>>>(
-      net_at<T>(up, du), net_at<T>(lp, dl), net_at<T>(hc.opp ? oup : up, du),
-      net_at<T>(hc.opp ? olp : lp, dl), state, lo_ring, up_ring, met, any_end,
-      tile, du, dl, hc, cfg);
-  return cudaGetLastError();
+                            ActGeom g, int rm, int rn, MlpDims du,
+                            MlpDims dl, HdqnCfg hc, EnvCfg cfg,
+                            cudaStream_t stream) {
+  const MlpDims nets[2] = {du, dl};
+  if (!act_geom_ok<T>(nets, 2, g, hc.opp == kOppSelf ? 2 : 1,
+                      hc.opp == kOppFrozen || g.resident < 2))
+    return cudaErrorInvalidValue;
+  const bool frozen = hc.opp == kOppFrozen;
+  const Net<T> n[4] = {net_at<T>(up, du), net_at<T>(lp, dl),
+                       net_at<T>(frozen ? oup : up, du),
+                       net_at<T>(frozen ? olp : lp, dl)};
+  switch (rm * 16 + rn) {
+#define MGT_CASE(M, N)                                                       \
+  case M * 16 + N:                                                           \
+    return launch_tile<T, M, N>(n, state, lo_ring, up_ring, met, any_end, g, \
+                                du, dl, hc, cfg, stream);
+    MGT_QNET_TILES(MGT_CASE)
+#undef MGT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace mgt
 
 // up/lp: the meta (10 -> h1 -> h2 -> a_up) and low (11 -> ... -> a_lo)
-// nets as flat buffers in the compute dtype; opp_up/opp_lp the opponent's
-// (read only when opp_net).  any_end points at this step's flag.
+// nets as flat buffers in the compute dtype; opp_up/opp_lp the frozen
+// opponent's (read only when opp_mode is kOppFrozen; kOppSelf plays the
+// ego's nets, kOppL0 none).  The geometry (rows, rm x rn, resident, chunk,
+// smem) is ops/fused_trainer.py:act_geometry's; one its layout does not fit
+// is refused (cudaErrorInvalidValue).  any_end points at this step's flag.
 extern "C" int mgt_hdqn_act(const void* up, const void* lp,
                             const void* opp_up, const void* opp_lp,
                             float* state, float* lo_ring, float* up_ring,
                             float* met, int32_t* any_end, int n, int h1,
-                            int h2, int a_up, int a_lo, int tile, int bf16,
-                            int opp_net, int greedy, int random_start,
-                            uint32_t step, int r_lo, int r_up,
-                            uint32_t threshold, uint32_t k0, uint32_t k1,
-                            int max_steps, float r_first, float r_second,
-                            float r_collision, float vel_penalty,
-                            float time_penalty, cudaStream_t stream) {
+                            int h2, int a_up, int a_lo, int rows, int rm,
+                            int rn, int resident, int chunk, int smem,
+                            int bf16, int opp_mode, int greedy,
+                            int random_start, uint32_t step, int r_lo,
+                            int r_up, uint32_t threshold, uint32_t k0,
+                            uint32_t k1, int max_steps, float r_first,
+                            float r_second, float r_collision,
+                            float vel_penalty, float time_penalty,
+                            cudaStream_t stream) {
   using namespace mgt;
   if (n <= 0) return 0;
-  if (tile <= 0 || tile > kHdqnThreads || a_up <= 0 || a_lo <= 0)
+  if (a_up <= 0 || a_lo <= 0 || opp_mode < kOppL0 || opp_mode > kOppFrozen)
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims du{kObs, h1, h2, a_up};
   MlpDims dl{kObs + 1, h1, h2, a_lo};
-  HdqnCfg hc{n, r_lo, r_up, opp_net, greedy, random_start,
+  ActGeom g{rows, resident, chunk, smem};
+  HdqnCfg hc{n, r_lo, r_up, opp_mode, greedy, random_start,
              step, threshold, k0, k1};
   EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
              max_steps};
   cudaError_t err =
       bf16 ? launch_hdqn_act<__nv_bfloat16>(up, lp, opp_up, opp_lp, state,
-                                            lo_ring, up_ring, met, any_end,
-                                            tile, du, dl, hc, cfg, stream)
+                                            lo_ring, up_ring, met, any_end, g,
+                                            rm, rn, du, dl, hc, cfg, stream)
            : launch_hdqn_act<float>(up, lp, opp_up, opp_lp, state, lo_ring,
-                                    up_ring, met, any_end, tile, du, dl, hc,
-                                    cfg, stream);
+                                    up_ring, met, any_end, g, rm, rn, du, dl,
+                                    hc, cfg, stream);
   return static_cast<int>(err);
 }

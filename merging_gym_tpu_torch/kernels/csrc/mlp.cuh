@@ -1,13 +1,13 @@
 // The Q-net forward of a tile of rows, for all threads of a block.
 //
-// mlp_tile serves the act kernels of K5 (dqn_trainer.cu) and K7
-// (hdqn_trainer.cu) and K8's opponent forward (rainbow_trainer.cu); K3,
-// K4 and K6 run qnet_tiled.cuh's micro-tiles, whose sums are the same, so
-// every forward of the port gives the same q.  The types, argmax0 and
-// phi_select below serve them all.  Each output of a layer is one thread's sum over the
-// inputs in order, in f32, with one rounding per multiply and per add
-// (__fmul_rn/__fadd_rn are never contracted into an FMA) -- the arithmetic
-// of ops/fused_mlp.py:mlp_plain.
+// mlp_tile serves only K8's frozen-opponent forward (rainbow_trainer.cu),
+// and dense also K9's act kernel (drqn_trainer.cu); K3, K4, K6 and the act
+// kernels and learner of K5 and K7 run qnet_tiled.cuh's micro-tiles, whose
+// sums are the same, so every forward of the port gives the same q.  The
+// types, argmax0 and phi_select below serve them all.  Each output of a
+// layer is one thread's sum over the inputs in order, in f32, with one
+// rounding per multiply and per add (__fmul_rn/__fadd_rn are never
+// contracted into an FMA) -- the arithmetic of ops/fused_mlp.py:mlp_plain.
 // No tensor cores: TF32 would break f32 agreement with the plain version.
 // In bf16 (T = __nv_bfloat16) weights and activations are stored in bf16,
 // products are exact in f32, each layer's sum is rounded to bf16 and the

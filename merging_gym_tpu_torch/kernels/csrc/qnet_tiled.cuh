@@ -1,6 +1,6 @@
 // The Q-net forward of K3 (qnet_mlp.cu), K4 (fused_actor.cu), K6
-// (policy_rollout.cu) and the learner of K5 and K7 (dqn_trainer.cu),
-// register-tiled for Hopper.  The learner also runs its dz1 = w1 dz2 pass
+// (policy_rollout.cu), the act kernels of K5 and K7 (act_tiled.cuh) and
+// their learner (dqn_trainer.cu), register-tiled for Hopper.  The learner also runs its dz1 = w1 dz2 pass
 // through layer_sums.
 //
 // A block owns `rows` rows of x (chosen on the host from B and the SM

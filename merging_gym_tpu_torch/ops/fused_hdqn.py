@@ -64,7 +64,8 @@ from merging_gym_tpu_torch.nn.mlp import qnet_init
 from merging_gym_tpu_torch.ops import fused_trainer as FT
 from merging_gym_tpu_torch.ops import philox
 from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, select
-from merging_gym_tpu_torch.ops.fused_mlp import compute_dtype_of, mlp_plain
+from merging_gym_tpu_torch.ops.fused_mlp import (compute_dtype_of, mlp_plain,
+                                                 sm_count)
 from merging_gym_tpu_torch.ops.fused_rollout import (random_reset_vals,
                                                      rewards_cfg)
 
@@ -77,15 +78,11 @@ UP_F = 24
 # goal_op, extr_return, option_start, upper learn counter = 16.
 ROWS = 16
 
-# Envs per block of the act/env/store kernel; fewer where a wide net's
-# tile would not fit.
-K7_TILE = 16
-
 SETS = ("u_p", "u_tp", "u_m", "u_v", "l_p", "l_tp", "l_m", "l_v",
         "opp_u", "opp_l")
 _COMPUTE_COPIES = ("u_p", "u_tp", "l_p", "l_tp", "opp_u", "opp_l")
 
-_ACT_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+_ACT_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
              + [ctypes.c_uint32] + [ctypes.c_int] * 2
              + [ctypes.c_uint32] * 3 + [ctypes.c_int]
              + [ctypes.c_float] * 5 + [ctypes.c_void_p])
@@ -476,10 +473,12 @@ def fused_hdqn_chunk(cfg, env_params, carry, num_steps, seed, *,
 
 
 def launch_hdqn(st, carry, cfg, env_params, num_steps, seed, greedy,
-                lo_rounds, up_rounds, cols) -> None:
+                lo_rounds, up_rounds, cols, act_geom=None) -> None:
     """Issue K7's kernels for ``num_steps`` steps on the current stream,
     updating the flat working state ``st`` (see :func:`working_state`) in
-    place, state row 15 included."""
+    place, state row 15 included; the act kernel in ``act_geom`` (by
+    default ``fused_trainer.act_geometry``'s for the upper and the lower
+    net)."""
     n, B, R_up = carry["n"], carry.get("B", carry["n"]), carry["R_up"]
     dev = kernels.require_cuda(*(st[k] for k in (
         *SETS, "u_pc", "l_pc", "opp_uc", "opp_lc", "state", "lo_ring",
@@ -488,9 +487,8 @@ def launch_hdqn(st, carry, cfg, env_params, num_steps, seed, greedy,
     if du[0] != C.OBS_DIM or dl[0] != C.OBS_DIM + 1 or du[1:3] != dl[1:3]:
         raise ValueError("K7 needs a 10-input meta net and an 11-input low "
                          "net of the same hidden widths")
-    elem = st["u_pc"].element_size()
-    tile = kernels.tile_size(K7_TILE, (2 * C.OBS_DIM + 1 + max(du[3], dl[3]))
-                             * 4, (C.OBS_DIM + 1 + du[1] + du[2]) * elem)
+    g = act_geom or FT.act_geometry(n, (du, dl), st["u_pc"].element_size(),
+                                    sm_count(dev), *FT.act_seats(cfg.opponent))
     lower_steps, first_open = _chunk_schedule(carry, env_params, seed,
                                               num_steps, cfg.target_sync)
     prior = upper_learns(st["state"])  # the one read-back before the steps
@@ -510,13 +508,14 @@ def launch_hdqn(st, carry, cfg, env_params, num_steps, seed, greedy,
     stream = kernels.stream_ptr(dev)
     act_fn = kernels.function("hdqn_trainer", "mgt_hdqn_act", _ACT_ARGS)
     ptr = kernels.ptr
-    opp_net = cfg.opponent != FT.OPP_L0
     frozen = cfg.opponent == FT.OPP_FROZEN
     opp_u = st["opp_uc"] if frozen else st["u_pc"]
     opp_l = st["opp_lc"] if frozen else st["l_pc"]
-    act_args = (n, du[1], du[2], du[3], dl[3], tile,
-                int(st["u_pc"].dtype == torch.bfloat16), int(opp_net),
-                int(greedy), int(env_params.random_start))
+    act_args = (n, du[1], du[2], du[3], dl[3], g.rows, g.rm, g.rn,
+                g.resident, g.chunk, g.smem,
+                int(st["u_pc"].dtype == torch.bfloat16),
+                FT.OPP_MODES[cfg.opponent], int(greedy),
+                int(env_params.random_start))
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
     thr = greedy_threshold(cfg.epsilon)
     for i, r_lo, learn_lo, sync_lo, t_lo in lower_steps:

@@ -17,12 +17,13 @@ learning step, the learner (:class:`Learner`): its forward/backward kernel,
 which writes each sampled lane's operands to a workspace, and its
 gradient kernel, which sums them over the lanes and applies Adam.  Its
 launch geometry (:func:`learn_geometry`) follows the batch and the SM
-count, independent of the summation tile.  Blocks cannot carry state across a
-grid and the learner reduces over the batch every step, so a step needs a
-reduction across blocks; a per-step sequence gives it without a grid-wide
-sync, keeps the order of JAX's step (the learner samples the ring after
-this step's store; the actor of step i+1 sees the params after learn i),
-and needs no read-back: the learn gate, learn count, target sync and
+count, independent of the summation tile; the act kernel's
+(:func:`act_geometry`, shared with K7's) follows the env count and the SM
+count.  Blocks cannot carry state across a grid and the learner reduces
+over the batch every step, so a step needs a reduction across blocks; a
+per-step sequence gives it without a grid-wide sync, keeps the order of
+JAX's step (the learner samples the ring after this step's store; the
+actor of step i+1 sees the params after learn i), and needs no read-back: the learn gate, learn count, target sync and
 Adam's bias corrections depend only on host counters.
 
 The plain version (:func:`fused_dqn_chunk_plain`) repeats the kernels'
@@ -68,9 +69,12 @@ from merging_gym_tpu_torch.device import resolve_device
 from merging_gym_tpu_torch.nn.mlp import qnet_init
 from merging_gym_tpu_torch.ops import philox
 from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, select
-from merging_gym_tpu_torch.ops.fused_mlp import (compute_dtype_of, mlp_plain,
-                                                 mlp_plain_layers, qnet_tiling,
-                                                 sm_count)
+from merging_gym_tpu_torch.ops.fused_mlp import (QNET_MIN_TILES,
+                                                 compute_dtype_of, micro_tile,
+                                                 mlp_plain, mlp_plain_layers,
+                                                 qnet_tiling, sm_count,
+                                                 weight_chunk)
+from merging_gym_tpu_torch.ops.fused_policy_rollout import net_smem
 from merging_gym_tpu_torch.ops.fused_rollout import (random_reset_vals,
                                                      rewards_cfg)
 
@@ -85,12 +89,21 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # torch defaults (main.py:96)
 NUM_F = 24
 ENV_ROWS = 11  # pos 2, vel 2, xy 4, winner, t, ep_reward
 
-# Envs per block of the act/env/store kernel, and lanes per block of the
-# learner (the tile of the learner's summation order); fewer where a wide
-# net's tile would not fit.
+# Lanes per block of the learner's summation order (the tile of
+# learn_tile); fewer where a wide net's tile would not fit.
 K5_TILE = 16
 
-_ACT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+# The act kernels of K5 and K7 (kernels/csrc/act_tiled.cuh): envs per block
+# at most (kActRowsMax: the block's first `rows` threads own one env each),
+# the micro-tiles of the largest layer per pass that the pick aims for (K3's
+# three warps: at 8 envs a block chip_smoke.py:act_geometry_sweep put 4x2,
+# 100 tiles, 2-4% ahead of 4x1 for K7 and level with it for K5), and the
+# opponent modes (kOppL0, kOppSelf, kOppFrozen).
+ACT_ROWS_MAX = 32
+ACT_MIN_TILES = QNET_MIN_TILES
+OPP_MODES = {OPP_L0: 0, OPP_SELFPLAY: 1, OPP_FROZEN: 2}
+
+_ACT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
              + [ctypes.c_uint32, ctypes.c_int] + [ctypes.c_uint32] * 3
              + [ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 _FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
@@ -636,10 +649,11 @@ def fused_dqn_chunk(cfg, env_params, carry, num_steps, seed, *,
 
 
 def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
-                   rounds, cols) -> None:
+                   rounds, cols, act_geom=None) -> None:
     """Issue K5's kernels for ``num_steps`` steps on the current stream,
     updating the flat working state ``st`` (see :func:`working_state`) in
-    place."""
+    place; the act kernel in ``act_geom`` (by default
+    :func:`act_geometry`'s)."""
     n, B, K = carry["n"], carry.get("B", carry["n"]), carry.get("K", 1)
     bf16 = st["pc"].dtype == torch.bfloat16
     elem = st["pc"].element_size()
@@ -648,8 +662,8 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
         "met", "loss")))
     dims = _dims(carry["p"])
     d_in, h1, h2, a = dims
-    act_tile = kernels.tile_size(K5_TILE, (20 + 2 * a) * 4,
-                                 (d_in + h1 + h2) * elem)
+    g = act_geom or act_geometry(n, (dims,), elem, sm_count(dev),
+                                 *act_seats(cfg.opponent))
     learner = Learner(st, "", dims, B, K, cfg, dev)
     rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
     cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
@@ -657,10 +671,10 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
     stream = kernels.stream_ptr(dev)
     act_fn = kernels.function("dqn_trainer", "mgt_dqn_act", _ACT_ARGS)
     ptr = kernels.ptr
-    opp_net = cfg.opponent != OPP_L0
     opp = st["oppc"] if cfg.opponent == OPP_FROZEN else st["pc"]
-    act_args = (d_in, h1, h2, a, act_tile, int(bf16), int(opp_net),
-                int(greedy), int(env_params.random_start))
+    act_args = (d_in, h1, h2, a, g.rows, g.rm, g.rn, g.resident, g.chunk,
+                g.smem, int(bf16), OPP_MODES[cfg.opponent], int(greedy),
+                int(env_params.random_start))
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
     thr = greedy_threshold(cfg.epsilon)
     for i, r_cur, learn, sync, t in _schedule(
@@ -677,6 +691,100 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
                            cols_d[i * K:], st["loss"],
                            ("dqn_learn_fwd", "dqn_learn_grad"), sync=sync,
                            t=t)
+
+
+# ---------------------------------------------------------------------------
+# The act kernels of K5 and K7 on the card: geometry
+# ---------------------------------------------------------------------------
+
+class ActGeometry(NamedTuple):
+    """Launch geometry of the act kernels of K5 and K7: ``rows`` envs per
+    block, ``rm`` x ``rn`` micro-tiles, the first ``resident`` of the
+    kernel's nets held in shared memory for the launch, ``chunk`` elements
+    per weight buffer where a net streams (0: none does), and ``smem``
+    bytes of shared memory per block."""
+    rows: int
+    rm: int
+    rn: int
+    resident: int
+    chunk: int
+    smem: int
+
+
+def act_seats(opponent: str) -> tuple:
+    """``(seats, frozen)`` of an opponent mode: self-play runs both seats'
+    rows through one pass of the ego's nets, a frozen opponent's nets
+    stream in passes of their own."""
+    return (2 if opponent == OPP_SELFPLAY else 1), opponent == OPP_FROZEN
+
+
+def _widest(widths) -> tuple:
+    return tuple(max(w[i] for w in widths) for i in range(4))
+
+
+def act_smem(widths, rows: int, elem: int, resident: int, chunk: int,
+             seats: int) -> int:
+    """Shared-memory bytes of one act block (``act_tiled.cuh:ActSmem``):
+    the first ``resident`` nets of ``widths`` whole, two weight buffers of
+    ``chunk`` elements (none at 0), then the input, h1 and h2 tiles of
+    ``seats * rows`` rows (each row padded to ``act_stride``), as wide as
+    the widest net's, and their f32 q."""
+    prows = seats * rows
+    n = sum(net_smem(w, elem) for w in widths[:resident])
+    n += _align16(2 * chunk * elem) if chunk else 0
+    widest = _widest(widths)
+    for k in widest[:3]:
+        n += _align16(prows * ((k + 3) // 4 * 4 + 4) * elem)
+    return n + prows * widest[3] * 4
+
+
+def act_tiling(widths, rows: int, elem: int, seats: int = 1,
+               frozen: bool = False,
+               resident: int | None = None) -> ActGeometry | None:
+    """The act geometry for blocks of ``rows`` envs of the nets ``widths``
+    (the kernel's own, in the order it holds them: K5 the player's, K7 the
+    upper and the lower net) in ``elem``-byte weights, ``seats * rows``
+    rows a pass, a frozen opponent's nets (of the same widths) streamed
+    where ``frozen``: as many of ``widths`` resident as fit beside the
+    tiles (``resident`` forces the count), the other nets streamed through
+    two buffers that take the rest of the block's shared memory
+    (``ops.fused_mlp.weight_chunk``); None where that leaves no room.  The
+    micro-tile is ``ops.fused_mlp.micro_tile``'s for a pass of
+    ``seats * rows`` rows."""
+    widest = _widest(widths)
+    rm, rn = micro_tile(widest, seats * rows, ACT_MIN_TILES)
+    for held in (range(len(widths), -1, -1) if resident is None
+                 else (resident,)):
+        smem = act_smem(widths, rows, elem, held, 0, seats)
+        if held == len(widths) and not frozen:
+            if smem <= kernels.SMEM_LIMIT:
+                return ActGeometry(rows, rm, rn, held, 0, smem)
+            continue
+        chunk = weight_chunk(widest, kernels.SMEM_LIMIT - smem, elem)
+        if chunk is not None:
+            return ActGeometry(rows, rm, rn, held, chunk, act_smem(
+                widths, rows, elem, held, chunk, seats))
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def act_geometry(num_envs: int, widths: tuple, elem: int, sms: int,
+                 seats: int = 1, frozen: bool = False) -> ActGeometry:
+    """The act kernels' launch geometry for ``num_envs`` envs on ``sms``
+    SMs (:func:`act_tiling`'s arguments otherwise): the smallest power of
+    two of envs per block (at most ``ACT_ROWS_MAX``) that needs no more
+    blocks than the card has SMs, halved while nothing fits.  At the CLI's
+    1,024 envs on 132 SMs: 8 envs a block in 128 blocks, with the f32 and
+    bf16 reference nets resident."""
+    top = 1
+    while top < ACT_ROWS_MAX and -(-num_envs // top) > sms:
+        top *= 2
+    for rows in (top >> i for i in range(top.bit_length())):
+        g = act_tiling(widths, rows, elem, seats, frozen)
+        if g is not None:
+            return g
+    raise ValueError(f"Q-nets of widths {tuple(widths)} do not fit the "
+                     f"{kernels.SMEM_LIMIT} B of shared memory of a block")
 
 
 # ---------------------------------------------------------------------------

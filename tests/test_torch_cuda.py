@@ -438,6 +438,153 @@ def test_k7_cli_shape_equals_plain_and_repeats(cuda):
     assert FH.upper_learns(got["state"]) > 0 and got["episodes"] > 0
 
 
+# The act kernels of K5 and K7 (act_tiled.cuh) at the training CLI's 1,024
+# envs, 8 a block in 128 blocks, against each opponent (self-play: both
+# seats in one pass of 16 rows; frozen: the opponent's nets streamed); with
+# a partial last block (an explicit 24 envs a block: 43 blocks, the last
+# with 16 envs, since the rule's power-of-two rows divide every env count
+# the trainers take, a multiple of 128); and with nets too wide to stay in
+# shared memory (--hidden 1024 512), streamed: (envs, opponent, rows or
+# None for the rule's, hidden widths).
+ACT_CASES = {"cli_l0": (1024, "L0", None, (200, 100)),
+             "cli_selfplay": (1024, "selfplay", None, (200, 100)),
+             "cli_frozen": (1024, "frozen", None, (200, 100)),
+             "last_block_16_of_24": (1024, "selfplay", 24, (200, 100)),
+             "streamed_1024x512": (256, "selfplay", None, (1024, 512))}
+
+
+def _act_geometry(cuda, monkeypatch, case, nets):
+    """The act geometry of ``case`` for ``nets``, installed in place of the
+    rule's where the case names its rows; checked against the case."""
+    n, opponent, rows, hidden = ACT_CASES[case]
+    seats, frozen = FT.act_seats(opponent)
+    g = FT.act_geometry(n, nets, 4, FM.sm_count(cuda), seats, frozen)
+    if rows is not None:
+        g = FT.act_tiling(nets, rows, 4, seats, frozen)
+        monkeypatch.setattr(FT, "act_geometry", lambda *args: g)
+        assert (-(-n // g.rows), n % g.rows) == (43, 16)
+    elif n == 1024:
+        assert (g.rows, g.resident) == (8, len(nets))
+    else:
+        assert g.resident == 0 and g.chunk > 0
+    return g
+
+
+@pytest.mark.parametrize("case", list(ACT_CASES))
+def test_k5_act_geometries_equal_plain_and_repeat(cuda, monkeypatch, case):
+    n, opponent, _, hidden = ACT_CASES[case]
+    cfg = D.DQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                      opponent=opponent, hidden=hidden)
+    kw = {}
+    if opponent == "frozen":
+        kw = dict(opp_params=qnet_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+    _act_geometry(cuda, monkeypatch, case, ((10, *hidden, 5),))
+    ep = EnvParams(max_steps=40)
+    before = kernels.launch_counts["dqn_act_env_store"]
+    got = _chunks_equal_and_repeat(
+        lambda c, T, s: FT.fused_dqn_chunk(cfg, ep, c, T, s, greedy=True),
+        lambda c, T, s: FT.fused_dqn_chunk_plain(cfg, ep, c, T, s,
+                                                 greedy=True),
+        _race_carry(cfg, ep, n, cuda, **kw), ("env", "ring"),
+        ("p", "tp", "m", "v"),
+        ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"))
+    assert got["learns"] == 14 and got["episodes"] > 0
+    assert kernels.launch_counts["dqn_act_env_store"] - before == 2 * 16
+
+
+@pytest.mark.parametrize("case", list(ACT_CASES))
+def test_k7_act_geometries_equal_plain_and_repeat(cuda, monkeypatch, case):
+    n, opponent, _, hidden = ACT_CASES[case]
+    cfg = H.HDQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                       goal_memory_capacity=2 * n, opponent=opponent,
+                       hidden=hidden)
+    kw = {}
+    if opponent == "frozen":
+        g = torch.Generator(device=cuda).manual_seed(5)
+        kw = dict(opp_upper=qnet_init(g, 10, 3), opp_lower=qnet_init(g, 11, 5))
+    _act_geometry(cuda, monkeypatch, case,
+                  ((10, *hidden, 3), (11, *hidden, 5)))
+    ep = EnvParams(max_steps=40)
+    before = kernels.launch_counts["hdqn_act_env_store"]
+    got = _chunks_equal_and_repeat(
+        lambda c, T, s: FH.fused_hdqn_chunk(cfg, ep, c, T, s, greedy=True),
+        lambda c, T, s: FH.fused_hdqn_chunk_plain(cfg, ep, c, T, s,
+                                                  greedy=True),
+        _hdqn_race_carry(cfg, ep, n, cuda, **kw),
+        ("state", "lo_ring", "up_ring"), FH.SETS[:8],
+        ("lo_learns", "episodes", "collisions", "wins", "sum_ep_reward",
+         "last_loss"))
+    assert FH.upper_learns(got["state"]) > 0 and got["episodes"] > 0
+    assert kernels.launch_counts["hdqn_act_env_store"] - before == 2 * 16
+
+
+def _act_refusals(g, streamed, nets):
+    """Geometries the act kernels' layout cannot hold: shared memory short
+    of it, more envs a block than owner threads, more nets held than the
+    kernel has, a micro-tile it does not instantiate, streamed buffers not
+    16-byte aligned or short of one k-row of the widest layer."""
+    return (g._replace(smem=g.smem - 4), g._replace(rows=64),
+            g._replace(resident=nets + 1), g._replace(rm=3),
+            streamed._replace(chunk=2046), streamed._replace(chunk=192),
+            streamed._replace(smem=streamed.smem - 16))
+
+
+def test_k5_act_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the host's geometry before the launch; the
+    geometries it takes give the plain version's step."""
+    n = 256
+    cfg = D.DQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                      opponent="selfplay")
+    ep = EnvParams(max_steps=40)
+    carry = _race_carry(cfg, ep, n, cuda)
+    want = FT.fused_dqn_chunk_plain(cfg, ep, carry, 1, 0, greedy=True)
+    nets = ((10, 200, 100, 5),)
+    g = FT.act_geometry(n, nets, 4, FM.sm_count(cuda), 2)
+    streamed = FT.act_tiling(nets, 8, 4, 2, resident=0)
+    z = np.zeros(1, np.int32)
+
+    def step(geom):  # step 0 of a cold carry: the act kernel alone
+        st = FT.working_state(carry, torch.float32)
+        FT.launch_trainer(st, carry, cfg, ep, 1, 0, True, z, z,
+                          act_geom=geom)
+        return st
+    for ok in (g, streamed):
+        st = step(ok)
+        assert torch.equal(st["env"], want["env"])
+        assert torch.equal(st["ring"], want["ring"])
+    for bad in _act_refusals(g, streamed, 1):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            step(bad)
+
+
+def test_k7_act_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """As for K5, with K7's two nets (held, one held, both streamed)."""
+    n = 256
+    cfg = H.HDQNConfig(lr=1e-3, target_sync=3, memory_capacity=3 * n,
+                       goal_memory_capacity=2 * n, opponent="selfplay")
+    ep = EnvParams(max_steps=40)
+    carry = _hdqn_race_carry(cfg, ep, n, cuda)
+    want = FH.fused_hdqn_chunk_plain(cfg, ep, carry, 1, 0, greedy=True)
+    nets = ((10, 200, 100, 3), (11, 200, 100, 5))
+    g = FT.act_geometry(n, nets, 4, FM.sm_count(cuda), 2)
+    streamed = FT.act_tiling(nets, 8, 4, 2, resident=0)
+    z = np.zeros(1, np.int64)
+
+    def step(geom):  # step 0 of a cold carry: the act kernel alone
+        st = FH.working_state(carry, torch.float32)
+        FH.launch_hdqn(st, carry, cfg, ep, 1, 0, True, z, z,
+                       np.zeros(2, np.int64), act_geom=geom)
+        return st
+    for ok in (g, FT.act_tiling(nets, 8, 4, 2, resident=1), streamed):
+        st = step(ok)
+        for k in ("state", "lo_ring", "up_ring"):
+            assert torch.equal(st[k], want[k]), k
+    for bad in _act_refusals(g, streamed, 2):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            step(bad)
+
+
 # K7's upper learner under its device gate (dqn_trainer.cu:DevGate) at
 # step 2 of a chunk, with target_sync 3: shut (any_end[2] == 0, nothing
 # moves), open after one earlier learn (count prior + 1 = 1: no sync,

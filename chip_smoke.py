@@ -150,7 +150,7 @@ def rb_trunk_flops():
 
 def rb_forward_flops():
     """One row of the acting or target forward (kernels/csrc/
-    rainbow_trainer.cu:rb_forward): the trunk and streams, then for all
+    rainbow_trainer.cu:rb_act_kernel): the trunk and streams, then for all
     five actions the dueling combine (2 per atom), the softmax (max,
     subtract, exp, sum, divide) and E[Z] (2 per atom)."""
     return rb_trunk_flops() + (2 + 5 + 2) * 5 * 51
@@ -180,7 +180,7 @@ DRQN_P = 7949
 
 def drqn_forward_flops():
     """One row of the recurrent forward (kernels/csrc/drqn_trainer.cu:
-    cell_tile): multiply-adds, bias adds and ReLUs of fc1 and fc2, both gate
+    act_kernel): multiply-adds, bias adds and ReLUs of fc1 and fc2, both gate
     products and their three bias / sum adds, per unit three sigmoids (4
     each: negate, exp, add, divide), two tanh, the cell (3) and h (1), fc3
     and fc4, and the argmax."""
@@ -513,14 +513,17 @@ def check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev):
 
 def check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev):
     """K8 against its plain version at 1,024 envs, bit for bit: every
-    field of the carry and every counter; then the first case run again
-    for the same bits."""
+    field of the carry and every counter (one case with 24 envs a block of
+    the act kernel, whose last block holds 16: 1,024 is a multiple of
+    every power-of-two block); then the first case run again for the same
+    bits."""
     n = N_TRAIN
     sp = RB.RainbowConfig(lr=1e-3, gamma=0.9, target_sync_episodes=20,
                           memory_capacity=8 * n, obs_scale=0.01)
     ep60 = EnvParams(max_steps=60)
-    # (cfg, env, init kwargs, chunk lengths, greedy, race start).  The
-    # 1-step first chunk stops short of the n_step = 1 warm-up.
+    # (cfg, env, init kwargs, chunk lengths, greedy, race start[, envs a
+    # block of the act kernel]).  The 1-step first chunk stops short of the
+    # n_step = 1 warm-up.
     cases = {
         "greedy selfplay, cold + warm": (sp, ep60, {}, (1, 30), True, True),
         "greedy L0": (sp.replace(opponent="L0"), ep60, {}, (20,), True, True),
@@ -537,15 +540,22 @@ def check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev):
             sp.replace(epsilon=0.7), EnvParams(random_start=True,
                                                max_steps=20), {}, (24,),
             False, False),
+        "greedy selfplay, 24 envs a block": (sp, ep60, {}, (20,), True,
+                                             True, 24),
     }
-    for what, (cfg, ep, kw, chunks, greedy, race) in cases.items():
+    for what, (cfg, ep, kw, chunks, greedy, race, *rows) in cases.items():
         c0 = FRB.fused_rainbow_init(0, cfg, ep, n, device=dev, **kw)
         if race:
             c0["env"] = race_rows(torch, lon2coord, c0["env"], n, dev, 300)
+        act_geom = None
+        if rows:
+            act_geom = FRB.act_tiling(rows[0], 2)
+            if n % act_geom.rows == 0:
+                raise AssertionError("K8: the last block is not partial")
         got = want = c0
         for seed, T in enumerate(chunks):
             got = FRB.fused_rainbow_chunk(cfg, ep, got, T, seed,
-                                          greedy=greedy)
+                                          greedy=greedy, act_geom=act_geom)
             want = FRB.fused_rainbow_chunk_plain(cfg, ep, want, T, seed,
                                                  greedy=greedy)
         for k in ("p", "tp", "m", "v", "eps", "teps", "env", "ring"):
@@ -592,7 +602,8 @@ def check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev):
     self-play case of 72 steps in two launches split in the middle of a
     window runs through the 63-step warm-up into 9 learns (target sync 5:
     two syncs); the other cases start, on both sides, from the warm carry
-    the kernel reached there; then the first case run again for the same
+    the kernel reached there (one with 24 envs a block of the act kernel,
+    whose last block holds 16); then the first case run again for the same
     bits."""
     import numpy as np
     n = N_TRAIN
@@ -613,7 +624,8 @@ def check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev):
     def with_opp(c):
         return {**c, "opp": shrink_drqn(FD, frozen)}
 
-    # (cfg, env, carry maker, chunk lengths, greedy, expected learns).
+    # (cfg, env, carry maker, chunk lengths, greedy, expected learns[, envs
+    # a block of the act kernel]).
     cases = {
         "greedy selfplay, cold: 40 + 32 steps": (cfg, ep60, None, (40, 32),
                                                  True, 9),
@@ -626,17 +638,25 @@ def check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev):
         "phi-greedy random_start, warm": (
             cfg, EnvParams(random_start=True, max_steps=30), dict, (24,),
             False, 24),
+        "greedy frozen DRQN, warm, 24 envs a block": (
+            cfg.replace(opponent="frozen"), ep60, with_opp, (24,), True, 24,
+            24),
     }
     warm = None
-    for what, (c, ep, make, chunks, greedy, learns) in cases.items():
+    for what, (c, ep, make, chunks, greedy, learns, *rows) in cases.items():
         start = c0 if make is None else make(warm)
+        act_geom = None
+        if rows:
+            act_geom = FD.act_tiling(rows[0], *FD.act_seats(c.opponent))
+            if n % act_geom.rows == 0:
+                raise AssertionError("K9: the last block is not partial")
         got = want = start
         for seed, T in enumerate(chunks):
             kw = {}
             if start["B"] < n:  # both lane windows drawn
                 kw = dict(cols=np.arange(T) % 2)
             got = FD.fused_drqn_chunk(c, ep, got, T, seed, greedy=greedy,
-                                      **kw)
+                                      act_geom=act_geom, **kw)
             want = FD.fused_drqn_chunk_plain(c, ep, want, T, seed,
                                              greedy=greedy, **kw)
         for k in ("p", "tp", "m", "v", "env", "win", "ring"):
@@ -1202,15 +1222,66 @@ def act_geometry_sweep(torch, np, kernels, FT, FH, FM, D, H, EnvParams,
     return out
 
 
+def rb_chain_ms(torch, dev, rows):
+    """Device ms (``graph_ms``) of the library's eager chain of K8's acting
+    forward on ``rows`` rows (random f32 weights and inputs): ``addmm`` +
+    ReLU for the trunk, value1 and advantage1, ``addmm`` for value2 and
+    advantage2, the dueling combine, ``torch.softmax`` and E[Z] as one
+    product with the support."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev) * 0.1
+    x = rnd(rows, 10)
+    w = {name: (rnd(k, j), rnd(j)) for name, (k, j) in zip(
+        ("l1", "l2", "v1", "v2", "a1", "a2"), RB_LAYERS)}
+    z = torch.linspace(-10.0, 10.0, 51, device=dev)
+
+    def run():
+        h = torch.relu(torch.addmm(w["l1"][1], x, w["l1"][0]))
+        h = torch.relu(torch.addmm(w["l2"][1], h, w["l2"][0]))
+        hv = torch.relu(torch.addmm(w["v1"][1], h, w["v1"][0]))
+        ha = torch.relu(torch.addmm(w["a1"][1], h, w["a1"][0]))
+        zv = torch.addmm(w["v2"][1], hv, w["v2"][0])
+        adv = torch.addmm(w["a2"][1], ha, w["a2"][0]).view(-1, 5, 51)
+        logits = zv[:, None] + adv - adv.mean(dim=1, keepdim=True)
+        return torch.softmax(logits, dim=-1) @ z
+    return graph_ms(torch, run)
+
+
+def drqn_chain_ms(torch, dev, rows):
+    """Device ms (``graph_ms``) of the library's eager chain of K9's
+    recurrent acting forward on ``rows`` rows (random f32 weights, inputs
+    and state): ``addmm`` + ReLU (fc1), ``addmm`` (fc2),
+    ``torch.lstm_cell``, ``addmm`` + ReLU (fc3), ``addmm`` (fc4)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev) * 0.1
+    x, h, c = rnd(rows, 10), rnd(rows, 16), rnd(rows, 16)
+    w1, b1, w2, b2 = rnd(10, 200), rnd(200), rnd(200, 16), rnd(16)
+    wih, whh, bih, bhh = rnd(64, 16), rnd(64, 16), rnd(64), rnd(64)
+    w3, b3, w4, b4 = rnd(16, 16), rnd(16), rnd(16, 5), rnd(5)
+
+    def run():
+        x2 = torch.addmm(b2, torch.relu(torch.addmm(b1, x, w1)), w2)
+        hn, _ = torch.lstm_cell(x2, (h, c), wih, whh, bih, bhh)
+        return torch.addmm(b4, torch.relu(torch.addmm(b3, hn, w3)), w4)
+    return graph_ms(torch, run)
+
+
 def drqn_split(torch, np, kernels, FD, DR, EnvParams, dev):
     """One warm K9 learning step at the CLI defaults (L0, 1,024 envs, L 16,
     burn-in 4, R 4, B 1,024, f32) split by kernel (``kernel_split``):
     device ms of each launch, launches per learning step, their sum, one
     learn (every launch after the act kernel) beside its bound
-    (``drqn_learn_flops`` on the windows that step samples); and the time
-    per step of a warm 200-step chunk (CUDA events, host launches
-    included).  It calls only what every version of ``ops.fused_drqn``
-    has, so it splits a parent's step too."""
+    (``drqn_learn_flops`` on the windows that step samples), the act
+    kernel beside its bound (``drqn_forward_flops`` x 1,024 envs at the f32
+    rate) and the library's eager chain of the same forward
+    (``drqn_chain_ms``); and the time per step of a warm 200-step chunk
+    (CUDA events, host launches included).  It calls only what every
+    version of ``ops.fused_drqn`` has, so it splits a parent's step
+    too."""
     ep = EnvParams()
     cfg = DR.DRQNConfig(memory_capacity=4 * N_TRAIN)
     carry = FD.fused_drqn_chunk(cfg, ep, FD.fused_drqn_init(
@@ -1232,6 +1303,9 @@ def drqn_split(torch, np, kernels, FD, DR, EnvParams, dev):
             "learn_ms": sum(ms for _, ms in split[1:]),
             "learn_bound_ms": bound(0, drqn_learn_flops(done,
                                                         cfg.burn_in))[0],
+            "act_ms": split[0][1],
+            "act_bound_ms": bound(0, N_TRAIN * drqn_forward_flops())[0],
+            "act_library_ms": drqn_chain_ms(torch, dev, N_TRAIN),
             "chunk_step_ms": chunk_ms / T_CHUNK}
 
 
@@ -1281,9 +1355,12 @@ def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
     B 1,024, uniform 1-step, f32) split by kernel (``kernel_split``):
     device ms of each launch, launches per learning step, their sum, one
     learn (every launch between the act and the post kernel) beside its
-    bound (``rb_learn_flops`` x B); the time per step of a warm 200-step
-    chunk and of a warm PER 3-step chunk (the CLI's ``--per --n-step 3
-    --obs-scale 0.01``, B 32), CUDA events, host launches included.  The
+    bound (``rb_learn_flops`` x B), the act kernel beside its bound
+    (``rb_forward_flops`` x 1,024 envs at the f32 rate) and the library's
+    eager chain of the same forward (``rb_chain_ms``); the time per step
+    of a warm 200-step chunk and of a warm PER 3-step chunk (the CLI's
+    ``--per --n-step 3 --obs-scale 0.01``, B 32), CUDA events, host
+    launches included.  The
     chunk's first launch (the post kernel that forms the carry's effective
     weights) is listed but is not part of a step.  It calls only what every
     version of ``ops.fused_rainbow`` has, so it splits a parent's step
@@ -1314,6 +1391,9 @@ def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
             "step_device_ms": sum(ms for _, ms in step),
             "learn_ms": sum(ms for _, ms in step[1:-1]),
             "learn_bound_ms": bound(0, carry["B"] * rb_learn_flops())[0],
+            "act_ms": step[0][1],
+            "act_bound_ms": bound(0, N_TRAIN * rb_forward_flops())[0],
+            "act_library_ms": rb_chain_ms(torch, dev, N_TRAIN),
             "chunk_step_ms": chunk_ms / T_CHUNK,
             "per_3step_chunk_ms": per_ms}
 
@@ -1356,6 +1436,117 @@ def rb_learn_sweep(torch, np, kernels, FRB, RB, EnvParams, dev):
             "device_ms_by_grad_threads": {
                 str(t): time(FRB.learn_tiling(B, picked.lanes, t))
                 for t in FRB.GRAD_THREADS}}
+
+
+def act_sweep(torch, kernels, FM, tiling, picked, launch, keys, at, dev):
+    """One act launch (``launch(g)`` on a fresh working state, the act
+    kernel at position ``at`` of its ``kernel_split``) at 4, 8, 16 and 32
+    envs a block with every micro-tile of ``FM.QNET_TILES`` that fits
+    (RM <= rows) and the nets held (``tiling(rows)``), and at the picked
+    rows and tile with no net held (``tiling(rows, 0)``: read from global
+    memory), device ms, beside ``picked``: the readings the rule stands
+    on.  Each geometry's step must equal the picked one's in ``keys``
+    (``check_k8`` and ``check_k9`` hold the picked one against the plain
+    versions)."""
+    want = launch(picked)
+
+    def time(g):
+        st = launch(g)
+        for k in keys:
+            if not torch.equal(st[k], want[k]):
+                raise AssertionError(f"the act kernel at {g} differs in {k}")
+        return kernel_split(torch, kernels, lambda: launch(g),
+                            dev)[at][1]
+    times = {}
+    for rows in (4, 8, 16, 32):
+        base = tiling(rows)
+        for rm, rn in FM.QNET_TILES:
+            if rm <= rows:
+                times[f"{rows} {rm}x{rn}"] = time(base._replace(rm=rm, rn=rn))
+    streamed = tiling(picked.rows, 0)._replace(rm=picked.rm, rn=picked.rn)
+    return {"picked": picked._asdict(), "device_ms": times,
+            "global_weights_ms": time(streamed)}
+
+
+def rb_act_sweep(torch, np, kernels, FRB, RB, FM, EnvParams, dev):
+    """``act_sweep`` of K8's act kernel at the training CLI's defaults (L0,
+    1,024 envs, f32), on the warm carry of ``rainbow_split`` (after a
+    200-step chunk: a learning step, whose second launch is the act
+    kernel); the act kernel in self-play at its picked geometry (both
+    seats' 16 rows a block in one pass) on a warm self-play carry; and, at
+    L0 on the cold carry (step 0), its time beside the warm one and, for
+    both carries, the share of the forward's probabilities (the plain
+    version's, on the carry's envs) below the smallest normal f32, 2^-126,
+    where the exp and the IEEE division may leave their fast paths."""
+    ep, n = EnvParams(), N_TRAIN
+    one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+    out = {}
+
+    def tiny_share(carry):
+        st = FRB.working_state(carry)
+        dist = FRB.rb_forward(st["p"], st["wp"], FRB._obs_of(st["env"]))[
+            "dist"]
+        return float((dist < 2.0 ** -126).float().mean())
+    for opponent in ("L0", "selfplay"):
+        cfg = RB.RainbowConfig(memory_capacity=8 * n, opponent=opponent)
+        cold = FRB.fused_rainbow_init(0, cfg, ep, n, device=dev)
+        carry = FRB.fused_rainbow_chunk(cfg, ep, cold, T_CHUNK, 0)
+
+        def launch(g, cfg=cfg, carry=carry):
+            st = FRB.working_state(carry)
+            FRB.launch_rainbow(st, carry, cfg, ep, 1, 1, False, one, zero,
+                               np.zeros(1, np.float32), act_geom=g)
+            return st
+        seats = 2 if opponent == "selfplay" else 1
+        picked = FRB.act_geometry(n, FM.sm_count(dev), seats)
+        if opponent == "L0":
+            out = act_sweep(torch, kernels, FM,
+                            lambda rows, *held: FRB.act_tiling(
+                                rows, 1, None, *held),
+                            picked, launch, ("env", "ring", "met", "p"), 1,
+                            dev)
+            out["cold_ms"] = kernel_split(
+                torch, kernels, lambda: FRB.launch_rainbow(
+                    FRB.working_state(cold), cold, cfg, ep, 1, 1, False, zero,
+                    zero, np.zeros(1, np.float32)), dev)[1][1]
+            out["subnormal_share"] = {"warm": tiny_share(carry),
+                                      "cold": tiny_share(cold)}
+        else:
+            out["selfplay_ms"] = kernel_split(
+                torch, kernels, lambda: launch(picked), dev)[1][1]
+    return out
+
+
+def drqn_act_sweep(torch, np, kernels, FD, DR, FM, EnvParams, dev):
+    """``act_sweep`` of K9's act kernel at the training CLI's defaults (L0,
+    1,024 envs, L 16, f32), on the warm carry of ``drqn_split`` (after a
+    200-step chunk: a learning step, whose first launch is the act
+    kernel), and the act kernel in self-play at its picked geometry (both
+    seats' 16 rows a block in one pass) on a warm self-play carry."""
+    ep, n = EnvParams(), N_TRAIN
+    one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+    out = {}
+    for opponent in ("L0", "selfplay"):
+        cfg = DR.DRQNConfig(memory_capacity=4 * n, opponent=opponent)
+        carry = FD.fused_drqn_chunk(cfg, ep, FD.fused_drqn_init(
+            0, cfg, ep, n, device=dev), T_CHUNK, 0)
+
+        def launch(g, cfg=cfg, carry=carry):
+            st = FD.working_state(carry)
+            FD.launch_drqn(st, carry, cfg, ep, 1, 1, False, one, zero, g)
+            return st
+        picked = FD.act_geometry(n, FM.sm_count(dev),
+                                 *FD.act_seats(opponent))
+        if opponent == "L0":
+            out = act_sweep(torch, kernels, FM,
+                            lambda rows, *held: FD.act_tiling(rows, 1, 1,
+                                                              *held),
+                            picked, launch, ("env", "win", "met", "p"), 0,
+                            dev)
+        else:
+            out["selfplay_ms"] = kernel_split(
+                torch, kernels, lambda: launch(picked), dev)[0][1]
+    return out
 
 
 def learn_lanes_times(torch, kernels, FT, FM, D, EnvParams, dev):
@@ -1918,6 +2109,10 @@ def main():
     split["K8"] = rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev)
     split["k8_learn_geometry_sweep"] = rb_learn_sweep(
         torch, np, kernels, FRB, RB, EnvParams, dev)
+    split["k8_act_geometry_sweep"] = rb_act_sweep(
+        torch, np, kernels, FRB, RB, FM, EnvParams, dev)
+    split["k9_act_geometry_sweep"] = drqn_act_sweep(
+        torch, np, kernels, FD, DR, FM, EnvParams, dev)
 
     # K8: one training step at the CLI's defaults (L0, 1,024 envs, R 8,
     # B 1,024, uniform 1-step): per step of a warm 200-step chunk (every

@@ -1,5 +1,8 @@
 // The forwards of the act kernels of K5 (dqn_trainer.cu) and K7
-// (hdqn_trainer.cu) on qnet_tiled.cuh's register micro-tiles.
+// (hdqn_trainer.cu) on qnet_tiled.cuh's register micro-tiles; the act
+// kernels of K8 (rainbow_trainer.cu: its frozen MLP opponent through
+// act_forward) and K9 (drqn_trainer.cu) share the launch geometry, the
+// opponent codes and put_obs.
 //
 // A block owns `rows` envs (ops/fused_trainer.py:act_geometry: the smallest
 // power of two, at most kActRowsMax, whose blocks do not outnumber the SMs:

@@ -13,10 +13,14 @@
 // the learn count, the target sync and Adam's step depend only on host
 // counters, so they are launch arguments:
 //
-//   1. drqn_act: a block owns 16 envs.  The recurrent forward of each seat
-//      from its own h/c (cell_tile: fc1, fc2, the LSTM cell, fc3, fc4; the
-//      opponent is the live net on the half-swapped obs, a frozen net, or
-//      L0), the first-occurrence argmax and the Phi(eps) pick on Philox
+//   1. drqn_act (act_kernel): a block owns `rows` envs, sized on the host
+//      from the env count and the SM count (ops/fused_drqn.py:
+//      act_geometry: 8 envs in 128 blocks at 1,024).  The recurrent
+//      forward of each seat from its own h/c (fc1, fc2, the LSTM cell, fc3,
+//      fc4, each layer a register-tiled pass of qnet_tiled.cuh on nets held
+//      in shared memory; the opponent is the live net on the half-swapped
+//      obs in the same passes, a frozen net, or L0), the first-occurrence
+//      argmax and the Phi(eps) pick on Philox
 //      stream 0, the env step (env_math.cuh), the write of window slot
 //      wl + 1 (the pre-reset obs, action, reward, done), the auto-reset, on
 //      the window's last step the copy of the env's window column into ring
@@ -83,22 +87,25 @@
 // (39 MB at B 1,024, L 16), written once and read back by the gradient
 // kernel, whose speed is set by those reads: more threads a block (more
 // loads in flight) made it faster, larger rectangles (fewer re-reads) did
-// not.  The measured times are in PERF.md (chip_smoke.py).
+// not.  The act kernel ran 64 blocks of 16 envs on 132 SMs, each output
+// one thread's scalar chain over weights read from global memory, and the
+// opponent's forward only after the ego's; now 8 envs a block fill 128
+// SMs, the nets (31,796 B each) are held in shared memory, and both seats
+// share each layer's phase.  The measured times are in PERF.md
+// (chip_smoke.py).
 #include <cstdint>
 
+#include "act_tiled.cuh"
 #include "env_math.cuh"
 #include "learn_math.cuh"
-#include "mlp.cuh"
 #include "philox.cuh"
-#include "qnet_tiled.cuh"
 
 namespace mgt {
 namespace drqn {
 
 constexpr int kIn = 10, kH1 = 200, kHid = 16, kG = 4 * kHid, kA = 5;
 constexpr int kSlot = 16;      // rows per window slot
-constexpr int kThreads = 256;
-constexpr int kActTile = 16;   // envs per drqn_act block
+constexpr int kThreads = kQnetThreads;
 constexpr int kWindows = 4;    // windows per summation tile of the learner
 
 // The flat parameter layout of ops/fused_drqn.py:LAYOUT.
@@ -123,18 +130,6 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 __device__ __forceinline__ float relu(float x) { return x > 0.0f ? x : 0.0f; }
 
-// ((x2 w_ih + b_ih) + h w_hh) + b_hh for gate column j of one row.
-__device__ __forceinline__ float gate_pre(const float* __restrict__ p,
-                                          const float* x2, const float* h,
-                                          int j) {
-  float a = 0.0f;
-  for (int k = 0; k < kHid; ++k) a = madd(a, x2[k], p[kWih + k * kG + j]);
-  const float g = __fadd_rn(a, p[kBih + j]);
-  float b = 0.0f;
-  for (int k = 0; k < kHid; ++k) b = madd(b, h[k], p[kWhh + k * kG + j]);
-  return __fadd_rn(__fadd_rn(g, b), p[kBhh + j]);
-}
-
 struct Cell {
   float gi, gf, gg, go, c, tc, h;
 };
@@ -153,66 +148,162 @@ __device__ __forceinline__ Cell cell_tail(const float* g, int u,
   return o;
 }
 
-// One recurrent step of `rows` envs (x [rows][10], h, c [rows][16] in
-// shared memory) -> q [rows][5], hn, cn [rows][16]; z1, x2, g and h3 are
-// scratch.  Starts and ends with a block-wide barrier.
-__device__ void cell_tile(const float* __restrict__ p, const float* x,
-                          const float* h, const float* c, int rows,
-                          float* z1, float* x2, float* g, float* h3,
-                          float* hn, float* cn, float* q) {
-  __syncthreads();
-  dense<float, true>(x, rows, kIn, p + kW1, p + kB1, kH1, z1);
-  __syncthreads();
-  dense<float, false>(z1, rows, kH1, p + kW2, p + kB2, kHid, x2);
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * kG; i += blockDim.x) {
-    const int r = i / kG, j = i - r * kG;
-    g[i] = gate_pre(p, x2 + r * kHid, h + r * kHid, j);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * kHid; i += blockDim.x) {
-    const int r = i / kHid, u = i - r * kHid;
-    const Cell o = cell_tail(g + r * kG, u, c[i]);
-    hn[i] = o.h;
-    cn[i] = o.c;
-  }
-  __syncthreads();
-  dense<float, true>(hn, rows, kHid, p + kW3, p + kB3, kHid, h3);
-  __syncthreads();
-  dense<float, false>(h3, rows, kHid, p + kW4, p + kB4, kA, q);
-  __syncthreads();
-}
-
 struct ActCfg {
-  int n, L, wl, emit, r_cur, opp, greedy, random_start;
+  int n, L, wl, emit, r_cur, opp, greedy, random_start;  // opp: kOpp*
   uint32_t step, threshold, k0, k1;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// The act kernel's arrays, in floats per row of a pass (seats x rows rows:
+// seat 1's rows, then seat 2's where it plays a net), each row a multiple
+// of 4 floats (16-byte rows for load4): the obs, h and c before the step,
+// relu(z1), x2, h w_hh, the gates, h and c after it, relu(z3) and q.
+// ops/fused_drqn.py:ACT_ROW_FLOATS mirrors the total.
+constexpr int kAx = 0, kAh = 16, kAc = 36, kAz1 = 52, kAx2 = 256, kAgh = 276,
+              kAg = 340, kAhn = 404, kAcn = 424, kAh3 = 440, kAq = 460,
+              kActRowFloats = 468;
+// Row strides: the obs, the 16-wide rows read by a layer (h, x2, h after
+// the step, relu(z3)), c, relu(z1), the 64 gate columns, q.
+constexpr int kSx = 16, kSh = 20, kSc = 16, kSz1 = 204, kSg = 64, kSq = 8;
+static_assert(kAh == kAx + kSx && kAc == kAh + kSh && kAz1 == kAc + kSc &&
+                  kAx2 == kAz1 + kSz1 && kAgh == kAx2 + kSh &&
+                  kAg == kAgh + kSg && kAhn == kAg + kSg &&
+                  kAcn == kAhn + kSh && kAh3 == kAcn + kSc &&
+                  kAq == kAh3 + kSh && kActRowFloats == kAq + kSq,
+              "act_kernel layout");
+constexpr size_t kNetBytes = (kP * sizeof(float) + 15) / 16 * 16;  // 31,808
+
+// Byte offsets of the act kernel's shared memory (ops/fused_drqn.py:
+// act_smem mirrors it): the first g.resident of the launch's nets (the
+// player's, then a frozen opponent's) held whole, then the arrays of seats
+// x g.rows rows.  A net not held is read from global memory.
+__host__ __device__ inline size_t act_tiles(ActGeom g) {
+  return static_cast<size_t>(g.resident) * kNetBytes;
+}
+
+__host__ __device__ inline size_t act_total(ActGeom g, int seats) {
+  return act_tiles(g) +
+         static_cast<size_t>(seats) * g.rows * kActRowFloats * sizeof(float);
+}
+
+// Whether the host's geometry suits this layout: rows an owner thread each,
+// at most the launch's nets held, nothing streamed, and the layout within
+// the bytes the host sized.
+inline bool act_layout_ok(ActGeom g, int seats, int nets) {
+  return g.rows >= 1 && g.rows <= kActRowsMax && g.resident >= 0 &&
+         g.resident <= nets && g.chunk == 0 &&
+         act_total(g, seats) <= static_cast<size_t>(g.smem);
+}
+
+// Where an act layer's sums of the rows [r0, ...) of a pass go: + the
+// seat's net's bias at bo (none at -1); for the gates then + h w_hh (gh)
+// and + b_hh (at bo2); ReLU if rl; to y[r0 + row][j].
+struct CellEpi {
+  const float* net;
+  int bo, bo2;
+  bool rl;
+  const float* gh;
+  float* y;
+  int ys, r0;
+  __device__ __forceinline__ void sum(int r, int j, float acc) {
+    float v = acc;
+    if (bo >= 0) v = __fadd_rn(v, net[bo + j]);
+    if (bo2 >= 0)
+      v = __fadd_rn(__fadd_rn(v, gh[(r0 + r) * kSg + j]), net[bo2 + j]);
+    if (rl) v = relu(v);
+    y[(r0 + r) * ys + j] = v;
+  }
+};
+
+// One layer K -> J (weights at wo of a net, [K][J]) of the pass's rows of
+// x: all prows rows through net a, or, where the seats play different nets
+// (b, a frozen opponent), seat 1's `rows` rows through a and seat 2's
+// through b, as two staged_sums passes of one phase.  Returns the lead of
+// a pass issued next in the phase.
+template <int RM, int RN>
+__device__ __forceinline__ int seat_sums(const float* a, const float* b,
+                                         int wo, int K, int J, const float* x,
+                                         int xs, int rows, int prows,
+                                         CellEpi e, int lead = 0) {
+  e.net = a;
+  e.r0 = 0;
+  if (b == nullptr)
+    return staged_sums<float, RM, RN>(a + wo, K, J, x, xs, prows, e, lead);
+  lead = staged_sums<float, RM, RN>(a + wo, K, J, x, xs, rows, e, lead);
+  e.net = b;
+  e.r0 = rows;
+  return staged_sums<float, RM, RN>(b + wo, K, J, x + rows * xs, xs, rows, e,
+                                    lead);
+}
+
+// A block of kThreads threads owns g.rows envs (ops/fused_drqn.py:
+// act_geometry: 8 envs in 128 blocks at 1,024), thread e < rows env env0 +
+// e.  The recurrent forward of both seats' rows from their own h/c: fc1
+// and the gates' input products on RM x RN micro-tiles, fc2, fc3 and fc4
+// one output a thread (fc2's 200-deep chains spread over the most
+// threads), h w_hh in fc2's phase, the LSTM tail one thread a unit; every
+// layer a staged_sums pass over nets held in shared memory (their copy
+// overlapping the env rows' loads) or read from global memory.  In
+// self-play both seats' rows go through one pass of the live net, a frozen
+// opponent's rows through its own net in the same phases.  Then the picks,
+// the env step, the window slot, the auto-reset, the flush, the metrics
+// and the h/c of both seats, zeroed where the episode ended.
+template <int RM, int RN>
+__global__ void __launch_bounds__(kThreads, 1)
 act_kernel(const float* __restrict__ p, const float* __restrict__ opp,
            float* __restrict__ env, float* __restrict__ win,
-           float* __restrict__ ring, float* __restrict__ met, ActCfg ac,
-           EnvCfg cfg) {
-  constexpr int T = kActTile;
-  __shared__ float obs1[T * kIn], obs2[T * kIn];
-  __shared__ float hs[2][T * kHid], cs[2][T * kHid];
-  __shared__ float hn[2][T * kHid], cn[2][T * kHid];
-  __shared__ float z1[T * kH1], x2[T * kHid], g[T * kG], h3[T * kHid];
-  __shared__ float q[2][T * kA];
+           float* __restrict__ ring, float* __restrict__ met, ActGeom g,
+           ActCfg ac, EnvCfg cfg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool frozen = ac.opp == kOppFrozen;
+  const int seats = ac.opp == kOppL0 ? 1 : 2;
+  const int P = seats * g.rows;  // rows of each array
+  float* const y = reinterpret_cast<float*>(smem + act_tiles(g));
+  float* const x = y + P * kAx;
+  float* const h = y + P * kAh;
+  float* const c = y + P * kAc;
+  float* const z1 = y + P * kAz1;
+  float* const x2 = y + P * kAx2;
+  float* const gh = y + P * kAgh;
+  float* const gt = y + P * kAg;
+  float* const hn = y + P * kAhn;
+  float* const cn = y + P * kAcn;
+  float* const h3 = y + P * kAh3;
+  float* const q = y + P * kAq;
 
-  const int env0 = blockIdx.x * T;
-  const int rows = min(T, ac.n - env0);
-  const int e = threadIdx.x;
+  const int env0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, ac.n - env0);
+  const int prows = seats * rows;
+  const int e = threadIdx.x, nt = blockDim.x;
   const bool owner = e < rows;
   const int lane = env0 + e;
   const size_t sN = static_cast<size_t>(ac.n);
 
-  // Both seats' h and c: env rows 11 + 16 part + u, part = h1, c1, h2, c2.
-  for (int i = threadIdx.x; i < 4 * kHid * rows; i += blockDim.x) {
+  // The nets: a for seat 1 (and seat 2 in self-play), b for a frozen seat 2.
+  const float* na = p;
+  const float* nb = frozen ? opp : nullptr;
+  if (g.resident >= 1) {
+    float* const held = reinterpret_cast<float*>(smem);
+    stage(held, p, kP);
+    na = held;
+    if (frozen && g.resident >= 2) {
+      float* const held2 = reinterpret_cast<float*>(smem + kNetBytes);
+      stage(held2, opp, kP);
+      nb = held2;
+    }
+    cp_async_commit();
+  }
+
+  // The seats' h and c: env rows 11 + 16 part + u, part = h1, c1, h2, c2.
+  for (int i = e; i < 2 * seats * kHid * rows; i += nt) {
     const int part = i / (kHid * rows), rem = i - part * kHid * rows;
     const int u = rem / rows, r = rem - u * rows;
-    float* dst = (part & 1) ? cs[part >> 1] : hs[part >> 1];
-    dst[r * kHid + u] = env[(11 + part * kHid + u) * sN + env0 + r];
+    const int row = (part >> 1) * rows + r;
+    const float v = env[(11 + part * kHid + u) * sN + env0 + r];
+    if (part & 1) {
+      c[row * kSc + u] = v;
+    } else {
+      h[row * kSh + u] = v;
+    }
   }
   EnvState s;
   float x1 = 0.f, y1 = 0.f, xb = 0.f, yb = 0.f, ep_rew = 0.f;
@@ -232,25 +323,48 @@ act_kernel(const float* __restrict__ p, const float* __restrict__ opp,
     const float pre[kIn] = {xb - x1, yb - y1, s.vel2 - s.vel1,
                             kEndPoint - s.pos1, s.vel1, x1 - xb, y1 - yb,
                             s.vel1 - s.vel2, kEndPoint - s.pos2, s.vel2};
-    for (int k = 0; k < kIn; ++k) {
-      o[k] = pre[k];
-      obs1[e * kIn + k] = pre[k];
-      obs2[e * kIn + k] = pre[(k + 5) % kIn];
-    }
+#pragma unroll
+    for (int k = 0; k < kIn; ++k) o[k] = pre[k];
+    put_obs<0>(x + e * kSx, o);
+    if (seats == 2) put_obs<5>(x + (rows + e) * kSx, o);
   }
-  cell_tile(p, obs1, hs[0], cs[0], rows, z1, x2, g, h3, hn[0], cn[0], q[0]);
-  if (ac.opp)
-    cell_tile(opp, obs2, hs[1], cs[1], rows, z1, x2, g, h3, hn[1], cn[1],
-              q[1]);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // fc1; fc2 beside h w_hh; the gates; the tail; fc3; fc4.
+  seat_sums<RM, RN>(na, nb, kW1, kIn, kH1, x, kSx, rows, prows,
+                    {nullptr, kB1, -1, true, nullptr, z1, kSz1, 0});
+  __syncthreads();
+  int lead = seat_sums<1, 1>(na, nb, kW2, kH1, kHid, z1, kSz1, rows, prows,
+                             {nullptr, kB2, -1, false, nullptr, x2, kSh, 0});
+  seat_sums<RM, RN>(na, nb, kWhh, kHid, kG, h, kSh, rows, prows,
+                    {nullptr, -1, -1, false, nullptr, gh, kSg, 0}, lead);
+  __syncthreads();
+  seat_sums<RM, RN>(na, nb, kWih, kHid, kG, x2, kSh, rows, prows,
+                    {nullptr, kBih, kBhh, false, gh, gt, kSg, 0});
+  __syncthreads();
+  for (int i = e; i < prows * kHid; i += nt) {
+    const int r = i / kHid, u = i - r * kHid;
+    const Cell cl = cell_tail(gt + r * kSg, u, c[r * kSc + u]);
+    hn[r * kSh + u] = cl.h;
+    cn[r * kSc + u] = cl.c;
+  }
+  __syncthreads();
+  seat_sums<1, 1>(na, nb, kW3, kHid, kHid, hn, kSh, rows, prows,
+                  {nullptr, kB3, -1, true, nullptr, h3, kSh, 0});
+  __syncthreads();
+  seat_sums<1, 1>(na, nb, kW4, kHid, kA, h3, kSh, rows, prows,
+                  {nullptr, kB4, -1, false, nullptr, q, kSq, 0});
+  __syncthreads();
   if (!owner) return;
 
-  int a1 = argmax0(q[0] + e * kA, kA);
-  int a2 = ac.opp ? argmax0(q[1] + e * kA, kA) : -1;
+  int a1 = argmax0(q + e * kSq, kA);
+  int a2 = seats == 2 ? argmax0(q + (rows + e) * kSq, kA) : -1;
   if (!ac.greedy) {
     const Bits4 b = draw(ac.step, static_cast<uint32_t>(lane), kStreamActions,
                          ac.k0, ac.k1);
     a1 = phi_select(a1, b.x, b.y, ac.threshold, kA);
-    if (ac.opp) a2 = phi_select(a2, b.z, b.w, ac.threshold, kA);
+    if (seats == 2) a2 = phi_select(a2, b.z, b.w, ac.threshold, kA);
   }
   const StepOut so = env_step(s, a1, a2, cfg);
   const bool done = so.done;
@@ -313,14 +427,18 @@ act_kernel(const float* __restrict__ p, const float* __restrict__ opp,
   env[9 * sN + lane] = static_cast<float>(s.t);
   env[10 * sN + lane] = ep_rew;
   // h/c of both seats, zeroed on reset; under L0 seat 2 keeps its state.
-  const float* h2 = ac.opp ? hn[1] : hs[1];
-  const float* c2 = ac.opp ? cn[1] : cs[1];
   for (int u = 0; u < kHid; ++u) {
-    const int k = e * kHid + u;
-    env[(11 + u) * sN + lane] = done ? 0.0f : hn[0][k];
-    env[(11 + kHid + u) * sN + lane] = done ? 0.0f : cn[0][k];
-    env[(11 + 2 * kHid + u) * sN + lane] = done ? 0.0f : h2[k];
-    env[(11 + 3 * kHid + u) * sN + lane] = done ? 0.0f : c2[k];
+    env[(11 + u) * sN + lane] = done ? 0.0f : hn[e * kSh + u];
+    env[(11 + kHid + u) * sN + lane] = done ? 0.0f : cn[e * kSc + u];
+    if (seats == 2) {
+      env[(11 + 2 * kHid + u) * sN + lane] =
+          done ? 0.0f : hn[(rows + e) * kSh + u];
+      env[(11 + 3 * kHid + u) * sN + lane] =
+          done ? 0.0f : cn[(rows + e) * kSc + u];
+    } else if (done) {
+      env[(11 + 2 * kHid + u) * sN + lane] = 0.0f;
+      env[(11 + 3 * kHid + u) * sN + lane] = 0.0f;
+    }
   }
 }
 
@@ -1031,13 +1149,31 @@ inline bool batch_ok(int n, int B, int L, int round, int col) {
          static_cast<long long>(col + 1) * B <= n;
 }
 
+template <int RM, int RN>
+cudaError_t launch_act(const float* p, const float* opp, float* env,
+                       float* win, float* ring, float* met, ActGeom g,
+                       ActCfg ac, EnvCfg cfg, cudaStream_t stream) {
+  cudaError_t err = allow_smem(act_kernel<RM, RN>, g.smem);
+  if (err != cudaSuccess) return err;
+  act_kernel<RM, RN><<<(ac.n + g.rows - 1) / g.rows, kThreads, g.smem,
+                       stream>>>(p, opp, env, win, ring, met, g, ac, cfg);
+  return cudaGetLastError();
+}
+
 }  // namespace drqn
 }  // namespace mgt
 
+// Kernel 1 of a step (act_kernel) on `n` envs in the geometry (rows, rm x
+// rn, resident, chunk 0, smem) of ops/fused_drqn.py:act_geometry;
+// opp_mode: kOppL0, kOppSelf (the live net p plays seat 2) or kOppFrozen
+// (opp).  A geometry its layout does not fit is refused
+// (cudaErrorInvalidValue).
 extern "C" int mgt_drqn_act(const float* p, const float* opp, float* env,
                             float* win, float* ring, float* met, int n, int L,
-                            int wl, int emit, int r_cur, int opp_net,
-                            int greedy, int random_start, uint32_t step,
+                            int wl, int emit, int r_cur, int opp_mode,
+                            int greedy, int random_start, int rows, int rm,
+                            int rn, int resident, int chunk, int smem,
+                            uint32_t step,
                             uint32_t threshold, uint32_t k0, uint32_t k1,
                             int max_steps, float r_first, float r_second,
                             float r_collision, float vel_penalty,
@@ -1045,15 +1181,26 @@ extern "C" int mgt_drqn_act(const float* p, const float* opp, float* env,
   using namespace mgt;
   using namespace mgt::drqn;
   if (n <= 0) return 0;
-  if (L < 1 || wl < 0 || wl >= L || r_cur < 0)
+  const bool frozen = opp_mode == kOppFrozen;
+  const ActGeom g{rows, resident, chunk, smem};
+  if (L < 1 || wl < 0 || wl >= L || r_cur < 0 || opp_mode < kOppL0 ||
+      opp_mode > kOppFrozen || (frozen && opp == nullptr) ||
+      !act_layout_ok(g, opp_mode == kOppL0 ? 1 : 2, frozen ? 2 : 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  ActCfg ac{n, L, wl, emit, r_cur, opp_net, greedy, random_start,
-            step, threshold, k0, k1};
-  EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
-             max_steps};
-  act_kernel<<<(n + kActTile - 1) / kActTile, kThreads, 0, stream>>>(
-      p, opp, env, win, ring, met, ac, cfg);
-  return static_cast<int>(cudaGetLastError());
+  const ActCfg ac{n, L, wl, emit, r_cur, opp_mode, greedy, random_start,
+                  step, threshold, k0, k1};
+  const EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
+                   max_steps};
+  switch (rm * 16 + rn) {
+#define MGT_CASE(M, N)                                                   \
+  case M * 16 + N:                                                       \
+    return static_cast<int>(                                             \
+        launch_act<M, N>(p, opp, env, win, ring, met, g, ac, cfg, stream));
+    MGT_QNET_TILES(MGT_CASE)
+#undef MGT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int mgt_drqn_learn_in(const float* p, const float* tgt,

@@ -1,19 +1,22 @@
 // The Q-net forward of K3 (qnet_mlp.cu), K4 (fused_actor.cu), K6
 // (policy_rollout.cu), the act kernels of K5 and K7 (act_tiled.cuh) and
-// their learner (dqn_trainer.cu), register-tiled for Hopper.  The learner also runs its dz1 = w1 dz2 pass
-// through layer_sums.
+// their learner (dqn_trainer.cu), register-tiled for Hopper.  That learner
+// also runs its dz1 = w1 dz2 pass through layer_sums, K9's learner its
+// input side (drqn_trainer.cu), and K8's learner and the act kernels of K8
+// and K9 every layer of their nets through staged_sums
+// (rainbow_trainer.cu, drqn_trainer.cu).
 //
 // A block owns `rows` rows of x (chosen on the host from B and the SM
 // count, ops/fused_mlp.py:qnet_geometry) and keeps their activations in
 // shared memory.  Each thread of a layer owns a micro-tile of RM rows x RN
 // columns: RM * RN accumulators, each its own sequential chain over k in
 // input order from 0, with one rounding per multiply and per add
-// (__fmul_rn/__fadd_rn, never an FMA) -- mlp.cuh's dense, so the outputs
-// equal the plain version (ops/fused_mlp.py:mlp_plain_layers) and
-// mlp_tile's bit for bit.  The independent chains give the ILP; per k the RM activations
-// are broadcast reads (four k at a time) and each of the RN weights is
-// reused by the RM rows.  No tensor cores and no split-k: both would change
-// the order of the sums.
+// (__fmul_rn/__fadd_rn, never an FMA), so the outputs equal the plain
+// versions' (ops/fused_mlp.py:mlp_plain_layers and the trainers' plain
+// forwards) bit for bit.  The independent chains give the ILP; per k the
+// RM activations are broadcast reads (four k at a time) and each of the RN
+// weights is reused by the RM rows.  No tensor cores and no split-k: both
+// would change the order of the sums.
 //
 // The weights pass through shared memory in chunks of whole k-rows, two
 // buffers of `chunk` elements: cp.async fetches the next chunk (of this
@@ -24,8 +27,8 @@
 // runs many forwards of the same nets (K6, once per env step) instead holds
 // the weights in shared memory for the whole launch (stage_net once, then
 // resident_layers each step): the same micro-tiles over all of k at once.
-// Its bf16 arithmetic is mlp.cuh's: products of bf16 operands exact in
-// f32, each sum rounded to bf16, the bf16 bias add, then ReLU.
+// In bf16: products of bf16 operands exact in f32, each sum rounded to
+// bf16, the bf16 bias add, then ReLU (mlp.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -149,6 +152,12 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // One layer of the block: K -> J, its k-rows per chunk, micro-tiles.
@@ -422,16 +431,21 @@ __device__ __forceinline__ void layer_sums(const T* __restrict__ w, int K,
 }
 
 // One layer K -> J of `rows` rows of x (as in layer_sums) whose weights
-// w [K][J] the caller has already brought whole into shared memory at wb:
-// epi.sum(row, column, s) receives each output's sum, in k order from 0.
-// No barrier (the Rainbow learner, rainbow_trainer.cu, streams its layers'
-// weights two layers ahead itself).
+// w [K][J] are whole at wb, in shared memory (brought there by the caller)
+// or in global memory: epi.sum(row, column, s) receives each output's sum,
+// in k order from 0.  No barrier (the Rainbow learner, rainbow_trainer.cu,
+// streams its layers' weights two layers ahead itself), so two passes of
+// one phase may follow each other: `lead` is the tiles a pass issued just
+// before this one gave the block's first threads, and this pass's tiles
+// start at the thread after them.  Returns the lead of a pass issued next.
 template <typename T, int RM, int RN, typename Epi>
-__device__ __forceinline__ void staged_sums(const T* wb, int K, int J,
-                                            const T* x, int xs, int rows,
-                                            Epi& epi) {
+__device__ __forceinline__ int staged_sums(const T* wb, int K, int J,
+                                           const T* x, int xs, int rows,
+                                           Epi& epi, int lead = 0) {
   const QLayer<T> L = qlayer<T>(wb, nullptr, K, J, K * J, rows, RM, RN);
-  for (int tile = threadIdx.x; tile < L.ntiles; tile += blockDim.x) {
+  const int nt = blockDim.x;
+  const int first = (static_cast<int>(threadIdx.x) - lead % nt + nt) % nt;
+  for (int tile = first; tile < L.ntiles; tile += nt) {
     float acc[RM][RN];
     tile_acc<T, RM, RN>(acc, L, x, xs, wb, 0, K, true, rows, tile);
     const int rg = tile / L.nj, jg = tile - rg * L.nj;
@@ -443,6 +457,7 @@ __device__ __forceinline__ void staged_sums(const T* wb, int K, int J,
         if (r < rows && j < J) epi.sum(r, j, acc[i][c]);
       }
   }
+  return lead + L.ntiles;
 }
 
 // Byte offsets of one net's six tensors held whole in shared memory, each

@@ -12,12 +12,17 @@
 // issued by ops/fused_rainbow.py with no read-back inside a chunk (K5's
 // design, dqn_trainer.cu):
 //
-//   1. rb_act: a block owns `tile` envs.  The noisy dueling C51 forward of
-//      the ego's scaled obs (rb_forward: trunk, four noisy layers read as
-//      effective weights, the dueling combine, a softmax per action, E[Z]),
-//      the first-occurrence argmax, the optional Phi(eps) pick; the
-//      opponent: the same net on the left-rotated obs, L0, or a frozen MLP
-//      (mlp.cuh) through the Phi(0.7) pick; the env step (env_math.cuh);
+//   1. rb_act (rb_act_kernel): a block owns `rows` envs, sized on the host
+//      from the env count and the SM count (ops/fused_rainbow.py:
+//      act_geometry: 8 envs in 128 blocks at 1,024).  The noisy dueling
+//      C51 forward of the ego's scaled obs (the trunk and the four noisy
+//      layers read as effective weights, each layer one register-tiled
+//      pass of qnet_tiled.cuh on the online net held in shared memory; the
+//      dueling combine, a softmax per action, E[Z]), the first-occurrence
+//      argmax, the optional Phi(eps) pick; the opponent: the same net on
+//      the left-rotated obs in the same passes, L0, or a frozen MLP
+//      (act_tiled.cuh, streamed) through the Phi(0.7) pick; the env step
+//      (env_math.cuh);
 //      the unconditional [24] slab store (with PER its row 23 is
 //      maxp ** alpha, maxp read before this step's learn); the metrics, the
 //      per-lane episode count (env row 12), the step's finished episodes
@@ -91,15 +96,22 @@
 // lane; and the gradients are summed by rectangles of 16 x 8 entries with
 // up to every summation tile of the batch in flight, Adam fused, from a
 // workspace of 784 floats a lane (3.2 MB at B 1,024).  The act kernel
-// still runs rb_forward's scalar chains.  The measured times are in
-// PERF.md (chip_smoke.py).
+// held it back as well: 64 blocks of 16 envs on 132 SMs, each output one
+// thread's scalar chain over weights read from L2 inside the k loop, seven
+// barrier-separated phases, the whole forward run twice in self-play.  Now
+// a block owns 8 envs (128 blocks at 1,024); the online net (122,696 B) is
+// copied into shared memory once a launch, while the env rows load and the
+// first layers run; each layer is one staged_sums pass of RM x RN
+// micro-tiles (both seats' rows in one pass in self-play); the head's
+// elementwise steps run one thread an element and only its ordered chains
+// one thread a (row, action).  The measured times are in PERF.md
+// (chip_smoke.py).
 #include <cstdint>
 
+#include "act_tiled.cuh"
 #include "env_math.cuh"
 #include "learn_math.cuh"
-#include "mlp.cuh"
 #include "philox.cuh"
-#include "qnet_tiled.cuh"
 
 namespace mgt {
 
@@ -166,36 +178,6 @@ __host__ __device__ inline RbNet rb_net(const float* p, const float* weff) {
   return n;
 }
 
-// Per-row scratch of one forward, in shared memory.
-struct RbFwd {
-  float *h1, *h2, *hv1, *ha1, *zv2, *za2, *dist, *q;
-  static constexpr int kFloats = kH0 + 3 * kH1 + kAtoms + 2 * kA * kAtoms + kA;
-  __device__ static RbFwd at(float* base, int rows) {
-    RbFwd f;
-    f.h1 = base;
-    f.h2 = f.h1 + rows * kH0;
-    f.hv1 = f.h2 + rows * kH1;
-    f.ha1 = f.hv1 + rows * kH1;
-    f.zv2 = f.ha1 + rows * kH1;
-    f.za2 = f.zv2 + rows * kAtoms;
-    f.dist = f.za2 + rows * kA * kAtoms;
-    f.q = f.dist + rows * kA * kAtoms;
-    return f;
-  }
-};
-
-// y[r][j] = sum_k x[r][k] * w[k][j] (k order, from 0) + b[j], for i in
-// [i0, i0 + rows * J) of a combined index space, each thread its outputs.
-__device__ __forceinline__ float dense_out(const float* x, int K,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b,
-                                           int J, int r, int j) {
-  const float* xr = x + r * K;
-  float acc = 0.0f;
-  for (int k = 0; k < K; ++k) acc = fadd(acc, fmul(xr[k], w[k * J + j]));
-  return fadd(acc, b[j]);
-}
-
 // The dueling logit of action a at atom j: (zv[j] + adv[a][j]) - mean,
 // the mean being the sum of adv[.][j] over the actions in order times 0.2.
 __device__ __forceinline__ float duel_logit(const float* adv, const float* zv,
@@ -206,69 +188,25 @@ __device__ __forceinline__ float duel_logit(const float* adv, const float* zv,
   return __fsub_rn(fadd(zv[j], adv[a * kAtoms + j]), mean);
 }
 
-// The forward of `rows` rows of x [rows][10] (already scaled): the hidden
-// layers, dist [rows][A][ATOMS] and q [rows][A].  Starts and ends with a
-// block-wide barrier.
-__device__ void rb_forward(const float* x, int rows, const RbNet& net,
-                           const RbFwd& f) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  __syncthreads();
-  for (int i = tid; i < rows * kH0; i += nt) {
-    const int r = i / kH0, j = i - r * kH0;
-    f.h1[i] = relu(dense_out(x, kIn, net.w0, net.b0, kH0, r, j));
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * kH1; i += nt) {
-    const int r = i / kH1, j = i - r * kH1;
-    f.h2[i] = relu(dense_out(f.h1, kH0, net.w1, net.b1, kH1, r, j));
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * rows * kH1; i += nt) {  // value1, advantage1
-    const int s = i / (rows * kH1), i2 = i - s * rows * kH1;
-    const int r = i2 / kH1, j = i2 - r * kH1;
-    const int l = s == 0 ? 0 : 2;
-    (s == 0 ? f.hv1 : f.ha1)[i2] =
-        relu(dense_out(f.h2, kH1, net.W[l], net.B[l], kH1, r, j));
-  }
-  __syncthreads();
-  const int nv = rows * kAtoms, na = rows * kA * kAtoms;
-  for (int i = tid; i < nv + na; i += nt) {  // value2, advantage2
-    if (i < nv) {
-      const int r = i / kAtoms, j = i - r * kAtoms;
-      f.zv2[i] = dense_out(f.hv1, kH1, net.W[1], net.B[1], kAtoms, r, j);
-    } else {
-      const int i2 = i - nv, r = i2 / (kA * kAtoms), j = i2 - r * kA * kAtoms;
-      f.za2[i2] = dense_out(f.ha1, kH1, net.W[3], net.B[3], kA * kAtoms, r,
-                            j);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * kA; i += nt) {  // dueling combine + softmax
-    const int r = i / kA, a = i - r * kA;
-    const float* adv = f.za2 + r * kA * kAtoms;
-    const float* zv = f.zv2 + r * kAtoms;
-    float* d = f.dist + r * kA * kAtoms + a * kAtoms;
-    float lm = 0.0f;
-    for (int j = 0; j < kAtoms; ++j) {
-      const float logit = duel_logit(adv, zv, a, j);
-      d[j] = logit;
-      if (j == 0 || logit > lm) lm = logit;
-    }
-    float s = 0.0f;
-    for (int j = 0; j < kAtoms; ++j) {
-      d[j] = expf(__fsub_rn(d[j], lm));
-      s = fadd(s, d[j]);
-    }
-    for (int j = 0; j < kAtoms; ++j) d[j] = __fdiv_rn(d[j], s);
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * kA; i += nt) {  // E[Z]
-    const float* d = f.dist + i * kAtoms;
-    float acc = 0.0f;
-    for (int j = 0; j < kAtoms; ++j) acc = fadd(acc, fmul(d[j], zsup(j)));
-    f.q[i] = acc;
-  }
-  __syncthreads();
+// Row strides of the forwards' shared arrays (act kernel and learner), each
+// a multiple of 4 floats (16-byte rows for load4): the scaled obs, h1, the
+// 64-wide hidden layers, value2's 51 atoms, advantage2's 5 x 51, and a
+// distribution's 51 atoms with its column 51 (atom_max, atom_sum).
+constexpr int kSx = 16, kSh1 = 36, kSh = 68, kSv = 56, kSa = 260, kS51 = 52;
+
+// d[51] := the largest of d[0..50] (first occurrence), or their sum in
+// order from 0.
+__device__ __forceinline__ void atom_max(float* d) {
+  float lm = d[0];
+  for (int j = 1; j < kAtoms; ++j)
+    if (d[j] > lm) lm = d[j];
+  d[kAtoms] = lm;
+}
+
+__device__ __forceinline__ void atom_sum(float* d) {
+  float s = 0.0f;
+  for (int j = 0; j < kAtoms; ++j) s = fadd(s, d[j]);
+  d[kAtoms] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -281,26 +219,129 @@ struct RbActCfg {
   float scale, alpha;
 };
 
-__global__ void __launch_bounds__(kRbThreads)
-rb_act_kernel(RbNet pnet, Net<float> onet, MlpDims od, float* __restrict__ env,
+// The act kernel's arrays, in floats per row of a pass (seats x rows rows,
+// seats 2 in self-play): the scaled obs, h1, h2, hv1 | ha1 (value1 and
+// advantage1 side by side: one pass of 128 columns' tiles), value2's and
+// advantage2's outputs, the distributions [A][52] (column 51: the max,
+// then the sum; the atoms become d * z) and q.  ops/fused_rainbow.py:
+// ACT_ROW_FLOATS mirrors the total.
+constexpr int kAx = 0, kAh1 = 16, kAh2 = 52, kAh3 = 120, kAzv = 252,
+              kAza = 308, kAdist = 568, kAq = 828, kActRowFloats = 836;
+constexpr int kSh3 = 132;
+static_assert(kAh1 == kAx + kSx && kAh2 == kAh1 + kSh1 &&
+                  kAh3 == kAh2 + kSh && kAzv == kAh3 + kSh3 &&
+                  kAza == kAzv + kSv && kAdist == kAza + kSa &&
+                  kAq == kAdist + kA * kS51 && kActRowFloats == kAq + 8,
+              "rb_act_kernel layout");
+// The online net held whole: the trunk (kTrunkP floats from p), then the
+// four noisy layers' effective weights (kNumE from wp); copied in three
+// cp.async groups in the order the layers need them: the trunk, then
+// value1, value2 and advantage1 (up to kCopySplit), then advantage2.
+constexpr int kCopySplit = eoff(3);  // 11,635
+
+// Byte offsets of the act kernel's shared memory (ops/fused_rainbow.py:
+// act_smem mirrors it): the online net where it is held (g.resident 1;
+// at 0 its layers are read from global memory), the arrays of seats x
+// g.rows rows, then with a frozen opponent (od) the MLP's ActSmem
+// (act_tiled.cuh) for g.rows rows, its weights streamed through two
+// buffers of g.chunk floats.
+struct RbActSmem {
+  size_t tiles, mlp, total;
+  __host__ __device__ RbActSmem(ActGeom g, int seats, const MlpDims* od) {
+    tiles = g.resident ? align16(kNumG * sizeof(float)) : 0;
+    mlp = tiles + static_cast<size_t>(seats) * g.rows * kActRowFloats *
+                      sizeof(float);
+    total = mlp;
+    if (od != nullptr)
+      total += ActSmem(od, 1, ActGeom{g.rows, 0, g.chunk, 0}, sizeof(float),
+                       1).total;
+  }
+};
+
+// Whether the host's geometry suits this layout: rows an owner thread each,
+// the net held or not, buffers (a frozen opponent only) 16-byte sized that
+// hold a k-row of every layer, and the layout within the bytes the host
+// sized.
+inline bool rb_act_geom_ok(ActGeom g, int seats, const MlpDims* od) {
+  if (g.rows < 1 || g.rows > kActRowsMax || g.resident < 0 ||
+      g.resident > 1 || g.chunk < 0)
+    return false;
+  if (od == nullptr ? g.chunk != 0
+                    : g.chunk % 4 != 0 || g.chunk < od->h1 ||
+                          g.chunk < od->h2 || g.chunk < od->a)
+    return false;
+  return RbActSmem(g, seats, od).total <= static_cast<size_t>(g.smem);
+}
+
+// Where an act layer's sums go: + the bias, ReLU if rl, to y[row][j].
+struct ActEpi {
+  const float* b;
+  float* y;
+  int ys;
+  bool rl;
+  __device__ __forceinline__ void sum(int r, int j, float acc) {
+    const float v = fadd(acc, b[j]);
+    y[r * ys + j] = rl ? relu(v) : v;
+  }
+};
+
+// A block of kQnetThreads threads owns g.rows envs (ops/fused_rainbow.py:
+// act_geometry: 8 envs in 128 blocks at 1,024), thread e < rows env env0 +
+// e (its state in registers, its scaled obs written straight into the
+// input array; in self-play the opponent's left-rotated one into row rows
+// + e).  The noisy dueling C51 forward of the pass's rows: each of its six
+// layers one staged_sums pass of RM x RN micro-tiles (value1 with
+// advantage1, value2 with advantage2 in one phase each), on the online net
+// held in shared memory (its copy overlapping the env rows' loads and the
+// first layers) or read from global memory; then the dueling combine, the
+// exp and the division one thread an element, the max, the softmax sum and
+// E[Z] one thread's chain per (row, action).  A frozen MLP opponent's
+// forward follows on act_tiled.cuh's act_forward, its weights streamed.
+// Then the picks, the env step, the slab store, the metrics, the episode
+// count and the auto-reset of each env.
+template <int RM, int RN>
+__global__ void __launch_bounds__(kQnetThreads, 1)
+rb_act_kernel(const float* __restrict__ p, const float* __restrict__ wp,
+              Net<float> onet, MlpDims od, float* __restrict__ env,
               float* __restrict__ ring, float* __restrict__ met,
-              int32_t* __restrict__ ep_step, int tile, RbActCfg ac,
+              int32_t* __restrict__ ep_step, ActGeom g, RbActCfg ac,
               EnvCfg cfg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* x1 = reinterpret_cast<float*>(smem);  // [tile][10] ego, scaled
-  float* x2 = x1 + tile * kIn;                 // [tile][10] opponent
-  float* q2 = x2 + tile * kIn;                 // [tile][A] frozen MLP
-  RbFwd f = RbFwd::at(q2 + tile * kA, tile);
-  float* s_in = f.q + tile * kA;               // frozen MLP scratch
-  float* s_h1 = s_in + tile * od.in;
-  float* s_h2 = s_h1 + tile * od.h1;
+  const bool frozen = ac.opp == kOppFrozen;
+  const int seats = ac.opp == kOppSelf ? 2 : 1;
+  const RbActSmem S(g, seats, frozen ? &od : nullptr);
+  const ActSmem M(&od, 1, ActGeom{g.rows, 0, g.chunk, 0}, sizeof(float), 1);
+  const int P = seats * g.rows;  // rows of each array
+  float* const y = reinterpret_cast<float*>(smem + S.tiles);
+  float* const x = y + P * kAx;
+  float* const h1 = y + P * kAh1;
+  float* const h2 = y + P * kAh2;
+  float* const h3 = y + P * kAh3;
+  float* const zv = y + P * kAzv;
+  float* const za = y + P * kAza;
+  float* const dist = y + P * kAdist;
+  float* const q = y + P * kAq;
 
-  const int env0 = blockIdx.x * tile;
-  const int rows = min(tile, ac.n - env0);
-  const int e = threadIdx.x;
+  const int env0 = blockIdx.x * g.rows;
+  const int rows = min(g.rows, ac.n - env0);
+  const int prows = seats * rows;
+  const int e = threadIdx.x, nt = blockDim.x;
   const bool owner = e < rows;
   const int lane = env0 + e;
   const size_t sN = static_cast<size_t>(ac.n);
+
+  RbNet net = rb_net(p, wp);
+  if (g.resident) {  // the online net into shared memory, in three groups
+    float* const held = reinterpret_cast<float*>(smem);
+    stage(held, p, kTrunkP);
+    cp_async_commit();
+    stage(held + kTrunkP, wp, kCopySplit);
+    cp_async_commit();
+    const int k4 = kCopySplit & ~3;  // 16-byte aligned on both sides
+    stage(held + kTrunkP + k4, wp + k4, kNumE - k4);
+    cp_async_commit();
+    net = rb_net(held, held + kTrunkP);
+  }
 
   EnvState s;
   float x1p = 0.f, y1p = 0.f, x2p = 0.f, y2p = 0.f, ep_rew = 0.f, maxp = 0.f;
@@ -321,24 +362,87 @@ rb_act_kernel(RbNet pnet, Net<float> onet, MlpDims od, float* __restrict__ env,
     const float pre[10] = {x2p - x1p, y2p - y1p, s.vel2 - s.vel1,
                            kEndPoint - s.pos1, s.vel1, x1p - x2p, y1p - y2p,
                            s.vel1 - s.vel2, kEndPoint - s.pos2, s.vel2};
+    float* const xr = x + e * kSx;
+#pragma unroll
     for (int k = 0; k < 10; ++k) {
       o[k] = pre[k];
-      x1[e * kIn + k] = fmul(pre[k], ac.scale);
-      // Self-play: state[roll:] + state[:roll] (a left rotation), scaled;
-      // frozen: the half-swapped raw obs.
-      x2[e * kIn + k] = ac.opp == 1 ? fmul(pre[(k + ac.roll) % 10], ac.scale)
-                                    : pre[(k + 5) % 10];
+      xr[k] = fmul(pre[k], ac.scale);
     }
+    // Self-play: state[roll:] + state[:roll] (a left rotation), scaled;
+    // frozen: the half-swapped raw obs into the MLP's input tile.
+    if (seats == 2)
+      for (int k = 0; k < 10; ++k)
+        x[(rows + e) * kSx + k] = xr[(k + ac.roll) % 10];
+    if (frozen)
+      put_obs<5>(reinterpret_cast<float*>(smem + S.mlp + M.in) +
+                     e * act_stride(kIn),
+                 o);
   }
-  rb_forward(x1, rows, pnet, f);
-  int a1 = owner ? argmax0(f.q + e * kA, kA) : 0;
+
+  // ---- the forward of the pass's rows
+  cp_async_wait<2>();  // the trunk (nothing is pending where not held)
+  __syncthreads();
+  ActEpi l1{net.b0, h1, kSh1, true};
+  staged_sums<float, RM, RN>(net.w0, kIn, kH0, x, kSx, prows, l1);
+  __syncthreads();
+  ActEpi l2{net.b1, h2, kSh, true};
+  staged_sums<float, RM, RN>(net.w1, kH0, kH1, h1, kSh1, prows, l2);
+  cp_async_wait<1>();  // value1, value2, advantage1
+  __syncthreads();
+  ActEpi v1{net.B[0], h3, kSh3, true}, a1e{net.B[2], h3 + kH1, kSh3, true};
+  int lead = staged_sums<float, RM, RN>(net.W[0], kH1, kH1, h2, kSh, prows,
+                                        v1);
+  staged_sums<float, RM, RN>(net.W[2], kH1, kH1, h2, kSh, prows, a1e, lead);
+  cp_async_wait<0>();  // advantage2
+  __syncthreads();
+  ActEpi v2{net.B[1], zv, kSv, false}, a2e{net.B[3], za, kSa, false};
+  lead = staged_sums<float, RM, RN>(net.W[1], kH1, kAtoms, h3, kSh3, prows,
+                                    v2);
+  staged_sums<float, RM, RN>(net.W[3], kH1, kA * kAtoms, h3 + kH1, kSh3,
+                             prows, a2e, lead);
+  __syncthreads();
+
+  // ---- the dueling head: dist's row ra = r * kA + a
+  const int nra = prows * kA;
+  for (int i = e; i < nra * kAtoms; i += nt) {
+    const int ra = i / kAtoms, j = i - ra * kAtoms, r = ra / kA;
+    dist[ra * kS51 + j] = duel_logit(za + r * kSa, zv + r * kSv, ra - r * kA,
+                                     j);
+  }
+  __syncthreads();
+  for (int ra = e; ra < nra; ra += nt) atom_max(dist + ra * kS51);
+  __syncthreads();
+  for (int i = e; i < nra * kAtoms; i += nt) {
+    float* const d = dist + (i / kAtoms) * kS51;
+    const int j = i % kAtoms;
+    d[j] = expf(__fsub_rn(d[j], d[kAtoms]));
+  }
+  __syncthreads();
+  for (int ra = e; ra < nra; ra += nt) atom_sum(dist + ra * kS51);
+  __syncthreads();
+  for (int i = e; i < nra * kAtoms; i += nt) {  // softmax, times the support
+    float* const d = dist + (i / kAtoms) * kS51;
+    const int j = i % kAtoms;
+    d[j] = fmul(__fdiv_rn(d[j], d[kAtoms]), zsup(j));
+  }
+  __syncthreads();
+  for (int ra = e; ra < nra; ra += nt) {  // E[Z]
+    const float* const d = dist + ra * kS51;
+    float acc = 0.0f;
+    for (int j = 0; j < kAtoms; ++j) acc = fadd(acc, d[j]);
+    q[ra] = acc;
+  }
+  __syncthreads();
+
+  int a1 = owner ? argmax0(q + e * kA, kA) : 0;
   int a2 = -1;
-  if (ac.opp == 1) {
-    rb_forward(x2, rows, pnet, f);
-    if (owner) a2 = argmax0(f.q + e * kA, kA);
-  } else if (ac.opp == 2) {
-    mlp_tile<float>(x2, rows, od, onet, s_in, s_h1, s_h2, q2);
-    if (owner) a2 = argmax0(q2 + e * kA, kA);
+  if (owner && seats == 2) a2 = argmax0(q + (rows + e) * kA, kA);
+  if (frozen) {
+    act_forward<float, RM, RN>(smem + S.mlp, M, g.chunk, od, onet, -1, rows);
+    if (owner)
+      a2 = argmax0(reinterpret_cast<const float*>(smem + S.mlp + M.q) +
+                       e * od.a,
+                   kA);
   }
 
   bool done = false;
@@ -347,9 +451,9 @@ rb_act_kernel(RbNet pnet, Net<float> onet, MlpDims od, float* __restrict__ env,
       Bits4 b = draw(ac.step, static_cast<uint32_t>(lane), kStreamActions,
                      ac.k0, ac.k1);
       a1 = phi_select(a1, b.x, b.y, ac.threshold, kA);
-      if (ac.opp == 1) a2 = phi_select(a2, b.z, b.w, ac.threshold, kA);
+      if (seats == 2) a2 = phi_select(a2, b.z, b.w, ac.threshold, kA);
     }
-    if (ac.opp == 2 && ac.draws) {
+    if (frozen && ac.draws) {
       Bits4 b = draw(ac.step, static_cast<uint32_t>(lane), kStreamFrozen,
                      ac.k0, ac.k1);
       a2 = phi_select(a2, b.x, b.y, ac.thr70, kA);
@@ -549,9 +653,9 @@ constexpr int kYx = 0, kYxn = 16, kYh1 = 32, kYh2 = 68, kYhv1 = 136,
               kYpce = 1056, kYg = 1108, kYdl = 1160, kYdza2 = 1216,
               kYdzv1 = 1476, kYdza1 = 1544, kYdz2 = 1612, kYav = 1680,
               kYsc = 1748;
-// Row strides of those arrays.
-constexpr int kSx = 16, kSh1 = 36, kSh = 68, kSv = 56, kSa = 260, kS51 = 52,
-              kSsc = 16;
+// Row strides of those arrays: those of the forwards' shared arrays (kSx
+// ..), and the per-lane scalars.
+constexpr int kSsc = 16;
 constexpr int kLaneFloats = 1764;
 static_assert(kYsc + kSsc == kLaneFloats && kSa == kA * kS51,
               "learn_fwd_kernel layout");
@@ -690,21 +794,6 @@ __device__ __forceinline__ void net_layers(const LayerPipe& pipe, int l0,
   learn_layer<LANES, kA * kAtoms>(pipe, l0 + 5, kH1, ha1, kSh, rows,
                                   {false, nullptr, 0, nullptr, 0, za2, kSa,
                                    nullptr, 0});
-}
-
-// d[51] := the largest of d[0..50] (the first-occurrence scan of
-// rb_forward), or their sum in order from 0.
-__device__ __forceinline__ void atom_max(float* d) {
-  float lm = d[0];
-  for (int j = 1; j < kAtoms; ++j)
-    if (d[j] > lm) lm = d[j];
-  d[kAtoms] = lm;
-}
-
-__device__ __forceinline__ void atom_sum(float* d) {
-  float s = 0.0f;
-  for (int j = 0; j < kAtoms; ++j) s = fadd(s, d[j]);
-  d[kAtoms] = s;
 }
 
 // A block of kLearnThreads threads owns LANES of the B sampled lanes.
@@ -1221,9 +1310,32 @@ __global__ void rb_post_kernel(const float* __restrict__ p,
 
 }  // namespace mgt
 
+namespace mgt {
+
+template <int RM, int RN>
+cudaError_t launch_rb_act(const float* p, const float* wp, Net<float> onet,
+                          MlpDims od, float* env, float* ring, float* met,
+                          int32_t* ep_step, ActGeom g, RbActCfg ac,
+                          EnvCfg cfg, cudaStream_t stream) {
+  cudaError_t err = allow_smem(rb_act_kernel<RM, RN>, g.smem);
+  if (err != cudaSuccess) return err;
+  rb_act_kernel<RM, RN>
+      <<<(ac.n + g.rows - 1) / g.rows, kQnetThreads, g.smem, stream>>>(
+          p, wp, onet, od, env, ring, met, ep_step, g, ac, cfg);
+  return cudaGetLastError();
+}
+
+}  // namespace mgt
+
+// Kernel 1 of a step (rb_act_kernel) on `n` envs in the geometry (rows,
+// rm x rn, resident, chunk, smem) of ops/fused_rainbow.py:act_geometry;
+// opp_mode: kOppL0, kOppSelf or kOppFrozen (opp, an MLP of widths 10 ->
+// opp_h1 -> opp_h2 -> 5).  A geometry its layout does not fit is refused
+// (cudaErrorInvalidValue).
 extern "C" int mgt_rb_act(const float* p, const float* wp, const float* opp,
                           float* env, float* ring, float* met,
-                          int32_t* ep_step, int n, int tile, int opp_mode,
+                          int32_t* ep_step, int n, int rows, int rm, int rn,
+                          int resident, int chunk, int smem, int opp_mode,
                           int roll, int has_eps, int draws, int random_start,
                           int per, int r_cur, int opp_h1, int opp_h2,
                           uint32_t step, uint32_t threshold, uint32_t thr70,
@@ -1233,22 +1345,30 @@ extern "C" int mgt_rb_act(const float* p, const float* wp, const float* opp,
                           float time_penalty, cudaStream_t stream) {
   using namespace mgt;
   if (n <= 0) return 0;
-  if (tile <= 0 || tile > kRbThreads || (opp_mode == 2 && opp == nullptr))
+  const bool frozen = opp_mode == kOppFrozen;
+  if (opp_mode < kOppL0 || opp_mode > kOppFrozen || (frozen && opp == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  MlpDims od{kIn, opp_mode == 2 ? opp_h1 : 1, opp_mode == 2 ? opp_h2 : 1, kA};
-  RbActCfg ac{n, r_cur, opp_mode, roll, has_eps, draws, random_start, per,
-              step, threshold, thr70, k0, k1, scale, alpha};
-  EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
-             max_steps};
-  const size_t smem = static_cast<size_t>(tile) *
-                      (2 * kIn + kA + RbFwd::kFloats + od.in + od.h1 + od.h2) *
-                      sizeof(float);
-  cudaError_t err = allow_smem(rb_act_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Net<float> onet = net_at<float>(opp_mode == 2 ? opp : p, od);
-  rb_act_kernel<<<(n + tile - 1) / tile, kRbThreads, smem, stream>>>(
-      rb_net(p, wp), onet, od, env, ring, met, ep_step, tile, ac, cfg);
-  return static_cast<int>(cudaGetLastError());
+  const MlpDims od{kIn, frozen ? opp_h1 : 1, frozen ? opp_h2 : 1, kA};
+  const ActGeom g{rows, resident, chunk, smem};
+  if (!rb_act_geom_ok(g, opp_mode == kOppSelf ? 2 : 1,
+                      frozen ? &od : nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RbActCfg ac{n, r_cur, opp_mode, roll, has_eps, draws, random_start,
+                    per, step, threshold, thr70, k0, k1, scale, alpha};
+  const EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
+                   max_steps};
+  const Net<float> onet = net_at<float>(frozen ? opp : p, od);
+  switch (rm * 16 + rn) {
+#define MGT_CASE(M, N)                                                     \
+  case M * 16 + N:                                                         \
+    return static_cast<int>(launch_rb_act<M, N>(p, wp, onet, od, env, ring, \
+                                                met, ep_step, g, ac, cfg,  \
+                                                stream));
+    MGT_QNET_TILES(MGT_CASE)
+#undef MGT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int mgt_rb_per_pick(const float* ring, const float* us,

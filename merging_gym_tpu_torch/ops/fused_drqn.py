@@ -19,7 +19,8 @@ On the TPU the T steps of a chunk were the sequential grid of one launch.
 On the H100 a step is one hand-written kernel before the ring has filled
 and four after (``kernels/csrc/drqn_trainer.cu``), issued by
 :func:`launch_drqn` in a host loop on one stream, K5's design:
-``drqn_act`` (act / env / window / flush), then on a learning step the
+``drqn_act`` (act / env / window / flush, a few envs a block, geometry
+:func:`act_geometry`), then on a learning step the
 three kernels of :class:`Learner`: ``drqn_learn_in`` (the valid count and
 the input side of both nets, register-tiled), ``drqn_learn_rec`` (one warp
 per window and net: the recurrence forward and back, the heads, the
@@ -108,7 +109,7 @@ P = sum(math.prod(s) for _, s in LAYOUT)  # 7,949
 # order; the plain version repeats it.
 LEARN_WINDOWS = 4
 
-_ACT_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_ACT_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
              + [ctypes.c_uint32] * 4 + [ctypes.c_int] + [ctypes.c_float] * 5
              + [ctypes.c_void_p])
 _IN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -255,8 +256,9 @@ def _masks(done, burn_in):
 
 
 def _grads_plain(p, tp, batch, *, gamma, burn_in, windows):
-    """Gradient (flat layout), loss and valid count of one learn, as
-    ``drqn_learn`` and ``drqn_adam`` compute them.  ``batch`` rows-first:
+    """Gradient (flat layout), loss and valid count of one learn, as the
+    learner's kernels (``drqn_learn_in``, ``drqn_learn_rec``,
+    ``drqn_learn_grad``) compute them.  ``batch`` rows-first:
     obs [B, L+1, 10], action [B, L], reward [B, L], done [B, L] (f32)."""
     f32 = torch.float32
     X = batch["obs"].to(f32)
@@ -653,7 +655,8 @@ def fused_drqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
 
 
 def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
-                     greedy=False, rounds=None, cols=None) -> dict:
+                     greedy=False, rounds=None, cols=None,
+                     act_geom=None) -> dict:
     """Run ``num_steps`` DRQN training steps; returns the new carry.
 
     ``greedy=True`` makes both actors pure argmax and skips the Philox
@@ -662,7 +665,9 @@ def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     deterministic.  A carry on the CPU runs the plain version; on the card
     K9 runs, one launch per step before the ring has filled and four
     after, with no read-back until the chunk ends.  The input carry is
-    left as it was.
+    left as it was.  ``act_geom``: the act kernel's launch geometry in
+    place of :func:`act_geometry`'s (a forced partial last block in the
+    card's checks); the plain version has none.
     """
     if carry["env"].device.type == "cpu":
         return fused_drqn_chunk_plain(cfg, env_params, carry, num_steps, seed,
@@ -671,8 +676,74 @@ def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
                             rounds, cols)
     st = working_state(carry)
     launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
-                cols)
+                cols, act_geom)
     return _finish(carry, st, num_steps)
+
+
+# ---------------------------------------------------------------------------
+# The act kernel on the card: geometry
+# ---------------------------------------------------------------------------
+
+# drqn_act (drqn_trainer.cu:act_kernel): floats a row of a pass of its
+# arrays (kActRowFloats: the obs, h and c before the step, relu(z1), x2,
+# h w_hh, the gates, h and c after it, relu(z3), q, each row padded), the
+# bytes of one net held whole (kNetBytes: 7,949 floats, 16-byte sized), and
+# the tiles of the gates' passes (64 columns a seat's rows, 16 deep) that
+# the micro-tile of fc1 and the gates aims for: one a thread.
+ACT_ROW_FLOATS = 468
+ACT_NET_BYTES = (P * 4 + 15) // 16 * 16         # 31,808
+ACT_MIN_TILES = 256
+
+
+def act_seats(opponent: str) -> tuple:
+    """``(seats, nets)`` of an opponent mode: the rows a pass holds per env
+    (L0's seat 2 plays no net) and the nets the launch reads (a frozen
+    opponent's besides the player's; self-play's seat 2 plays the live
+    net)."""
+    return ((1, 1) if opponent == FT.OPP_L0 else
+            (2, 2) if opponent == FT.OPP_FROZEN else (2, 1))
+
+
+def act_micro_tile(prows: int) -> tuple:
+    """(RM, RN) of fc1's and the gates' passes of ``prows`` rows:
+    ``FM.micro_tile``'s rule with ``ACT_MIN_TILES`` on the gates (16 ->
+    64)."""
+    return FM.micro_tile((HID, 4 * HID, 1, 1), prows, ACT_MIN_TILES)
+
+
+def act_smem(rows: int, seats: int, resident: int) -> int:
+    """Shared-memory bytes of one ``drqn_act`` block (``drqn_trainer.cu:
+    act_total``): the first ``resident`` of the launch's nets held whole,
+    then the arrays of ``seats * rows`` rows."""
+    return resident * ACT_NET_BYTES + seats * rows * ACT_ROW_FLOATS * 4
+
+
+def act_tiling(rows: int, seats: int = 1, nets: int = 1,
+               resident: int | None = None) -> FT.ActGeometry | None:
+    """The act geometry for blocks of ``rows`` envs, ``seats * rows`` rows a
+    pass, with every one of the launch's ``nets`` held in shared memory
+    (``resident`` forces how many, in order; a net not held is read from
+    global memory); None where the layout does not fit a block."""
+    rm, rn = act_micro_tile(seats * rows)
+    held = nets if resident is None else resident
+    smem = act_smem(rows, seats, held)
+    if smem > kernels.SMEM_LIMIT:
+        return None
+    return FT.ActGeometry(rows, rm, rn, held, 0, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def act_geometry(num_envs: int, sms: int, seats: int = 1,
+                 nets: int = 1) -> FT.ActGeometry:
+    """``drqn_act``'s launch geometry for ``num_envs`` envs on ``sms`` SMs:
+    the smallest power of two of envs a block (at most
+    ``FT.ACT_ROWS_MAX``) that needs no more blocks than the card has SMs,
+    every net held (at the CLI's 1,024 envs on 132 SMs: 8 envs a block in
+    128 blocks).  Every such layout fits (at most 183,424 B)."""
+    top = 1
+    while top < FT.ACT_ROWS_MAX and -(-num_envs // top) > sms:
+        top *= 2
+    return act_tiling(top, seats, nets)
 
 
 # ---------------------------------------------------------------------------
@@ -862,16 +933,19 @@ class Learner:
 
 
 def launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
-                cols) -> None:
+                cols, act_geom=None) -> None:
     """Issue K9's kernels for ``num_steps`` steps on the current stream,
     updating the working state ``st`` (see :func:`working_state`) in
-    place."""
+    place; the act kernel in ``act_geom`` (by default
+    :func:`act_geometry`'s)."""
     n, B, L = carry["n"], carry["B"], carry["L"]
     names = ("p", "tp", "m", "v", "opp", "env", "win", "ring", "met", "loss")
     dev = kernels.require_cuda(*(st[k] for k in names))
     if st["p"].numel() != P or st["env"].shape != (ENV_ROWS, n):
         raise ValueError("K9 needs the 7,949-parameter DRQN and 75 env rows")
     learner = Learner(st, B, L)
+    g = act_geom or act_geometry(n, FM.sm_count(dev),
+                                 *act_seats(cfg.opponent))
     k0, k1 = philox.seed_key(seed)
     stream = kernels.stream_ptr(dev)
     act = kernels.function("drqn_trainer", "mgt_drqn_act", _ACT_ARGS)
@@ -886,9 +960,9 @@ def launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
         gstep = (carry["steps"] + i) & philox.MASK32
         rc = act(ptr(st["p"]), ptr(opp), ptr(st["env"]), ptr(st["win"]),
                  ptr(st["ring"]), ptr(st["met"]), n, L, wl, int(emit), r_cur,
-                 int(opp_code != 0), int(greedy),
-                 int(env_params.random_start), gstep, thr, k0, k1, *env_args,
-                 stream)
+                 opp_code, int(greedy), int(env_params.random_start), g.rows,
+                 g.rm, g.rn, g.resident, g.chunk, g.smem, gstep, thr, k0, k1,
+                 *env_args, stream)
         kernels.check("drqn_trainer", rc, "drqn_act launch")
         kernels.launch_counts["drqn_act"] += 1
         if learn:

@@ -23,7 +23,8 @@ and the auto-reset.
 
 On the H100 a step is a sequence of hand-written kernels
 (``kernels/csrc/rainbow_trainer.cu``) issued by :func:`fused_rainbow_chunk`
-on the current stream, K5's design: ``rb_act`` (act / env / store), on a
+on the current stream, K5's design: ``rb_act`` (act / env / store, a few
+envs a block, geometry :func:`act_geometry`), on a
 learning step ``rb_per_pick`` (PER only), ``rb_learn_fwd`` (each sampled
 lane's forwards and backward, a few lanes a block, its row factors to a
 workspace; :class:`Learner`, geometry :func:`learn_geometry`) and
@@ -127,14 +128,14 @@ NUM_P, NUM_E = _p, _e                       # 58,884 and 28,210
 NUM_G = TRUNK_P + NUM_E                     # gradient layout: trunk + mu
 P_OFF, E_OFF = tuple(P_OFF), tuple(E_OFF)
 
-ACT_TILE = 16        # envs per block of rb_act
-LEARN_TILE = 16      # lanes per block of rb_learn (the batch-sum tile),
-                     # 8 for a PER batch that 16 does not divide
+LEARN_TILE = 16      # lanes per summation tile of the learner's batch
+                     # sums (rb_learn_fwd / rb_learn_grad), 8 for a PER
+                     # batch that 16 does not divide
 STREAM_NOISE = 8
 STREAM_FROZEN = philox.STREAM_OPPONENT
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_ACT_ARGS = [_P] * 7 + [_I] * 11 + [_U] * 5 + [_F] * 2 + [_I] + [_F] * 5 + [_P]
+_ACT_ARGS = [_P] * 7 + [_I] * 16 + [_U] * 5 + [_F] * 2 + [_I] + [_F] * 5 + [_P]
 _PICK_ARGS = [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P]
 _FWD_ARGS = [_P] * 13 + [_I] * 6 + [_F] * 3 + [_I] * 2 + [_P]
 _GRAD_ARGS = [_P] * 6 + [_I] * 2 + [_F] * 8 + [_I] * 2 + [_P]
@@ -362,8 +363,8 @@ def _projection(next_probs, reward, done, gamma, faithful):
 
 
 def learn_tile(batch: int) -> int:
-    """Lanes per ``rb_learn`` block: 16, or 8 where 16 does not divide the
-    batch (a PER batch is a multiple of 8)."""
+    """Lanes per summation tile of the learner's batch sums: 16, or 8
+    where 16 does not divide the batch (a PER batch is a multiple of 8)."""
     return LEARN_TILE if batch % LEARN_TILE == 0 else LEARN_TILE // 2
 
 
@@ -371,7 +372,8 @@ def _grads_plain(p, tp, wp, wt, batch, weights, *, gamma, obs_scale,
                  faithful):
     """Gradient (``NUM_G`` layout), loss and per-lane CE of one C51 learn
     on ``batch`` (rows-first: obs [B, 10], action, reward, next_obs,
-    done), as ``rb_learn`` and ``rb_adam`` compute them."""
+    done), as the learner's kernels (``rb_learn_fwd``, ``rb_learn_grad``)
+    compute them."""
     f32 = torch.float32
     scale = 1.0 if obs_scale is None else float(obs_scale)
     x = batch["obs"].to(f32) * scale
@@ -940,6 +942,86 @@ def fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
 
 
 # ---------------------------------------------------------------------------
+# The act kernel on the card: geometry
+# ---------------------------------------------------------------------------
+
+# rb_act (rainbow_trainer.cu:rb_act_kernel): floats a row of a pass of its
+# arrays (kActRowFloats: the scaled obs, h1, h2, hv1 | ha1, value2's and
+# advantage2's outputs, the distributions and q, each row padded), bytes
+# of the online net held whole (the trunk and the effective noisy weights,
+# kNumG floats, 16-byte sized), and the tiles of its widest pass (value2
+# with advantage2, 306 columns) that the micro-tile aims for: two a thread
+# (chip_smoke.py:rb_act_sweep put 4x1 at 8 envs a block 11% ahead of 4x2,
+# one a thread, and the rule's pick ahead at 4, 16 and 32 too).
+ACT_ROW_FLOATS = 836
+ACT_NET_BYTES = (NUM_G * 4 + 15) // 16 * 16         # 122,704
+ACT_MIN_TILES = 512
+
+
+def act_micro_tile(prows: int) -> tuple:
+    """(RM, RN) of the act kernel's passes of ``prows`` rows:
+    ``FM.micro_tile``'s rule with ``ACT_MIN_TILES`` on its widest pass,
+    value2 and advantage2 (64 -> 51 + 255) taken as one layer."""
+    return FM.micro_tile((H1, ATOMS + A * ATOMS, 1, 1), prows, ACT_MIN_TILES)
+
+
+def act_smem(rows: int, seats: int, resident: int, opp_dims=None,
+             chunk: int = 0) -> int:
+    """Shared-memory bytes of one ``rb_act`` block (``rainbow_trainer.cu:
+    RbActSmem``): the online net where it is held, the arrays of ``seats *
+    rows`` rows, and with a frozen opponent of widths ``opp_dims`` its
+    MLP's layout (``act_tiled.cuh:ActSmem`` for ``rows`` rows, the weights
+    streamed through two buffers of ``chunk`` floats)."""
+    n = (ACT_NET_BYTES if resident else 0) + seats * rows * ACT_ROW_FLOATS * 4
+    if opp_dims is not None:
+        n += FT.act_smem((tuple(opp_dims),), rows, 4, 0, chunk, 1)
+    return n
+
+
+def act_tiling(rows: int, seats: int = 1, opp_dims=None,
+               resident: int | None = None) -> FT.ActGeometry | None:
+    """The act geometry for blocks of ``rows`` envs, ``seats * rows`` rows a
+    pass (self-play: 2), a frozen opponent's MLP of widths ``opp_dims``
+    streamed (None: no such opponent): the online net held in shared memory
+    where it fits (``resident`` forces 1 or 0; at 0 its layers are read
+    from global memory), the opponent's weights through two buffers that
+    take the rest of the block's shared memory (``FM.weight_chunk``); None
+    where that leaves no room."""
+    rm, rn = act_micro_tile(seats * rows)
+    for held in (1, 0) if resident is None else (resident,):
+        smem = act_smem(rows, seats, held)
+        if opp_dims is None:
+            if smem <= kernels.SMEM_LIMIT:
+                return FT.ActGeometry(rows, rm, rn, held, 0, smem)
+            continue
+        room = kernels.SMEM_LIMIT - act_smem(rows, seats, held, opp_dims)
+        chunk = FM.weight_chunk(tuple(opp_dims), room, 4)
+        if chunk is not None:
+            return FT.ActGeometry(rows, rm, rn, held, chunk, act_smem(
+                rows, seats, held, opp_dims, chunk))
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def act_geometry(num_envs: int, sms: int, seats: int = 1,
+                 opp_dims=None) -> FT.ActGeometry:
+    """``rb_act``'s launch geometry for ``num_envs`` envs on ``sms`` SMs
+    (:func:`act_tiling`'s arguments otherwise): the smallest power of two
+    of envs a block (at most ``FT.ACT_ROWS_MAX``) that needs no more blocks
+    than the card has SMs, halved while nothing fits.  At the CLI's 1,024
+    envs on 132 SMs: 8 envs a block in 128 blocks, the online net held."""
+    top = 1
+    while top < FT.ACT_ROWS_MAX and -(-num_envs // top) > sms:
+        top *= 2
+    for rows in (top >> i for i in range(top.bit_length())):
+        g = act_tiling(rows, seats, opp_dims)
+        if g is not None:
+            return g
+    raise ValueError(f"a frozen opponent of widths {opp_dims} does not fit "
+                     f"the {kernels.SMEM_LIMIT} B of shared memory of a block")
+
+
+# ---------------------------------------------------------------------------
 # The learner on the card: geometry, workspace, launches
 # ---------------------------------------------------------------------------
 
@@ -1084,7 +1166,8 @@ class Learner:
 # ---------------------------------------------------------------------------
 
 def fused_rainbow_chunk(cfg, env_params, carry, num_steps, seed, *,
-                        greedy=False, rounds=None, cols=None, us=None) -> dict:
+                        greedy=False, rounds=None, cols=None, us=None,
+                        act_geom=None) -> dict:
     """Run ``num_steps`` Rainbow training steps; returns the new carry.
 
     ``rounds`` (i32 ``[num_steps]``, default drawn on the host from ``seed
@@ -1096,7 +1179,9 @@ def fused_rainbow_chunk(cfg, env_params, carry, num_steps, seed, *,
     deterministic.  A carry on the CPU runs the plain version; on the card
     K8 runs, 2 launches per warm-up step and 4 (uniform) or 5 (PER) per
     learning step, with no read-back inside the chunk.  The input carry is
-    left as it was.
+    left as it was.  ``act_geom``: the act kernel's launch geometry in
+    place of :func:`act_geometry`'s (a forced partial last block in the
+    card's checks); the plain version has none.
     """
     if carry["env"].device.type == "cpu":
         return fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps,
@@ -1106,16 +1191,17 @@ def fused_rainbow_chunk(cfg, env_params, carry, num_steps, seed, *,
                                 greedy, rounds, cols, us)
     st = working_state(carry)
     learned = launch_rainbow(st, carry, cfg, env_params, num_steps, seed,
-                             greedy, rounds, cols, us)
+                             greedy, rounds, cols, us, act_geom=act_geom)
     return _finish(carry, st, num_steps, cfg.n_step, learned)
 
 
 def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
-                   rounds, cols, us, geometry=None) -> bool:
+                   rounds, cols, us, geometry=None, act_geom=None) -> bool:
     """Issue K8's kernels for ``num_steps`` steps on the current stream,
     updating the working state ``st`` (see :func:`working_state`) in
     place; returns whether the last step learned.  ``geometry``: the
-    learner's, in place of :func:`learn_geometry`'s."""
+    learner's, in place of :func:`learn_geometry`'s; ``act_geom``: the act
+    kernel's, in place of :func:`act_geometry`'s."""
     n, R, B = carry["n"], carry["R"], carry.get("B", carry["n"])
     ns = cfg.n_step
     frozen = cfg.opponent == FT.OPP_FROZEN
@@ -1128,6 +1214,9 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
         raise ValueError("the frozen opponent must be a 10 -> 5 Q-net")
     st["wpt"] = torch.empty(NUM_T, dtype=torch.float32, device=dev)
     learner = Learner(st, B, geometry)
+    seats = 2 if cfg.opponent == FT.OPP_SELFPLAY else 1
+    g = act_geom or act_geometry(n, FM.sm_count(dev), seats,
+                                 opp_dims if frozen else None)
     total0, synced0 = _sync_start(st["env"])
     tot = torch.zeros(num_steps + 1, dtype=torch.int32)
     tot[0] = total0
@@ -1176,7 +1265,8 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
         gstep = (carry["steps"] + i) & philox.MASK32
         launch("act", "rainbow_act", ptr(st["p"]), ptr(st["wp"]),
                ptr(st["opp"]), ptr(st["env"]), ptr(st["ring"]),
-               ptr(st["met"]), ptr(ep_step[i:]), n, ACT_TILE, opp_code,
+               ptr(st["met"]), ptr(ep_step[i:]), n, g.rows, g.rm, g.rn,
+               g.resident, g.chunk, g.smem, opp_code,
                cfg.opponent_roll, int(has_eps), int(not greedy),
                int(env_params.random_start), int(cfg.per), r_cur,
                opp_dims[1], opp_dims[2], gstep, thr, thr70, k0, k1, scale,

@@ -769,6 +769,96 @@ def test_k8_refuses_a_geometry_its_layout_does_not_fit(cuda):
             FRB.launch_rainbow(FRB.working_state(warm), *args, geometry=bad)
 
 
+# The act kernel of K8 (rainbow_trainer.cu:rb_act_kernel) at the training
+# CLI's 1,024 envs, where the rule gives 8 envs a block in 128 blocks with
+# the online net held, here forced to 24 envs a block (43 blocks, the last
+# with 16: the rule's power-of-two rows divide every env count the
+# trainers take), against each opponent and with PER 3-step: (opponent,
+# PER 3-step).
+K8_ACT_CASES = {"l0_last_block_16_of_24": ("L0", False),
+                "selfplay_last_block_16_of_24": ("selfplay", False),
+                "frozen_last_block_16_of_24": ("frozen", False),
+                "per_3step_last_block_16_of_24": ("selfplay", True)}
+
+
+@pytest.mark.parametrize("case", list(K8_ACT_CASES))
+def test_k8_act_partial_last_block_equals_plain_and_repeats(cuda, case):
+    opponent, per = K8_ACT_CASES[case]
+    n = 1024
+    cfg = RB.RainbowConfig(lr=1e-3, gamma=0.9, target_sync_episodes=3,
+                           memory_capacity=4 * n, obs_scale=0.01,
+                           opponent=opponent)
+    if per:
+        cfg = cfg.replace(per=True, n_step=3, batch_size=40)
+    kw = {}
+    if opponent == "frozen":
+        kw = dict(opp_params=qnet_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+    ep = EnvParams(max_steps=40)
+    carry = FRB.fused_rainbow_init(0, cfg, ep, n, device=cuda, **kw)
+    carry["env"] = _race_rows(carry["env"], n, cuda, 7)
+    seats = 2 if opponent == "selfplay" else 1
+    od = FT._dims(carry["opp"]) if opponent == "frozen" else None
+    rule = FRB.act_geometry(n, FM.sm_count(cuda), seats, od)
+    assert (rule.rows, rule.resident, -(-n // rule.rows)) == (8, 1, 128)
+    g = FRB.act_tiling(24, seats, od)
+    assert (-(-n // g.rows), n % g.rows) == (43, 16)
+    got = want = again = carry
+    before = kernels.launch_counts["rainbow_act"]
+    for seed, T in enumerate((1, 12)):
+        got = FRB.fused_rainbow_chunk(cfg, ep, got, T, seed, greedy=True,
+                                      act_geom=g)
+        want = FRB.fused_rainbow_chunk_plain(cfg, ep, want, T, seed,
+                                             greedy=True)
+        again = FRB.fused_rainbow_chunk(cfg, ep, again, T, seed,
+                                        greedy=True, act_geom=g)
+    assert kernels.launch_counts["rainbow_act"] - before == 2 * 13
+    assert got["learns"] == 13 - cfg.n_step and got["episodes"] > 0
+    for k in K8_KEYS:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
+
+
+def test_k8_act_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the act kernel's geometry before the launch:
+    shared memory short of its layout, more envs a block than owner
+    threads, a held-net count other than 0 or 1, a micro-tile it does not
+    instantiate, buffers without a frozen opponent, and a frozen
+    opponent's buffers not 16-byte sized or short of one k-row of its
+    widest layer.  The geometries it takes (the net held or read from
+    global memory) give the plain version's step."""
+    n = 256
+    cfg = RB.RainbowConfig(gamma=0.9, memory_capacity=4 * n, obs_scale=0.01)
+    ep = EnvParams(max_steps=40)
+    fcfg = cfg.replace(opponent="frozen")
+    opp = qnet_init(torch.Generator(device=cuda).manual_seed(5), 10, 5)
+    carries = {c.opponent: FRB.fused_rainbow_init(
+        0, c, ep, n, opp if c is fcfg else None, device=cuda)
+        for c in (cfg, fcfg)}
+    assert cfg.opponent == "selfplay"
+    od = FT._dims(carries["frozen"]["opp"])
+    g, gf = FRB.act_tiling(8, 2), FRB.act_tiling(8, 1, od)
+    for c, ok in ((cfg, g), (cfg, FRB.act_tiling(8, 2, resident=0)),
+                  (fcfg, gf), (fcfg, FRB.act_tiling(8, 1, od, resident=0))):
+        carry = carries[c.opponent]
+        got = FRB.fused_rainbow_chunk(c, ep, carry, 1, 0, greedy=True,
+                                      act_geom=ok)
+        want = FRB.fused_rainbow_chunk_plain(c, ep, carry, 1, 0, greedy=True)
+        for k in ("env", "ring"):
+            assert torch.equal(got[k], want[k]), k
+    for c, bad in ((cfg, g._replace(smem=g.smem - 4)),
+                   (cfg, g._replace(rows=64)), (cfg, g._replace(resident=2)),
+                   (cfg, g._replace(rm=3)), (cfg, g._replace(chunk=256)),
+                   (fcfg, gf._replace(chunk=gf.chunk - 2)),
+                   (fcfg, gf._replace(chunk=96)),
+                   (fcfg, gf._replace(smem=gf.smem - 16))):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FRB.fused_rainbow_chunk(c, ep, carries[c.opponent], 1, 0,
+                                    greedy=True, act_geom=bad)
+
+
 def _shrink_drqn(flat):
     """Each of the twelve arrays centred and scaled by 0.05: a decisive
     argmax (tests/test_fused_drqn_e2e.py:_shrink)."""
@@ -887,6 +977,78 @@ def test_k9_refuses_a_geometry_its_layout_does_not_fit(cuda):
                 g._replace(rec_windows=8)):
         with pytest.raises(RuntimeError, match="invalid argument"):
             FD.Learner(st, 128, 4, bad).launch(cfg, 0, 0, False, 1)
+
+
+# The act kernel of K9 (drqn_trainer.cu:act_kernel) at the training CLI's
+# 1,024 envs, where the rule gives 8 envs a block in 128 blocks with every
+# net held, here forced to 24 envs a block (43 blocks, the last with 16),
+# against each opponent.
+K9_ACT_CASES = ("L0", "selfplay", "frozen")
+
+
+@pytest.mark.parametrize("opponent", K9_ACT_CASES)
+def test_k9_act_partial_last_block_equals_plain_and_repeats(cuda, opponent):
+    n, L = 1024, 4
+    cfg = DR.DRQNConfig(lr=1e-3, gamma=0.9, target_sync=3, seq_len=L,
+                        burn_in=1, memory_capacity=2 * n, opponent=opponent)
+    ep, kw = EnvParams(max_steps=20), {}
+    if opponent == "frozen":
+        kw = dict(opp_params=drqn_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+    carry = FD.fused_drqn_init(0, cfg, ep, n, device=cuda, **kw)
+    carry["p"], carry["tp"] = _shrink_drqn(carry["p"]), _shrink_drqn(
+        carry["tp"])
+    carry["opp"] = (_shrink_drqn(carry["opp"]) if opponent == "frozen"
+                    else carry["p"])
+    carry["env"][0:8] = _race_rows(carry["env"], n, cuda, 8)[0:8]
+    carry["win"][0:10] = FD._obs_rows(carry["env"][0:8])
+    seats, nets = FD.act_seats(opponent)
+    rule = FD.act_geometry(n, FM.sm_count(cuda), seats, nets)
+    assert (rule.rows, rule.resident, -(-n // rule.rows)) == (8, nets, 128)
+    g = FD.act_tiling(24, seats, nets)
+    assert (-(-n // g.rows), n % g.rows) == (43, 16)
+    got = want = again = carry
+    before = kernels.launch_counts["drqn_act"]
+    for seed, T in enumerate((3, 13)):
+        got = FD.fused_drqn_chunk(cfg, ep, got, T, seed, greedy=True,
+                                  act_geom=g)
+        want = FD.fused_drqn_chunk_plain(cfg, ep, want, T, seed, greedy=True)
+        again = FD.fused_drqn_chunk(cfg, ep, again, T, seed, greedy=True,
+                                    act_geom=g)
+    assert kernels.launch_counts["drqn_act"] - before == 2 * 16
+    assert got["learns"] == 16 - 7 and got["episodes"] > 0
+    for k in ("p", "tp", "m", "v", "env", "win", "ring"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+    for k in ("episodes", "collisions", "wins", "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k] == again[k], k
+
+
+def test_k9_act_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """The C side checks the act kernel's geometry before the launch:
+    shared memory short of its layout, more envs a block than owner
+    threads, more nets held than the launch has, a micro-tile it does not
+    instantiate, and streaming buffers (it has none).  The geometries it
+    takes (each count of nets held) give the plain version's step."""
+    n = 256
+    cfg = DR.DRQNConfig(seq_len=4, burn_in=1, memory_capacity=2 * n,
+                        opponent="frozen")
+    ep = EnvParams(max_steps=20)
+    carry = FD.fused_drqn_init(0, cfg, ep, n, device=cuda, opp_params=(
+        drqn_init(torch.Generator(device=cuda).manual_seed(5), 10, 5)))
+    want = FD.fused_drqn_chunk_plain(cfg, ep, carry, 1, 0, greedy=True)
+    for held in (0, 1, 2):
+        got = FD.fused_drqn_chunk(cfg, ep, carry, 1, 0, greedy=True,
+                                  act_geom=FD.act_tiling(8, 2, 2, held))
+        for k in ("env", "win"):
+            assert torch.equal(got[k], want[k]), k
+    g = FD.act_tiling(8, 2, 2)
+    for bad in (g._replace(smem=g.smem - 4), g._replace(rows=64),
+                g._replace(resident=3), g._replace(rm=3),
+                g._replace(chunk=8)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FD.fused_drqn_chunk(cfg, ep, carry, 1, 0, greedy=True,
+                                act_geom=bad)
 
 
 def test_k3_refuses_a_geometry_its_layout_does_not_fit(cuda):

@@ -9,7 +9,9 @@ Phases, each of which raises (non-zero exit) on failure:
      ``merging_gym_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel);
   2. run each kernel and its plain version on the same inputs on the card,
      at the main path's shapes, and compare at the JAX tests' tolerances
-     (K6 bit for bit at each of its geometry choices: ``k6_cases``);
+     (K6 bit for bit at each of its geometry choices: ``k6_cases``; K8's
+     ``rb_post`` and ``rb_per_pick`` also alone, in every mode and layout:
+     ``check_rb_post_pick``);
   3. the two main paths, each with every launch count set to 0 just before
      it and read just after.  Evaluation: the env rollout at 4,096 envs as
      ``bench.py`` drives it (K1 trajectories, K2 counters), then ``eval
@@ -47,7 +49,10 @@ Phases, each of which raises (non-zero exit) on failure:
      and one act launch of K5 and K7 at each envs a block and micro-tile
      (``act_geometry_sweep``, on the same line); K6 at
      every envs a block and micro-tile (``k6_geometry_sweep``) and ``eval
-     --fused`` split by phase (``eval_fused_split``).
+     --fused`` split by phase (``eval_fused_split``); K8's PER 3-step
+     learning step split by kernel, ``rb_post`` and ``rb_per_pick`` beside
+     their bounds, an empty kernel and the library's versions, and both
+     alone by mode, batch and layout (``k8_post_pick_sweep``).
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero.
 """
@@ -536,6 +541,9 @@ def check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev):
         "greedy 3-step": (sp.replace(n_step=3), ep60, {}, (20,), True, True),
         "greedy PER 3-step": (sp.replace(per=True, n_step=3), ep60, {},
                               (3, 20), True, True),
+        "phi-greedy PER 3-step, noise redrawn": (
+            sp.replace(per=True, n_step=3, epsilon=0.7), ep60, {}, (3, 20),
+            False, True),
         "phi-greedy noise random_start": (
             sp.replace(epsilon=0.7), EnvParams(random_start=True,
                                                max_steps=20), {}, (24,),
@@ -1350,6 +1358,280 @@ def drqn_learn_sweep(torch, kernels, FD, FM, DR, EnvParams, dev):
                 for t in FD.GRAD_THREADS}}
 
 
+RB_NUM_T = 29824       # the online net's transposed weights (rb_post)
+RB_W1 = 32 * 64        # the trunk's w1, transposed by rb_post
+
+
+def post_bytes(n, B, regen, sync, per_wb, check_sync):
+    """Bytes ``rb_post`` must move in one call, f32 and i32 at 4 B, each
+    input read once and each output written once.  Read: mu and sigma of
+    both nets' noisy layers (the target's from tp, or from p on a sync),
+    w1 (for its transpose), the noise where it is not redrawn, on a sync
+    the rest of p (the copy), with the PER write-back the B CEs, their
+    (round, lane) picks and env row 13, with the sync check the two
+    episode counts.  Written: both nets' effective weights, the
+    transposes, the noise where redrawn, tp on a sync, with the write-back
+    B priorities and env row 13, with the sync check env row 11 and the
+    total."""
+    E = RB_ELEMS
+    read = (2 * E + (0 if sync else 2 * E) + RB_W1 + (0 if regen else 2 * E)
+            + (RB_PARAMS - 2 * E - RB_W1 if sync else 0)
+            + (3 * B + n if per_wb else 0) + (2 if check_sync else 0))
+    write = (2 * E + RB_NUM_T + (2 * E if regen else 0)
+             + (RB_PARAMS if sync else 0) + (B + n if per_wb else 0)
+             + (n + 1 if check_sync else 0))
+    return 4 * (read + write)
+
+
+def post_flops(regen):
+    """f32 operations of ``rb_post`` on both nets: a multiply and an add
+    per effective weight, a multiply per redrawn weight entry (f_out *
+    f_in); the draws' Box-Muller and Philox work is not counted."""
+    return 2 * 2 * RB_ELEMS + (2 * RB_ELEMS if regen else 0)
+
+
+def pick_bytes(valid_rounds, n, B):
+    """Bytes ``rb_per_pick`` must move: the priorities of the valid rounds
+    (the masked ones are not needed), the offset, and the B (round, lane)
+    picks and weights written."""
+    return 4 * (valid_rounds * n + 1 + 3 * B)
+
+
+def pick_flops(R, n, B):
+    """Its f32 operations: the cdf's R * n adds and the chunk prefix, per
+    target the offset (3), ~log2(R * n) compares of an add each, and the
+    weight (2 powers of ~4 operations, 3 multiplies)."""
+    N = R * n
+    return N + N // 128 + B * (3 + 2 * max(N - 1, 1).bit_length() + 11)
+
+
+def empty_kernel_ms(torch, kernels, dev):
+    """Device ms of an empty one-block kernel by CUDA-graph replay: the
+    floor under any launch's time (rainbow_trainer.cu:rb_empty_kernel)."""
+    import ctypes
+    fn = kernels.function("rainbow_trainer", "mgt_rb_empty",
+                          [ctypes.c_void_p])
+
+    def run():
+        if fn(kernels.stream_ptr(dev)) != 0:
+            raise RuntimeError("rb_empty_kernel launch failed")
+    return graph_ms(torch, run)
+
+
+def pick_library_ms(torch, ring, R, n, B, r_cur, stored, n_step, u0):
+    """Device ms (``graph_ms``) of the library's version of the PER pick on
+    the same ring: the masked grid by ``torch.where``, ``torch.cumsum``,
+    ``torch.searchsorted`` of the B targets, clipped, and a gather of the
+    picked priorities."""
+    dev = ring.device
+    age = (r_cur - torch.arange(R, device=dev) + R) % R
+    valid = ((age >= n_step - 1) & (age <= stored - 1))[:, None]
+    prio = ring.view(R, -1, n)[:, -1]
+    steps = (torch.arange(B, dtype=torch.float32, device=dev) + u0) / B
+
+    def run():
+        P = torch.where(valid, prio, 0.0).reshape(-1)
+        cdf = torch.cumsum(P, 0)
+        idx = torch.searchsorted(cdf, cdf[-1] * steps, right=True)
+        return P[idx.clamp_(max=R * n - 1)]
+    return graph_ms(torch, run)
+
+
+def post_library_ms(torch, FRB, st):
+    """Device ms (``graph_ms``) of the library's version of the post on a
+    working state's nets, the factors drawn beforehand (the library has no
+    Philox Box-Muller): per net and noisy layer ``torch.outer`` of the
+    factor vectors and the bias vector copied into the noise, ``torch.
+    addcmul`` for the effective weights and biases; the online net's
+    weights and w1 transposed by ``.t().contiguous()``."""
+    dev = st["p"].device
+    g = torch.Generator(device=dev).manual_seed(5)
+    eps = [st["eps"].clone(), st["teps"].clone()]
+    weff = [torch.empty_like(st["eps"]), torch.empty_like(st["teps"])]
+    nets = [st["p"], st["tp"]]
+    layers = list(zip(FRB.E_OFF, FRB.P_OFF, FRB.NOISY_OUT))
+    fac = [[(torch.randn(64, generator=g, device=dev),
+             torch.randn(o, generator=g, device=dev),
+             torch.randn(o, generator=g, device=dev)) for _, _, o in layers]
+           for _ in range(2)]
+    w1 = FRB.IN_DIM * 32 + 32
+
+    def run():
+        for net in range(2):
+            p, ep, we = nets[net], eps[net], weff[net]
+            for (e0, p0, o), (fin, fout, fb) in zip(layers, fac[net]):
+                w = 64 * o
+                torch.outer(fin, fout, out=ep[e0:e0 + w].view(64, o))
+                ep[e0 + w:e0 + w + o].copy_(fb)
+                torch.addcmul(p[p0:p0 + w], p[p0 + w:p0 + 2 * w],
+                              ep[e0:e0 + w], out=we[e0:e0 + w])
+                torch.addcmul(p[p0 + 2 * w:p0 + 2 * w + o],
+                              p[p0 + 2 * w + o:p0 + 2 * w + 2 * o],
+                              ep[e0 + w:e0 + w + o],
+                              out=we[e0 + w:e0 + w + o])
+        out = [weff[0][e0:e0 + 64 * o].view(64, o).t().contiguous()
+               for e0, _, o in layers]
+        return out + [nets[0][w1:w1 + 2048].view(32, 64).t().contiguous()]
+    return graph_ms(torch, run)
+
+
+PICK_CASES = ((8, 1024, 32), (4, 128, 8), (8, 1024, 1024), (16, 4096, 32))
+PICK_GRIDS = ("random", "zeros", "tied", "dominant")
+
+
+def post_state(torch, np, FRB, dev, n, R, B, seed):
+    """A working state for ``rb_post`` alone: random nets, noise, env rows
+    and ring at ``n`` lanes and R rounds; B CEs and picks, the second pick
+    a duplicate of the first with the same CE."""
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    st = {"p": f32(rng.standard_normal(FRB.NUM_P) * 0.1),
+          "tp": f32(rng.standard_normal(FRB.NUM_P) * 0.1),
+          "eps": f32(rng.standard_normal(FRB.NUM_E)),
+          "teps": f32(rng.standard_normal(FRB.NUM_E)),
+          "env": f32(rng.random((FRB.ENV_ROWS, n))),
+          "ring": f32(rng.random((R * FRB.NUM_F, n)))}
+    for k in ("wp", "wt"):
+        st[k] = torch.full((FRB.NUM_E,), float("nan"), device=dev)
+    st["wpt"] = torch.full((FRB.NUM_T,), float("nan"), device=dev)
+    sel = torch.as_tensor(np.stack([rng.integers(0, R, B),
+                                    rng.integers(0, n, B)]),
+                          dtype=torch.int32, device=dev)
+    ce = f32(rng.random(B) * 3)
+    sel[:, 1], ce[1] = sel[:, 0], ce[0]
+    return st, sel, ce
+
+
+def pick_ring(torch, np, FRB, dev, R, n, kind, seed):
+    """A ring of R rounds of ``n`` lanes whose priorities (row 23) are
+    random, zero in 30% of the slots, in round 0's first chunk (where the
+    round has more) and in the whole last round ("zeros"), all tied, or one
+    slot dominant."""
+    rng = np.random.default_rng(seed)
+    ring = rng.random((R * FRB.NUM_F, n)).astype(np.float32)
+    P = rng.random((R, n)).astype(np.float32) * 2
+    if kind == "zeros":
+        P[rng.random((R, n)) < 0.3] = 0.0
+        P[0, :128 if n > 128 else 0] = 0.0
+        P[R - 1] = 0.0
+    elif kind == "tied":
+        P[:] = 0.25
+    elif kind == "dominant":
+        P *= 1e-6
+        P[R // 2, n - 1] = 1e3
+    ring[FRB.NUM_F - 1::FRB.NUM_F] = P
+    return torch.as_tensor(ring, device=dev)
+
+
+def check_rb_post_pick(checks, torch, np, FRB, dev):
+    """``rb_post`` and ``rb_per_pick`` alone against their plain versions
+    (``post_plain``, ``pick_plain``), bit for bit, at the main paths'
+    shapes.  The post at 1,024 lanes, R 8, B 32: the chunk-opening post,
+    then every combination of the noise redraw, the target sync and the
+    PER write-back, each run twice on fresh copies for the same bits.  The
+    pick at (R, n, B) in PICK_CASES, each on the grids of ``pick_ring``,
+    in the layout ``pick_geometry`` picks (the global cdf at R 16, n
+    4,096) and at the CLI's shape in the global layout too."""
+    n, R, B = N_TRAIN, 8, 32
+    base, sel, ce = post_state(torch, np, FRB, dev, n, R, B, 21)
+    key = FRB.philox.seed_key(77)
+    inv_sync = float(np.float32(1.0 / 20))
+    modes = [("chunk-opening", 0, 0, 0, 0, 0)] + [
+        (f"regen {r} sync {s} per_wb {w}", 3, r, w, 1, 30 * s)
+        for r in (0, 1) for s in (0, 1) for w in (0, 1)]
+    for what, i, regen, per_wb, check_sync, ep in modes:
+        tot = torch.zeros(5, dtype=torch.int32, device=dev)
+        tot[i] = 37
+        ep_step = torch.zeros(4, dtype=torch.int32, device=dev)
+        ep_step[i] = ep
+        want = {k: v.clone() for k, v in base.items()}
+        want_tot = tot.clone()
+        FRB.post_plain(want, want_tot, ep_step, ce, sel, i=i, regen=regen,
+                       per_wb=per_wb, check_sync=check_sync, gstep=11,
+                       key=key, alpha=0.6, inv_sync=inv_sync, synced0=1.0)
+        for run in range(2):
+            st = {k: v.clone() for k, v in base.items()}
+            got_tot = tot.clone()
+            FRB.post_launcher(st, got_tot, ep_step, ce, sel, B, key, 0.6,
+                              inv_sync, 1.0)(i, regen, per_wb, check_sync,
+                                             11)
+            for k in want:
+                checks.equal("K8", f"rb_post {what} {k}", st[k], want[k])
+            checks.equal("K8", f"rb_post {what} tot", got_tot, want_tot)
+        synced = not torch.equal(want["tp"], base["tp"])
+        if synced != (ep > 0):
+            raise AssertionError(f"rb_post {what}: sync {synced}")
+    print(f"rb_post alone: {len(modes)} modes x 2 runs bit-equal to "
+          "post_plain", flush=True)
+    count = 0
+    for (R, n, B), kind in ((c, k) for c in PICK_CASES for k in PICK_GRIDS):
+        ring = pick_ring(torch, np, FRB, dev, R, n, kind, R * n + B)
+        r_cur, stored, n_step = R // 2, R, 3
+        us = torch.tensor([0.61], device=dev)
+        want = FRB.pick_plain(ring, us, R, n, B, r_cur, stored, n_step, 0.4)
+        layouts = [FRB.pick_geometry(R, n)]
+        if (R, n, B) == PICK_CASES[0]:
+            layouts.append(FRB.pick_tiling(R, n, FRB.PICK_GLOBAL))
+        for g in layouts:
+            sel = torch.zeros(2, B, dtype=torch.int32, device=dev)
+            wts = torch.zeros(B, device=dev)
+            FRB.pick_launcher(ring, sel, wts, B, n_step, 0.4, g)(
+                r_cur, stored, us)
+            what = f"rb_per_pick R {R} n {n} B {B} {kind} layout {g.layout}"
+            checks.equal("K8", f"{what} sel", sel, want[0])
+            checks.equal("K8", f"{what} wts", wts, want[1])
+            count += 1
+    if FRB.pick_geometry(16, 4096).layout != FRB.PICK_GLOBAL:
+        raise AssertionError("R 16, n 4,096 did not take the global cdf")
+    print(f"rb_per_pick alone: {count} cases bit-equal to pick_plain",
+          flush=True)
+
+
+def rb_post_pick_sweep(torch, np, kernels, FRB, dev):
+    """``rb_post`` and ``rb_per_pick`` alone, device ms of one launch
+    (``kernel_split``, so on the capturing stream).  The post at 1,024
+    lanes, R 8, B 32 in each mode; the pick at R 8, n 1,024 with B 8, 32
+    and 1,024 in both layouts, and at R 16, n 4,096, B 32 in the global
+    one."""
+    n, R, B = N_TRAIN, 8, 32
+    base, sel, ce = post_state(torch, np, FRB, dev, n, R, B, 22)
+    key = FRB.philox.seed_key(3)
+    ep_step = torch.tensor([30], dtype=torch.int32, device=dev)
+
+    def post(mode):
+        st = {k: v.clone() for k, v in base.items()}
+        tot = torch.tensor([37, 0], dtype=torch.int32, device=dev)
+        eps = ep_step if mode[3] else ep_step * 0
+        return kernel_split(torch, kernels, lambda: FRB.post_launcher(
+            st, tot, eps, ce, sel, B, key, 0.6, float(np.float32(0.05)),
+            1.0)(0, *mode[:3], 5), dev)[0][1]
+    # (regen, per_wb, check_sync, sync)
+    modes = {"chunk-opening": (0, 0, 0, 0), "greedy": (0, 0, 1, 0),
+             "regen": (1, 0, 1, 0), "regen + sync": (1, 0, 1, 1),
+             "regen + per_wb": (1, 1, 1, 0),
+             "regen + sync + per_wb": (1, 1, 1, 1)}
+    by_mode = {what: post(mode) for what, mode in modes.items()}
+    by_pick = {}
+    for R_, n_, B_ in ((8, 1024, 8), (8, 1024, 32), (8, 1024, 1024),
+                       (16, 4096, 32)):
+        ring = pick_ring(torch, np, FRB, dev, R_, n_, "random", 1)
+        us = torch.tensor([0.61], device=dev)
+        sel_ = torch.zeros(2, B_, dtype=torch.int32, device=dev)
+        wts = torch.zeros(B_, device=dev)
+        for layout in (FRB.PICK_SHARED, FRB.PICK_GLOBAL):
+            g = FRB.pick_tiling(R_, n_, layout)
+            if g is None:
+                continue
+            by_pick[f"R {R_} n {n_} B {B_} layout {layout}"] = kernel_split(
+                torch, kernels, lambda: FRB.pick_launcher(
+                    ring, sel_, wts, B_, 3, 0.4, g)(R_ // 2, R_, us),
+                dev)[0][1]
+    return {"post": FRB.post_geometry()._asdict(), "post_ms": by_mode,
+            "pick_ms": by_pick}
+
+
 def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
     """One warm K8 learning step at the CLI defaults (L0, 1,024 envs, R 8,
     B 1,024, uniform 1-step, f32) split by kernel (``kernel_split``):
@@ -1360,11 +1642,15 @@ def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
     eager chain of the same forward (``rb_chain_ms``); the time per step
     of a warm 200-step chunk and of a warm PER 3-step chunk (the CLI's
     ``--per --n-step 3 --obs-scale 0.01``, B 32), CUDA events, host
-    launches included.  The
-    chunk's first launch (the post kernel that forms the carry's effective
-    weights) is listed but is not part of a step.  It calls only what every
-    version of ``ops.fused_rainbow`` has, so it splits a parent's step
-    too."""
+    launches included; and one warm PER 3-step learning step split the
+    same way (``per_kernels``).  The chunk's first launch (the post kernel
+    that forms the carry's effective weights) is listed but is not part of
+    a step.  ``rb_post`` (the learning step's, the chunk-opening one and
+    the PER step's with its write-back) and ``rb_per_pick`` stand beside
+    their bounds (``post_bytes``, ``pick_bytes``) and the library's
+    versions of the same functions (``post_library_ms``,
+    ``pick_library_ms``).  It calls only what every version of
+    ``ops.fused_rainbow`` has, so it splits a parent's step too."""
     ep = EnvParams()
     cfg = RB.RainbowConfig(memory_capacity=8 * N_TRAIN, opponent="L0")
     carry = FRB.fused_rainbow_chunk(cfg, ep, FRB.fused_rainbow_init(
@@ -1375,6 +1661,7 @@ def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
         st, carry, cfg, ep, 1, 1, False, one, zero,
         np.zeros(1, np.float32)), dev)
     step = split[1:]
+    synced = float(st["env"][11, 0]) > float(carry["env"][11, 0])
     r = np.random.default_rng(3)
     streams = (r.integers(0, carry["R"], T_CHUNK).astype(np.int32),
                np.zeros(T_CHUNK, np.int32), np.zeros(T_CHUNK, np.float32))
@@ -1387,6 +1674,16 @@ def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
     per_ms = cuda_ms(torch, lambda: FRB.launch_rainbow(
         pst, pcarry, pcfg, ep, T_CHUNK, 1, False, zero.repeat(T_CHUNK),
         zero.repeat(T_CHUNK), r.random(T_CHUNK).astype(np.float32)), 3)
+    pst = FRB.working_state(pcarry)
+    psplit = kernel_split(torch, kernels, lambda: FRB.launch_rainbow(
+        pst, pcarry, pcfg, ep, 1, 1, False, zero, zero,
+        np.full(1, 0.61, np.float32)), dev)
+    psynced = float(pst["env"][11, 0]) > float(pcarry["env"][11, 0])
+    R, pB = pcarry["R"], pcarry["B"]
+    r_cur, stored = pcarry["steps"] % R, min(pcarry["steps"] + 1, R)
+
+    def ms_of(entries, name):
+        return [ms for nm, ms in entries if nm == name][0]
     return {"kernels": split, "launches_per_learning_step": len(step),
             "step_device_ms": sum(ms for _, ms in step),
             "learn_ms": sum(ms for _, ms in step[1:-1]),
@@ -1395,7 +1692,27 @@ def rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev):
             "act_bound_ms": bound(0, N_TRAIN * rb_forward_flops())[0],
             "act_library_ms": rb_chain_ms(torch, dev, N_TRAIN),
             "chunk_step_ms": chunk_ms / T_CHUNK,
-            "per_3step_chunk_ms": per_ms}
+            "per_3step_chunk_ms": per_ms,
+            "per_kernels": psplit,
+            "per_launches_per_learning_step": len(psplit) - 1,
+            "per_step_device_ms": sum(ms for _, ms in psplit[1:]),
+            "post_ms": step[-1][1], "post_synced": synced,
+            "post_bound_ms": bound(post_bytes(N_TRAIN, carry["B"], 1, synced,
+                                              0, 1), post_flops(1)),
+            "post_open_ms": split[0][1],
+            "post_open_bound_ms": bound(post_bytes(N_TRAIN, carry["B"], 0, 0,
+                                                   0, 0), post_flops(0)),
+            "post_per_ms": psplit[-1][1], "post_per_synced": psynced,
+            "post_per_bound_ms": bound(post_bytes(N_TRAIN, pB, 1, psynced,
+                                                  1, 1), post_flops(1)),
+            "post_library_ms": post_library_ms(torch, FRB, st),
+            "pick_ms": ms_of(psplit, "mgt_rb_per_pick"),
+            "pick_bound_ms": bound(
+                pick_bytes(stored - pcfg.n_step + 1, N_TRAIN, pB),
+                pick_flops(R, N_TRAIN, pB)),
+            "pick_library_ms": pick_library_ms(
+                torch, pst["ring"], R, N_TRAIN, pB, r_cur, stored,
+                pcfg.n_step, 0.61)}
 
 
 def rb_learn_sweep(torch, np, kernels, FRB, RB, EnvParams, dev):
@@ -1781,6 +2098,7 @@ def main():
     check_k5(checks, torch, FT, D, EnvParams, lon2coord, qnet_init, dev)
     check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev)
     check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev)
+    check_rb_post_pick(checks, torch, np, FRB, dev)
     check_k9(checks, torch, FD, DR, EnvParams, lon2coord, drqn_init, dev)
 
     # ---- 3. the main paths -----------------------------------------------
@@ -2107,6 +2425,9 @@ def main():
     split["k9_learn_geometry_sweep"] = drqn_learn_sweep(
         torch, kernels, FD, FM, DR, EnvParams, dev)
     split["K8"] = rainbow_split(torch, np, kernels, FRB, RB, EnvParams, dev)
+    split["K8"]["empty_kernel_ms"] = empty_kernel_ms(torch, kernels, dev)
+    split["k8_post_pick_sweep"] = rb_post_pick_sweep(torch, np, kernels,
+                                                     FRB, dev)
     split["k8_learn_geometry_sweep"] = rb_learn_sweep(
         torch, np, kernels, FRB, RB, EnvParams, dev)
     split["k8_act_geometry_sweep"] = rb_act_sweep(

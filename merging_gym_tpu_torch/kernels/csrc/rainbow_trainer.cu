@@ -28,11 +28,13 @@
 //      per-lane episode count (env row 12), the step's finished episodes
 //      added to ep_step (integer atomics: the total does not depend on the
 //      order) and the auto-reset.
-//   2. rb_per_pick (PER only, one block): validity of each ring slot by its
-//      age, 128-lane chunk sums in lane order, their prefix in chunk order,
-//      the B stratified targets, the inverse-CDF pick by a binary search
-//      over the chunk prefix and a scan inside the chunk
-//      (searchsorted(side='right'), clipped), the importance weights.
+//   2. rb_per_pick (PER only, one block of 512 threads): the masked
+//      priority grid staged in shared memory (a global workspace for a
+//      grid too large, ops/fused_rainbow.py:pick_geometry) with 16-byte
+//      loads, 128-lane chunk sums in lane order, their prefix in chunk
+//      order, the B stratified targets, the inverse-CDF pick by one binary
+//      search over the whole cdf (searchsorted(side='right'), clipped), the
+//      importance weights.
 //   3. rb_learn_fwd (learn_fwd_kernel): a block owns `lanes` of the B
 //      sampled lanes, sized on the host from B and the SM count
 //      (ops/fused_rainbow.py:learn_geometry).  The n-step reconstruction
@@ -49,15 +51,18 @@
 //      plain version's order, then, in the same thread, Adam on that
 //      parameter and on its sigma with the gradient dW * eps (bias
 //      corrections from the host, as in K5).
-//   5. rb_post, every step: fresh factorised noise for both nets (after a
-//      learn, outside greedy mode), the episodic target sync decided from
-//      ep_step (tp := p when floor(total * (1 / sync_eps)) passes the
-//      synced count, env row 11), the effective weights mu + sigma * eps of
-//      both nets, the transposes of the online net's effective weights and
-//      of its w1 (the next learn's backward), and with PER the priority
-//      write-back max(ce + 1e-5, 1e-8) ** alpha at the sampled slots
-//      (duplicates of a slot share one ce, so any write order gives the
-//      same bits) and the running max (env row 13).
+//   5. rb_post, every step, one block a tile of one [in][out] matrix
+//      (ops/fused_rainbow.py:post_geometry: 16 x 32 entries): fresh
+//      factorised noise for both nets (after a learn, outside greedy mode),
+//      each factor and bias entry drawn once a tile, the episodic target
+//      sync decided from ep_step once a block (tp := p when
+//      floor(total * (1 / sync_eps)) passes the synced count, env row 11),
+//      the effective weights mu + sigma * eps of both nets, the transposes
+//      of the online net's effective weights and of its w1 (the next
+//      learn's backward) through shared memory; and in one more block, with
+//      PER, the priority write-back max(ce + 1e-5, 1e-8) ** alpha at the
+//      sampled slots (duplicates of a slot share one ce, so any write order
+//      gives the same bits) and the running max (env row 13), reduced once.
 //
 // Every sum is one thread's chain in a fixed order, with one rounding per
 // multiply and per add (-fmad=false), and expf/logf/sqrtf/cosf are the
@@ -521,79 +526,150 @@ struct RbPickCfg {
   float inv_b, beta;
 };
 
-__device__ __forceinline__ float per_prio(const float* ring, const RbPickCfg& c,
-                                          int r, int lane) {
-  const int age = (c.r_cur - r + c.R) % c.R;
-  if (age < c.n_step - 1 || age > c.stored - 1) return 0.0f;
-  return ring[(static_cast<size_t>(r) * kRbNumF + kRbNumF - 1) * c.n + lane];
+// The pick's grid: the R * n priorities in round-major order as C = R * n /
+// 128 chunks of 128 lanes, chunk ch at ch * kPickStride floats (4 floats of
+// pad, so the eight threads of a quarter warp reading their chunks as
+// float4 hit different banks), then the C chunk sums, then their exclusive
+// prefix.  Layout kPickShared holds it in shared memory; kPickGlobal, for a
+// grid too large for a block (ops/fused_rainbow.py:pick_geometry), in a
+// global workspace that the same block writes and then reads (L2).
+constexpr int kPickThreads = 512;
+constexpr int kPickStride = 132;
+constexpr int kPickLoads = 4;
+constexpr int kPickShared = 0, kPickGlobal = 1;
+
+__host__ __device__ inline size_t pick_floats(int R, int n) {
+  const size_t C = static_cast<size_t>(R) * (n / 128);
+  return C * kPickStride + 2 * C;
 }
 
-__global__ void rb_per_pick_kernel(const float* __restrict__ ring,
-                                   const float* __restrict__ us,
-                                   int32_t* __restrict__ sel,
-                                   float* __restrict__ wts, RbPickCfg c) {
+// One block of kPickThreads threads (the fastest of 128 to 1,024 at R 8,
+// n 1,024, PERF.md), five phases and three barriers:
+//   1. the masked grid (a slot's age in [n_step - 1, stored - 1], else 0)
+//      staged with coalesced 16-byte loads, each thread's least positive
+//      priority folded by fminf (order-free) into a warp's;
+//   2. each chunk's inclusive running sum in lane order from 0 (per_cdf's
+//      `local`), one thread's 128-add chain over float4 reads, in place;
+//   3. the chunk sums added in chunk order from 0 by thread 0 (`excl`,
+//      `total`), the warps' minima folded into pmin;
+//   4. per target u_b a binary search over the whole cdf,
+//      cdf[i] = excl[i / 128] + local[i]: the cdf is non-decreasing
+//      (rounding is monotone, and a chunk's last entry excl[c] + sum[c] is
+//      excl[c + 1]), so the first index whose cdf exceeds u is exactly
+//      searchsorted(side='right') of the plain version (clipped to the
+//      last slot);
+//   5. the pick's priority read from the ring by index, the weights.
+// The critical path holds one 128-add chain, one C-add chain and
+// ~log2(R * n) shared-memory probes per target; the only global loads are
+// the staging's and one per target.
+template <int kLayout>
+__global__ void __launch_bounds__(kPickThreads)
+    rb_per_pick_kernel(const float* __restrict__ ring,
+                       const float* __restrict__ us, int32_t* __restrict__ sel,
+                       float* __restrict__ wts, float* __restrict__ ws,
+                       RbPickCfg c) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = c.n / 128, C = c.R * G;
-  float* incl = reinterpret_cast<float*>(smem);  // [C] inclusive prefix
-  float* excl = incl + C;                        // [C] exclusive prefix
-  float* cmin = excl + C;                        // [C] least priority > 0
-  __shared__ float total, pmin;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int ch = tid; ch < C; ch += nt) {
-    const int r = ch / G, l0 = (ch - r * G) * 128;
-    float acc = 0.0f, mn = INFINITY;
-    for (int j = 0; j < 128; ++j) {
-      const float v = per_prio(ring, c, r, l0 + j);
-      acc = fadd(acc, v);
-      if (v > 0.0f) mn = fminf(mn, v);
+  float* const g =
+      kLayout == kPickShared ? reinterpret_cast<float*>(smem) : ws;
+  const int G = c.n / 128, C = c.R * G, n4 = c.n / 4;
+  float* const csum = g + static_cast<size_t>(C) * kPickStride;
+  float* const excl = csum + C;
+  __shared__ float warp_min[kPickThreads / 32];
+  __shared__ float total_s, pmin_s;
+  const int tid = threadIdx.x;
+  constexpr int nt = kPickThreads;
+
+  // kPickLoads float4 a thread in flight at once (all of them at R 8,
+  // n 1,024), then their minima and stores.
+  float mn = INFINITY;
+  for (int q0 = tid; q0 < c.R * n4; q0 += kPickLoads * nt) {
+    float4 v[kPickLoads];
+#pragma unroll
+    for (int u = 0; u < kPickLoads; ++u) {
+      const int q = q0 + u * nt, r = q / n4, l = (q - r * n4) * 4;
+      const int age = (c.r_cur - r + c.R) % c.R;
+      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (q < c.R * n4 && age >= c.n_step - 1 && age <= c.stored - 1)
+        v[u] = *reinterpret_cast<const float4*>(
+            ring + (static_cast<size_t>(r) * kRbNumF + kRbNumF - 1) * c.n +
+            l);
     }
-    incl[ch] = acc;
-    cmin[ch] = mn;
+#pragma unroll
+    for (int u = 0; u < kPickLoads; ++u) {
+      const int q = q0 + u * nt, r = q / n4, l = (q - r * n4) * 4;
+      if (q >= c.R * n4) break;
+      if (v[u].x > 0.0f) mn = fminf(mn, v[u].x);
+      if (v[u].y > 0.0f) mn = fminf(mn, v[u].y);
+      if (v[u].z > 0.0f) mn = fminf(mn, v[u].z);
+      if (v[u].w > 0.0f) mn = fminf(mn, v[u].w);
+      *reinterpret_cast<float4*>(g + static_cast<size_t>(r * G + l / 128) *
+                                         kPickStride +
+                                 (l & 127)) = v[u];
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+  if ((tid & 31) == 0) warp_min[tid >> 5] = mn;
+  __syncthreads();
+
+  for (int ch = tid; ch < C; ch += nt) {
+    float4* const q =
+        reinterpret_cast<float4*>(g + static_cast<size_t>(ch) * kPickStride);
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      float4 v = q[j];
+      v.x = acc = fadd(acc, v.x);
+      v.y = acc = fadd(acc, v.y);
+      v.z = acc = fadd(acc, v.z);
+      v.w = acc = fadd(acc, v.w);
+      q[j] = v;
+    }
+    csum[ch] = acc;
   }
   __syncthreads();
+
   if (tid == 0) {
-    float run = 0.0f, mn = INFINITY;
+    float run = 0.0f;
+#pragma unroll 8
     for (int ch = 0; ch < C; ++ch) {
       excl[ch] = run;
-      run = fadd(run, incl[ch]);
-      incl[ch] = run;
-      mn = fminf(mn, cmin[ch]);
+      run = fadd(run, csum[ch]);
     }
-    total = run;
-    pmin = mn;
+    total_s = run;
+    float m = INFINITY;
+    for (int w = 0; w < nt / 32; ++w) m = fminf(m, warp_min[w]);
+    pmin_s = m;
   }
   __syncthreads();
+
+  const float total = total_s;
   const float nvalid = fmul(static_cast<float>(c.stored - (c.n_step - 1)),
                             static_cast<float>(c.n));
   const float ratio = __fdiv_rn(nvalid, total);
-  const float wmax = powx(fmul(pmin, ratio), c.beta);
+  const float wmax = powx(fmul(pmin_s, ratio), c.beta);
+  const int last = C * 128 - 1;
   for (int b = tid; b < c.B; b += nt) {
     const float u = fmul(fadd(static_cast<float>(b), us[0]),
                          fmul(total, c.inv_b));
-    // Chunks whose inclusive prefix is <= u lie wholly at or below u.
-    int lo = 0, hi = C;
+    int lo = 0, hi = last + 1;
     while (lo < hi) {
-      const int mid = (lo + hi) / 2;
-      if (incl[mid] <= u) lo = mid + 1;
+      const int mid = (lo + hi) >> 1, ch = mid >> 7;
+      const float cdf = fadd(
+          excl[ch], g[static_cast<size_t>(ch) * kPickStride + (mid & 127)]);
+      if (cdf <= u) lo = mid + 1;
       else hi = mid;
     }
-    long long idx = static_cast<long long>(lo) * 128;
-    if (lo < C) {
-      const int r = lo / G, l0 = (lo - r * G) * 128;
-      float loc = 0.0f;
-      for (int j = 0; j < 128; ++j) {
-        loc = fadd(loc, per_prio(ring, c, r, l0 + j));
-        if (fadd(excl[lo], loc) <= u) ++idx;
-        else break;
-      }
-    }
-    const long long last = static_cast<long long>(c.R) * c.n - 1;
-    if (idx > last) idx = last;
-    const int r = static_cast<int>(idx / c.n);
-    const int lane = static_cast<int>(idx - static_cast<long long>(r) * c.n);
+    const int idx = lo < last ? lo : last;
+    const int r = idx / c.n, lane = idx - r * c.n;
     sel[b] = r;
     sel[c.B + b] = lane;
-    const float p = per_prio(ring, c, r, lane);
+    const int age = (c.r_cur - r + c.R) % c.R;
+    const float p =
+        (age < c.n_step - 1 || age > c.stored - 1)
+            ? 0.0f
+            : ring[(static_cast<size_t>(r) * kRbNumF + kRbNumF - 1) * c.n +
+                   lane];
     wts[b] = fmul(powx(fmul(p, ratio), -c.beta), wmax);
   }
 }
@@ -1232,80 +1308,230 @@ __device__ __forceinline__ float scaled_normal(uint32_t step, uint32_t idx,
   return fmul(sgn, __fsqrt_rn(fabsf(z)));
 }
 
-// Fresh noise of element e of net `net` (0 online, 1 target).
-__device__ float fresh_eps(int e, int net, const RbPostCfg& c) {
-  int l = 3;
-  while (e < eoff(l)) --l;
-  const int j = e - eoff(l), o = out_of(l), w = kH1 * o;
-  const uint32_t s = kStreamNoise + 12u * net + 3u * l;
-  if (j < w) {
-    const int in = j / o, out = j - in * o;
-    return fmul(scaled_normal(c.step, out, s + 1, c.k0, c.k1),
-                scaled_normal(c.step, in, s, c.k0, c.k1));
-  }
-  return scaled_normal(c.step, j - w, s + 2, c.k0, c.k1);
+// rb_post's geometry (ops/fused_rainbow.py:post_geometry): a block owns a
+// tile of kPostTi in-rows x kPostTo out-columns of one [in][out] matrix, in
+// block order the online net's four noisy layers and its trunk's w1
+// (matrix 4, transposed only), then the target net's four noisy layers;
+// one block more does the lanes' work.  kPostThreads threads a block, each
+// drawing at most one factor or bias entry and holding kPostEpt of the
+// tile's entries (16 x 32 at 256 threads: the fastest of the tiles and
+// thread counts timed, PERF.md); 117 blocks, one wave on 132 SMs.
+struct PostGeom {
+  int ti, to, threads, blocks;
+};
+constexpr int kPostTi = 16;
+constexpr int kPostTo = 32;
+constexpr int kPostThreads = 256;
+constexpr int kPostEpt = 2;
+constexpr int kPostMatrices = 9;
+static_assert(kH0 % kPostTi == 0 && kH1 % kPostTi == 0 && kPostTo <= kH1,
+              "a tile's rows divide every matrix's");
+static_assert(kPostThreads % 32 == 0 && kPostThreads >= kPostTi + 2 * kPostTo,
+              "one draw a thread at most");
+static_assert(kPostEpt * kPostThreads == kPostTi * kPostTo,
+              "kPostEpt entries a thread");
+
+__host__ __device__ constexpr int post_rows(int m) {
+  return m == 4 ? kH0 : kH1;
+}
+__host__ __device__ constexpr int post_cols(int m) {
+  return m == 4 ? kH1 : out_of(m % 5);
+}
+__host__ __device__ constexpr int post_tiles(int m) {
+  return (post_rows(m) / kPostTi) * ((post_cols(m) + kPostTo - 1) / kPostTo);
+}
+__host__ __device__ constexpr int post_blocks() {
+  int b = 1;
+  for (int m = 0; m < kPostMatrices; ++m) b += post_tiles(m);
+  return b;
+}
+inline bool post_geom_ok(PostGeom g) {
+  return g.ti == kPostTi && g.to == kPostTo && g.threads == kPostThreads &&
+         g.blocks == post_blocks();
 }
 
-__global__ void rb_post_kernel(const float* __restrict__ p,
-                               float* __restrict__ tp, float* __restrict__ eps,
-                               float* __restrict__ teps,
-                               float* __restrict__ wp, float* __restrict__ wt,
-                               float* __restrict__ wpt,
-                               float* __restrict__ env,
-                               float* __restrict__ ring,
-                               int32_t* __restrict__ tot,
-                               const int32_t* __restrict__ ep_step,
-                               const float* __restrict__ ce,
-                               const int32_t* __restrict__ sel, RbPostCfg c) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+// Each noise entry is drawn once per tile: the tile's kPostTi in-factors
+// and kPostTo out-factors (and, in a tile of in-row 0, its kPostTo bias
+// entries) by one thread each, with the counters of the plain fresh_noise (stream
+// kStreamNoise + 12 net + 3 layer: in, out, bias); an entry is then
+// eps = f_out * f_in, one rounding, the same bits as the plain outer
+// product.  The tile's mu and sigma (of p, and for the target net of tp
+// too) are loaded before the draws, and the target sync, decided by thread
+// 0 of each block from tot and ep_step with the f32 rule, picks p or tp
+// after the barrier.  The online net's tile of effective weights (and w1)
+// is staged transposed in shared memory, so both its reads and the stores
+// of W^T [out][in] are coalesced.  On a sync every block copies its share
+// of tp := p (16 bytes a thread, the first load issued at the start).  The
+// lanes' block scatters the PER priorities (pre ** alpha; duplicate picks
+// write the same bits), reduces max(ce + 1e-5, 1e-8) over the B lanes once
+// (fmaxf is order-free) into env row 13, writes the synced count to env
+// row 11 and the episode total to tot[i + 1].
+__global__ void __launch_bounds__(kPostThreads)
+    rb_post_kernel(const float* __restrict__ p, float* __restrict__ tp,
+                   float* __restrict__ eps, float* __restrict__ teps,
+                   float* __restrict__ wp, float* __restrict__ wt,
+                   float* __restrict__ wpt, float* __restrict__ env,
+                   float* __restrict__ ring, int32_t* __restrict__ tot,
+                   const int32_t* __restrict__ ep_step,
+                   const float* __restrict__ ce,
+                   const int32_t* __restrict__ sel, RbPostCfg c) {
+  constexpr int TI = kPostTi, TO = kPostTo, nt = kPostThreads;
+  __shared__ float fin[TI], fout[TO], tile[TO * (TI + 1)];
+  __shared__ int sync_s, now_s;
+  __shared__ float synced_s, lane_max[nt / 32];
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bool sync = false;
+    float synced = c.synced0;
+    int now = 0;
+    if (c.check_sync) {
+      const int before = tot[c.i];
+      now = before + ep_step[c.i];
+      const float chunks = floorf(fmul(__int2float_rn(now), c.inv_sync));
+      if (c.i > 0)
+        synced = fmaxf(synced,
+                       floorf(fmul(__int2float_rn(before), c.inv_sync)));
+      sync = chunks > synced;
+      synced = fmaxf(synced, chunks);
+    }
+    sync_s = sync;
+    now_s = now;
+    synced_s = synced;
+  }
+
+  // The first share of the target copy, loaded before anything waits (the
+  // sync is known only after the barrier; without one it is not stored).
+  const float4* const p4 = reinterpret_cast<const float4*>(p);
+  const int c0 = blockIdx.x * nt + tid;
+  const float4 cp0 = c0 < kNumP / 4 ? p4[c0] : make_float4(0, 0, 0, 0);
+
+  // The block's matrix and tile, found once: the walk unrolls over the
+  // nine matrices with their tile counts as constants.
+  int m = kPostMatrices, i0 = 0, j0 = 0, b = blockIdx.x;
+#pragma unroll
+  for (int k = 0; k < kPostMatrices; ++k) {
+    const int tc = (post_cols(k) + TO - 1) / TO;
+    if (m == kPostMatrices) {
+      if (b < post_tiles(k)) {
+        m = k;
+        i0 = (b / tc) * TI;
+        j0 = (b - (b / tc) * tc) * TO;
+      } else {
+        b -= post_tiles(k);
+      }
+    }
+  }
+  if (m < kPostMatrices) {
+    const int net = m < 5 ? 0 : 1, l = m % 5;
+    const int rows = post_rows(m), cols = post_cols(m);
+    const bool noisy = l < 4, regen = noisy && c.regen;
+    const int mu0 = noisy ? poff(l) : kIn * kH0 + kH0;  // w1 when l == 4
+    const int w_sz = rows * cols, e0 = noisy ? eoff(l) : 0;
+    float* const ep = net ? teps : eps;
+
+    float mu[kPostEpt], sg[kPostEpt], tmu[kPostEpt], tsg[kPostEpt],
+        eo[kPostEpt];
+#pragma unroll
+    for (int k = 0; k < kPostEpt; ++k) {
+      const int q = tid + k * nt, i = q / TO, j = q - i * TO;
+      mu[k] = sg[k] = tmu[k] = tsg[k] = eo[k] = 0.0f;
+      if (j0 + j >= cols) continue;
+      const int at = (i0 + i) * cols + j0 + j;
+      mu[k] = p[mu0 + at];
+      if (!noisy) continue;
+      sg[k] = p[mu0 + w_sz + at];
+      if (net) {
+        tmu[k] = tp[mu0 + at];
+        tsg[k] = tp[mu0 + w_sz + at];
+      }
+      if (!regen) eo[k] = ep[e0 + at];
+    }
+
+    // The factors; a bias thread keeps its entry in a register.
+    const uint32_t s = kStreamNoise + 12u * net + 3u * l;
+    const int jb = j0 + tid - TI - TO;
+    const bool bias = noisy && i0 == 0 && tid >= TI + TO &&
+                      tid < TI + 2 * TO && jb < cols;
+    float eb = 0.0f;
+    if (regen) {
+      if (tid < TI) {
+        fin[tid] = scaled_normal(c.step, i0 + tid, s, c.k0, c.k1);
+      } else if (tid < TI + TO) {
+        if (j0 + tid - TI < cols)
+          fout[tid - TI] =
+              scaled_normal(c.step, j0 + tid - TI, s + 1, c.k0, c.k1);
+      } else if (bias) {
+        eb = scaled_normal(c.step, jb, s + 2, c.k0, c.k1);
+      }
+    } else if (bias) {
+      eb = ep[e0 + w_sz + jb];
+    }
+    __syncthreads();
+
+    const bool from_tp = net == 1 && !sync_s;
+    float* const weff = net ? wt : wp;
+#pragma unroll
+    for (int k = 0; k < kPostEpt; ++k) {
+      const int q = tid + k * nt, i = q / TO, j = q - i * TO;
+      if (j0 + j >= cols) continue;
+      float w = mu[k];
+      if (noisy) {
+        const int at = (i0 + i) * cols + j0 + j;
+        const float e = regen ? fmul(fout[j], fin[i]) : eo[k];
+        if (regen) ep[e0 + at] = e;
+        w = fadd(from_tp ? tmu[k] : mu[k],
+                 fmul(from_tp ? tsg[k] : sg[k], e));
+        weff[e0 + at] = w;
+      }
+      if (net == 0) tile[j * (TI + 1) + i] = w;
+    }
+    if (bias) {
+      const int bm = mu0 + 2 * w_sz + jb;
+      const float* const src = from_tp ? tp : p;
+      if (regen) ep[e0 + w_sz + jb] = eb;
+      weff[e0 + w_sz + jb] = fadd(src[bm], fmul(src[bm + cols], eb));
+    }
+    if (net == 0) {  // W^T [out][in] (w1^T [64][32]) for the next backward
+      __syncthreads();
+      for (int q = tid; q < TI * TO; q += nt) {
+        const int j = q / TI, i = q - j * TI;
+        if (j0 + j < cols)
+          wpt[toff(l) + (j0 + j) * rows + i0 + i] = tile[j * (TI + 1) + i];
+      }
+    }
+  } else {
+    __syncthreads();  // sync_s, now_s and synced_s
+  }
+
+  if (sync_s) {  // post-update params to the target, 16 bytes a thread
+    float4* const tp4 = reinterpret_cast<float4*>(tp);
+    if (c0 < kNumP / 4) tp4[c0] = cp0;
+    for (int q = c0 + gridDim.x * nt; q < kNumP / 4; q += gridDim.x * nt)
+      tp4[q] = p4[q];
+  }
+  if (m < kPostMatrices) return;
+
   const size_t sN = static_cast<size_t>(c.n);
-  bool sync = false;
-  float synced = c.synced0;
-  if (c.check_sync) {  // the same decision in every thread
-    const int before = tot[c.i], now = before + ep_step[c.i];
-    const float chunks = floorf(fmul(__int2float_rn(now), c.inv_sync));
-    if (c.i > 0)
-      synced = fmaxf(synced,
-                     floorf(fmul(__int2float_rn(before), c.inv_sync)));
-    sync = chunks > synced;
-    synced = fmaxf(synced, chunks);
-    if (k == 0) tot[c.i + 1] = now;
-  }
-  if (k < kNumP && sync) tp[k] = p[k];  // post-update params to the target
-  if (k < 2 * kNumE) {
-    const int net = k / kNumE, e = k - net * kNumE;
-    float* ep = net ? teps : eps;
-    if (c.regen) ep[e] = fresh_eps(e, net, c);
-    int mu, sg;
-    mu_sigma(e, mu, sg);
-    const float* src = (net == 1 && !sync) ? tp : p;
-    const float w = fadd(src[mu], fmul(src[sg], ep[e]));
-    (net ? wt : wp)[e] = w;
-    if (net == 0) {  // W^T for the next learn's backward
-      int l = 3;
-      while (e < eoff(l)) --l;
-      const int j = e - eoff(l), o = out_of(l);
-      if (j < kH1 * o) wpt[toff(l) + (j % o) * kH1 + j / o] = w;
-    }
-  }
-  if (k < kH0 * kH1)  // w1 [32][64] -> w1^T [64][32]
-    wpt[toff(4) + (k % kH1) * kH0 + k / kH1] = p[kIn * kH0 + kH0 + k];
   if (c.per_wb) {
-    for (int b = k; b < c.B; b += stride) {
-      const float pre = fmaxf(fadd(ce[b], 1e-5f), 1e-8f);
-      ring[(static_cast<size_t>(sel[b]) * kRbNumF + kRbNumF - 1) * sN +
-           sel[c.B + b]] = powx(pre, c.alpha);
+    float mx = -INFINITY;
+    for (int b2 = tid; b2 < c.B; b2 += nt) {
+      const float pre = fmaxf(fadd(ce[b2], 1e-5f), 1e-8f);
+      ring[(static_cast<size_t>(sel[b2]) * kRbNumF + kRbNumF - 1) * sN +
+           sel[c.B + b2]] = powx(pre, c.alpha);
+      mx = fmaxf(mx, pre);
     }
-    for (int l = k; l < c.n; l += stride) {
-      float mx = env[13 * sN + l];
-      for (int b = 0; b < c.B; ++b)
-        mx = fmaxf(mx, fmaxf(fadd(ce[b], 1e-5f), 1e-8f));
-      env[13 * sN + l] = mx;
-    }
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if ((tid & 31) == 0) lane_max[tid >> 5] = mx;
+    __syncthreads();
+    for (int w = 0; w < nt / 32; ++w) mx = fmaxf(mx, lane_max[w]);
+    for (int l = tid; l < c.n; l += nt)
+      env[13 * sN + l] = fmaxf(env[13 * sN + l], mx);
   }
-  if (c.check_sync)
-    for (int l = k; l < c.n; l += stride) env[11 * sN + l] = synced;
+  if (c.check_sync) {
+    for (int l = tid; l < c.n; l += nt) env[11 * sN + l] = synced_s;
+    if (tid == 0) tot[c.i + 1] = now_s;
+  }
 }
 
 }  // namespace mgt
@@ -1371,18 +1597,39 @@ extern "C" int mgt_rb_act(const float* p, const float* wp, const float* opp,
   }
 }
 
+// The PER pick of one learn (rb_per_pick_kernel), in the layout of
+// ops/fused_rainbow.py:pick_geometry: kPickShared with `smem` bytes (at
+// least pick_floats(R, n) floats), or kPickGlobal with a workspace `ws` of
+// `ws_floats` floats (at least as many).  A geometry that does not fit is refused
+// (cudaErrorInvalidValue).
 extern "C" int mgt_rb_per_pick(const float* ring, const float* us,
-                               int32_t* sel, float* wts, int n, int R, int B,
-                               int r_cur, int stored, int n_step, float inv_b,
-                               float beta, cudaStream_t stream) {
+                               int32_t* sel, float* wts, float* ws, int n,
+                               int R, int B, int r_cur, int stored,
+                               int n_step, int layout, int smem,
+                               long long ws_floats, float inv_b, float beta,
+                               cudaStream_t stream) {
   using namespace mgt;
-  if (n <= 0 || n % 128 != 0 || R <= 0 || B <= 0)
+  if (n <= 0 || n % 128 != 0 || R <= 0 || B <= 0 ||
+      static_cast<long long>(R) * n > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  RbPickCfg c{n, R, B, r_cur, stored, n_step, inv_b, beta};
-  const size_t smem = static_cast<size_t>(3) * R * (n / 128) * sizeof(float);
-  cudaError_t err = allow_smem(rb_per_pick_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rb_per_pick_kernel<<<1, 1024, smem, stream>>>(ring, us, sel, wts, c);
+  const RbPickCfg c{n, R, B, r_cur, stored, n_step, inv_b, beta};
+  const size_t need = pick_floats(R, n);
+  if (layout == kPickShared) {
+    if (need * sizeof(float) > static_cast<size_t>(smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = allow_smem(rb_per_pick_kernel<kPickShared>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rb_per_pick_kernel<kPickShared><<<1, kPickThreads, smem, stream>>>(
+        ring, us, sel, wts, nullptr, c);
+  } else if (layout == kPickGlobal) {
+    if (ws == nullptr || smem != 0 || ws_floats < 0 ||
+        static_cast<size_t>(ws_floats) < need)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rb_per_pick_kernel<kPickGlobal><<<1, kPickThreads, 0, stream>>>(
+        ring, us, sel, wts, ws, c);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1476,19 +1723,34 @@ extern "C" int mgt_rb_learn_grad(const float* ws, float* p, float* m,
   return static_cast<int>(err);
 }
 
+// Noise, target sync, effective weights and PER write-back of step i
+// (rb_post_kernel) in the geometry (ti x to tiles, threads, blocks) of
+// ops/fused_rainbow.py:post_geometry; any other is refused
+// (cudaErrorInvalidValue).
 extern "C" int mgt_rb_post(const float* p, float* tp, float* eps, float* teps,
                            float* wp, float* wt, float* wpt, float* env,
                            float* ring, int32_t* tot, const int32_t* ep_step,
                            const float* ce, const int32_t* sel, int n, int R,
                            int B, int i, int regen, int per_wb,
-                           int check_sync, uint32_t k0, uint32_t k1,
+                           int check_sync, int ti, int to, int threads,
+                           int blocks, uint32_t k0, uint32_t k1,
                            uint32_t step, float alpha, float inv_sync,
                            float synced0, cudaStream_t stream) {
   using namespace mgt;
-  RbPostCfg c{n, R, B, i, regen, per_wb, check_sync, k0, k1, step, alpha,
-              inv_sync, synced0};
-  const int threads = 256;
-  rb_post_kernel<<<(kNumP + threads - 1) / threads, threads, 0, stream>>>(
+  if (!post_geom_ok(PostGeom{ti, to, threads, blocks}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RbPostCfg c{n,  R,  B,    i,     regen,    per_wb, check_sync,
+                    k0, k1, step, alpha, inv_sync, synced0};
+  rb_post_kernel<<<blocks, kPostThreads, 0, stream>>>(
       p, tp, eps, teps, wp, wt, wpt, env, ring, tot, ep_step, ce, sel, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel: chip_smoke.py times it by CUDA-graph replay as the floor
+// under rb_post's and rb_per_pick's times.  No path of the port launches it.
+__global__ void rb_empty_kernel() {}
+
+extern "C" int mgt_rb_empty(cudaStream_t stream) {
+  rb_empty_kernel<<<1, 32, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,13 +25,16 @@ On the H100 a step is a sequence of hand-written kernels
 (``kernels/csrc/rainbow_trainer.cu``) issued by :func:`fused_rainbow_chunk`
 on the current stream, K5's design: ``rb_act`` (act / env / store, a few
 envs a block, geometry :func:`act_geometry`), on a
-learning step ``rb_per_pick`` (PER only), ``rb_learn_fwd`` (each sampled
+learning step ``rb_per_pick`` (PER only, one block, its grid in shared
+memory or a workspace: :func:`pick_launcher`, geometry
+:func:`pick_geometry`), ``rb_learn_fwd`` (each sampled
 lane's forwards and backward, a few lanes a block, its row factors to a
 workspace; :class:`Learner`, geometry :func:`learn_geometry`) and
 ``rb_learn_grad`` (every gradient summed over the workspace in the plain
 version's order, Adam fused), and on every step ``rb_post`` (noise,
 target sync, effective weights and the online ones transposed, PER
-write-back).  The learn gate, the learn count and Adam's bias corrections
+write-back; a tile of one matrix a block: :func:`post_launcher`, geometry
+:func:`post_geometry`).  The learn gate, the learn count and Adam's bias corrections
 depend only on host counters.  The target sync depends on the data: the
 act kernel adds each step's finished episodes to ``ep_step[i]`` (integer
 atomics, so the sum does not depend on order) and ``rb_post`` decides the
@@ -136,10 +139,11 @@ STREAM_FROZEN = philox.STREAM_OPPONENT
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _ACT_ARGS = [_P] * 7 + [_I] * 16 + [_U] * 5 + [_F] * 2 + [_I] + [_F] * 5 + [_P]
-_PICK_ARGS = [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P]
+_PICK_ARGS = ([_P] * 5 + [_I] * 8 + [ctypes.c_longlong] + [_F] * 2
+              + [_P])
 _FWD_ARGS = [_P] * 13 + [_I] * 6 + [_F] * 3 + [_I] * 2 + [_P]
 _GRAD_ARGS = [_P] * 6 + [_I] * 2 + [_F] * 8 + [_I] * 2 + [_P]
-_POST_ARGS = [_P] * 13 + [_I] * 7 + [_U] * 3 + [_F] * 3 + [_P]
+_POST_ARGS = [_P] * 13 + [_I] * 11 + [_U] * 3 + [_F] * 3 + [_P]
 
 # ---------------------------------------------------------------------------
 # Layouts: flat parameter / noise buffers <-> nested dicts <-> JAX packing
@@ -548,6 +552,70 @@ def fresh_noise(gstep: int, net: int, key, dev) -> torch.Tensor:
         parts += [(fout[None, :] * fin[:, None]).reshape(-1),
                   scale_noise(_normals(gstep, d_out, s + 2, key, dev))]
     return torch.cat(parts)
+
+
+def pick_plain(ring, us, R, n, B, r_cur, stored, n_step, beta):
+    """``rb_per_pick`` alone in plain PyTorch: the PER block of
+    :func:`fused_rainbow_chunk_plain` on a ring f32[R * NUM_F, n] with
+    offset ``us`` f32[1].  Returns ``(sel i32[2, B], wts f32[B])``."""
+    dev = ring.device
+    age = (r_cur - torch.arange(R, device=dev) + R) % R
+    valid = (age >= n_step - 1) & (age <= stored - 1)
+    P = torch.where(valid[:, None], ring[NUM_F - 1::NUM_F], 0.0)
+    cdf, total = per_cdf(P)
+    u = ((torch.arange(B, dtype=torch.float32, device=dev) + us[0])
+         * (total * float(np.float32(1.0 / B))))
+    r_b, l_b, p_sel = per_pick(P, u, cdf)
+    pmin = torch.min(torch.where(P > 0.0, P, torch.inf))
+    w = per_weights(p_sel, pmin, total, stored, n_step, n, beta)
+    return torch.stack([r_b, l_b]).to(torch.int32), w
+
+
+def transposes_plain(p, wp):
+    """The online net's effective weights ``wp`` transposed per noisy layer
+    (W^T [out, 64] at ``T_OFF[l]``), then its trunk's w1^T [64, 32]: what
+    ``rb_post`` forms for the learner's backward."""
+    parts = [wp[E_OFF[l]:E_OFF[l] + H1 * o].view(H1, o).t().reshape(-1)
+             for l, o in enumerate(NOISY_OUT)]
+    w1 = p[IN_DIM * H0 + H0:IN_DIM * H0 + H0 + H0 * H1].view(H0, H1)
+    return torch.cat(parts + [w1.t().reshape(-1)])
+
+
+def post_plain(st, tot, ep_step, ce, sel, *, i, regen, per_wb, check_sync,
+               gstep, key, alpha, inv_sync, synced0):
+    """``rb_post`` alone in plain PyTorch, on the working state ``st``
+    (updated in place: eps, teps, tp, wp, wt, wpt, env rows 11 and 13, the
+    ring's priorities) and the i32 episode totals ``tot`` (``tot[i + 1]``
+    written): the post block of :func:`fused_rainbow_chunk_plain`, with its
+    sync decided as the kernel decides it from ``tot[i]`` and
+    ``ep_step[i]`` (the chunk's host running total).  ``sel`` i32[2, B]
+    the picked (round, lane) of each CE in ``ce``."""
+    n = st["env"].shape[1]
+    R = st["ring"].shape[0] // NUM_F
+    dev = st["env"].device
+    if per_wb:
+        pre = torch.clamp_min(ce + 1e-5, 1e-8)
+        st["ring"].view(R, NUM_F, n)[sel[0].long(), NUM_F - 1,
+                                     sel[1].long()] = _pow(pre, alpha)
+        st["env"][13] = torch.maximum(st["env"][13], torch.max(pre))
+    if regen:
+        st["eps"] = fresh_noise(gstep, 0, key, dev)
+        st["teps"] = fresh_noise(gstep, 1, key, dev)
+    if check_sync:
+        before = int(tot[i])
+        now = before + int(ep_step[i])
+        synced = float(synced0)
+        if i > 0:
+            synced = max(synced, float(np.floor(np.float32(before)
+                                                * np.float32(inv_sync))))
+        chunks = float(np.floor(np.float32(now) * np.float32(inv_sync)))
+        if chunks > synced:
+            st["tp"] = st["p"].clone()
+        st["env"][11] = max(synced, chunks)
+        tot[i + 1] = now
+    st["wp"] = effective_weights(st["p"], st["eps"])
+    st["wt"] = effective_weights(st["tp"], st["teps"])
+    st["wpt"] = transposes_plain(st["p"], st["wp"])
 
 
 # ---------------------------------------------------------------------------
@@ -1162,6 +1230,147 @@ class Learner:
 
 
 # ---------------------------------------------------------------------------
+# The PER pick and the post on the card: geometry, launches
+# ---------------------------------------------------------------------------
+
+# rb_per_pick (rainbow_trainer.cu:rb_per_pick_kernel): one block of
+# PICK_THREADS threads (kPickThreads); its grid of R * n / 128 chunks of 128
+# priorities, each PICK_STRIDE floats apart, then the chunk sums and their
+# prefix (pick_floats), held in shared memory where they fit and in a
+# global workspace otherwise.
+PICK_THREADS = 512
+PICK_STRIDE = 132
+PICK_SHARED, PICK_GLOBAL = 0, 1
+
+
+class PickGeometry(NamedTuple):
+    """The pick's ``layout`` (:data:`PICK_SHARED` or :data:`PICK_GLOBAL`),
+    its ``smem`` bytes and the floats of its workspace (0 in shared
+    memory)."""
+    layout: int
+    smem: int
+    ws_floats: int
+
+
+def pick_floats(R: int, n: int) -> int:
+    """Floats of the pick's grid, chunk sums and prefix
+    (``rainbow_trainer.cu:pick_floats``)."""
+    C = R * (n // 128)
+    return C * PICK_STRIDE + 2 * C
+
+
+def pick_tiling(R: int, n: int, layout: int) -> PickGeometry | None:
+    """The pick's geometry in ``layout``, or None where the shared layout
+    does not fit a block's shared memory."""
+    floats = pick_floats(R, n)
+    if layout == PICK_SHARED:
+        return (PickGeometry(PICK_SHARED, 4 * floats, 0)
+                if 4 * floats <= kernels.SMEM_LIMIT else None)
+    return PickGeometry(PICK_GLOBAL, 0, floats)
+
+
+@functools.lru_cache(maxsize=None)
+def pick_geometry(R: int, n: int) -> PickGeometry:
+    """The pick's layout for a ring of R rounds of ``n`` lanes: its grid in
+    shared memory where it fits (R * n up to 55,424 slots: 34,304 B at the
+    CLI's R 8, n 1,024), else in a global workspace (R 16, n 4,096)."""
+    if n <= 0 or n % 128 or R <= 0:
+        raise ValueError(f"the PER pick takes n a multiple of 128 and R >= 1,"
+                         f" got n={n}, R={R}")
+    return (pick_tiling(R, n, PICK_SHARED)
+            or pick_tiling(R, n, PICK_GLOBAL))
+
+
+# rb_post (rainbow_trainer.cu:rb_post_kernel): a block owns a tile of
+# POST_TILE (in rows, out columns) of one [in][out] matrix: the online net's
+# four noisy layers, its trunk's w1 (transposed only), the target net's four
+# noisy layers; one block more does the lanes' work.  POST_THREADS threads a
+# block, each drawing at most one factor or bias entry and holding
+# POST_EPT of the tile's entries (kPostTi, kPostTo, kPostThreads,
+# kPostEpt).
+POST_MATRICES = tuple((H1, o) for o in NOISY_OUT) + ((H0, H1),) + tuple(
+    (H1, o) for o in NOISY_OUT)
+POST_TILE = (16, 32)
+POST_THREADS = 256
+POST_EPT = 2
+
+
+class PostGeometry(NamedTuple):
+    """``rb_post``'s tile of ``ti`` in-rows x ``to`` out-columns,
+    ``threads`` a block and ``blocks``."""
+    ti: int
+    to: int
+    threads: int
+    blocks: int
+
+
+def post_blocks() -> int:
+    """Blocks of ``rb_post``: every matrix's tiles, and the lanes' block
+    (``rainbow_trainer.cu:post_blocks``)."""
+    ti, to = POST_TILE
+    return 1 + sum((k // ti) * -(-o // to) for k, o in POST_MATRICES)
+
+
+@functools.lru_cache(maxsize=None)
+def post_geometry() -> PostGeometry:
+    """``rb_post``'s geometry: tiles of 16 in-rows x 32 out-columns at 256
+    threads, 117 blocks (one wave on the H100's 132 SMs), a thread two
+    entries and at most one draw."""
+    return PostGeometry(*POST_TILE, POST_THREADS, post_blocks())
+
+
+def pick_launcher(ring, sel, wts, B: int, n_step: int, beta: float,
+                  geometry=None):
+    """``pick(r_cur, stored, u)``: one ``rb_per_pick`` launch on the ring
+    f32[R * NUM_F, n] into ``sel`` i32[2, B] and ``wts`` f32[B], its
+    offset the f32 ``u`` (a one-element device tensor); ``geometry`` in
+    place of :func:`pick_geometry`'s.  Everything must lie on the card."""
+    dev = kernels.require_cuda(ring, sel, wts)
+    n = ring.shape[1]
+    R = ring.shape[0] // NUM_F
+    g = geometry or pick_geometry(R, n)
+    ws = (torch.empty(g.ws_floats, dtype=torch.float32, device=dev)
+          if g.ws_floats else None)
+    fn = kernels.function("rainbow_trainer", "mgt_rb_per_pick", _PICK_ARGS)
+    stream, ptr = kernels.stream_ptr(dev), kernels.ptr
+    inv_b = float(np.float32(1.0 / B))
+
+    def pick(r_cur, stored, u):
+        rc = fn(ptr(ring), ptr(u), ptr(sel), ptr(wts), ptr(ws), n, R, B,
+                r_cur, stored, n_step, g.layout, g.smem,
+                g.ws_floats, inv_b, float(beta), stream)
+        kernels.check("rainbow_trainer", rc, "rainbow_per_pick launch")
+        kernels.launch_counts["rainbow_per_pick"] += 1
+    return pick
+
+
+def post_launcher(st, tot, ep_step, ce, sel, B: int, key, alpha: float,
+                  inv_sync: float, synced0: float, geometry=None):
+    """``post(i, regen, per_wb, check_sync, gstep)``: one ``rb_post``
+    launch of step i on the working state ``st`` (with ``wpt``), the i32
+    episode totals ``tot`` and per-step counts ``ep_step``, the learn's
+    ``ce`` and picks ``sel``; ``geometry`` in place of
+    :func:`post_geometry`'s.  Everything must lie on the card."""
+    dev = kernels.require_cuda(*(st[k] for k in (
+        "p", "tp", "eps", "teps", "wp", "wt", "wpt", "env", "ring")), tot,
+        ep_step, ce, sel)
+    n, R = st["env"].shape[1], st["ring"].shape[0] // NUM_F
+    g = geometry or post_geometry()
+    fn = kernels.function("rainbow_trainer", "mgt_rb_post", _POST_ARGS)
+    stream, ptr = kernels.stream_ptr(dev), kernels.ptr
+    bufs = [st[k] for k in ("p", "tp", "eps", "teps", "wp", "wt", "wpt",
+                            "env", "ring")] + [tot, ep_step, ce, sel]
+
+    def post(i, regen, per_wb, check_sync, gstep):
+        rc = fn(*(ptr(b) for b in bufs), n, R, B, i, regen, per_wb,
+                check_sync, *g, key[0], key[1], gstep, float(alpha),
+                float(inv_sync), float(synced0), stream)
+        kernels.check("rainbow_trainer", rc, "rainbow_post launch")
+        kernels.launch_counts["rainbow_post"] += 1
+    return post
+
+
+# ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
 
@@ -1202,7 +1411,7 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     place; returns whether the last step learned.  ``geometry``: the
     learner's, in place of :func:`learn_geometry`'s; ``act_geom``: the act
     kernel's, in place of :func:`act_geometry`'s."""
-    n, R, B = carry["n"], carry["R"], carry.get("B", carry["n"])
+    n, B = carry["n"], carry.get("B", carry["n"])
     ns = cfg.n_step
     frozen = cfg.opponent == FT.OPP_FROZEN
     names = ("p", "tp", "m", "v", "eps", "teps", "wp", "wt", "env", "ring",
@@ -1228,11 +1437,15 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     ce = torch.zeros(B, dtype=torch.float32, device=dev)
     sel = torch.zeros(2, B, dtype=torch.int32, device=dev)
     wts = torch.ones(B, dtype=torch.float32, device=dev)
-    k0, k1 = philox.seed_key(seed)
+    key = philox.seed_key(seed)
     stream = kernels.stream_ptr(dev)
-    fn = {name: kernels.function("rainbow_trainer", f"mgt_rb_{name}", args)
-          for name, args in (("act", _ACT_ARGS), ("per_pick", _PICK_ARGS),
-                             ("post", _POST_ARGS))}
+    act = kernels.function("rainbow_trainer", "mgt_rb_act", _ACT_ARGS)
+    pick = (pick_launcher(st["ring"], sel, wts, B, ns, cfg.per_beta)
+            if cfg.per else None)
+    post = post_launcher(st, tot, ep_step, ce, sel, B, key,
+                         cfg.per_alpha,
+                         float(np.float32(1.0 / cfg.target_sync_episodes)),
+                         synced0)
     ptr = kernels.ptr
     scale = 1.0 if cfg.obs_scale is None else float(cfg.obs_scale)
     opp_code = {FT.OPP_L0: 0, FT.OPP_SELFPLAY: 1, FT.OPP_FROZEN: 2}[
@@ -1243,41 +1456,25 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     gpow = torch.tensor([float(np.float32(cfg.gamma ** k)) for k in range(ns)],
                         dtype=torch.float32).to(dev)
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
-    inv_sync = float(np.float32(1.0 / cfg.target_sync_episodes))
-
-    def launch(name, count, *args):
-        rc = fn[name](*args, stream)
-        kernels.check("rainbow_trainer", rc, f"rainbow_{name} launch")
-        kernels.launch_counts[count] += 1
-
-    def post(i, regen, per_wb, check_sync, gstep):
-        launch("post", "rainbow_post", ptr(st["p"]), ptr(st["tp"]),
-               ptr(st["eps"]), ptr(st["teps"]), ptr(st["wp"]), ptr(st["wt"]),
-               ptr(st["wpt"]), ptr(st["env"]), ptr(st["ring"]), ptr(tot),
-               ptr(ep_step), ptr(ce), ptr(sel), n, R, B, i, regen, per_wb,
-               check_sync, k0, k1, gstep, float(cfg.per_alpha), inv_sync,
-               float(synced0))
 
     # The effective weights of the carry's nets, before the first step.
     post(0, 0, 0, 0, 0)
     learned = False
     for i, r_cur, learn, t, stored in _schedule(carry, num_steps, ns):
         gstep = (carry["steps"] + i) & philox.MASK32
-        launch("act", "rainbow_act", ptr(st["p"]), ptr(st["wp"]),
-               ptr(st["opp"]), ptr(st["env"]), ptr(st["ring"]),
-               ptr(st["met"]), ptr(ep_step[i:]), n, g.rows, g.rm, g.rn,
-               g.resident, g.chunk, g.smem, opp_code,
-               cfg.opponent_roll, int(has_eps), int(not greedy),
-               int(env_params.random_start), int(cfg.per), r_cur,
-               opp_dims[1], opp_dims[2], gstep, thr, thr70, k0, k1, scale,
-               float(cfg.per_alpha), *env_args)
+        rc = act(ptr(st["p"]), ptr(st["wp"]), ptr(st["opp"]), ptr(st["env"]),
+                 ptr(st["ring"]), ptr(st["met"]), ptr(ep_step[i:]), n,
+                 g.rows, g.rm, g.rn, g.resident, g.chunk, g.smem, opp_code,
+                 cfg.opponent_roll, int(has_eps), int(not greedy),
+                 int(env_params.random_start), int(cfg.per), r_cur,
+                 opp_dims[1], opp_dims[2], gstep, thr, thr70, *key, scale,
+                 float(cfg.per_alpha), *env_args, stream)
+        kernels.check("rainbow_trainer", rc, "rainbow_act launch")
+        kernels.launch_counts["rainbow_act"] += 1
         learned = learn
         if learn:
             if cfg.per:
-                launch("per_pick", "rainbow_per_pick", ptr(st["ring"]),
-                       ptr(us_d[i:]), ptr(sel), ptr(wts), n, R, B, r_cur,
-                       stored, ns, float(np.float32(1.0 / B)),
-                       float(cfg.per_beta))
+                pick(r_cur, stored, us_d[i:])
             learner.launch(cfg, rounds_d[i:], cols_d[i:], sel, wts, gpow, ce,
                            t)
         post(i, int(learn and not greedy), int(learn and cfg.per), 1, gstep)

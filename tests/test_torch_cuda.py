@@ -1070,3 +1070,151 @@ def test_kernels_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         FM.launch_mlp(FM.cast_weights(p, torch.float32, cuda),
                       torch.zeros(4, 10), torch.zeros(4, 5, device=cuda))
+
+
+# K8's rb_post and rb_per_pick alone (rainbow_trainer.cu) against their
+# plain versions (ops/fused_rainbow.py:post_plain, pick_plain), bit for bit.
+# The post at the training CLI's 1,024 lanes, R 8, PER's B 32: (step i,
+# regen, per_wb, check_sync, the step's finished episodes: 30 passes the
+# sync rule from a total of 37, 0 does not).
+RB_POST_MODES = {"chunk_opening": (0, 0, 0, 0, 0), **{
+    f"regen{r}_sync{s}_per_wb{w}": (3, r, w, 1, 30 * s)
+    for r in (0, 1) for s in (0, 1) for w in (0, 1)}}
+
+
+def _rb_post_state(cuda, n=1024, R=8, B=32, seed=21):
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    st = {"p": f32(rng.standard_normal(FRB.NUM_P) * 0.1),
+          "tp": f32(rng.standard_normal(FRB.NUM_P) * 0.1),
+          "eps": f32(rng.standard_normal(FRB.NUM_E)),
+          "teps": f32(rng.standard_normal(FRB.NUM_E)),
+          "env": f32(rng.random((FRB.ENV_ROWS, n))),
+          "ring": f32(rng.random((R * FRB.NUM_F, n))),
+          "wp": torch.full((FRB.NUM_E,), float("nan"), device=cuda),
+          "wt": torch.full((FRB.NUM_E,), float("nan"), device=cuda),
+          "wpt": torch.full((FRB.NUM_T,), float("nan"), device=cuda)}
+    sel = torch.as_tensor(np.stack([rng.integers(0, R, B),
+                                    rng.integers(0, n, B)]),
+                          dtype=torch.int32, device=cuda)
+    ce = f32(rng.random(B) * 3)
+    sel[:, 1], ce[1] = sel[:, 0], ce[0]  # a duplicate pick, the same CE
+    return st, sel, ce
+
+
+def _rb_post_run(cuda, st, sel, ce, mode, geometry=None, plain=False):
+    i, regen, per_wb, check_sync, ep = mode
+    tot = torch.zeros(5, dtype=torch.int32, device=cuda)
+    tot[i] = 37
+    ep_step = torch.zeros(4, dtype=torch.int32, device=cuda)
+    ep_step[i] = ep
+    st = {k: v.clone() for k, v in st.items()}
+    key, inv = FRB.philox.seed_key(77), float(np.float32(1 / 20))
+    if plain:
+        FRB.post_plain(st, tot, ep_step, ce, sel, i=i, regen=regen,
+                       per_wb=per_wb, check_sync=check_sync, gstep=11,
+                       key=key, alpha=0.6, inv_sync=inv, synced0=1.0)
+    else:
+        FRB.post_launcher(st, tot, ep_step, ce, sel, sel.shape[1], key, 0.6,
+                          inv, 1.0, geometry)(i, regen, per_wb, check_sync,
+                                              11)
+    st["tot"] = tot
+    return st
+
+
+@pytest.mark.parametrize("mode", list(RB_POST_MODES))
+def test_rb_post_alone_equals_plain_twice(cuda, mode):
+    st, sel, ce = _rb_post_state(cuda)
+    want = _rb_post_run(cuda, st, sel, ce, RB_POST_MODES[mode], plain=True)
+    before = kernels.launch_counts["rainbow_post"]
+    for _ in range(2):
+        got = _rb_post_run(cuda, st, sel, ce, RB_POST_MODES[mode])
+        _equal(got, want)
+    assert kernels.launch_counts["rainbow_post"] - before == 2
+    assert torch.equal(want["tp"], st["p"]) == mode.startswith(
+        ("regen0_sync1", "regen1_sync1"))
+
+
+def test_rb_post_refuses_a_geometry_its_layout_does_not_fit(cuda):
+    """Any geometry but the one the kernel is built for (16 x 32 tiles, 256
+    threads, the tiles' blocks plus one): refused before the launch."""
+    st, sel, ce = _rb_post_state(cuda, n=256, R=4, B=8)
+    g = FRB.post_geometry()
+    mode = RB_POST_MODES["regen1_sync0_per_wb1"]
+    _rb_post_run(cuda, st, sel, ce, mode, g)
+    for bad in (g._replace(blocks=g.blocks + 1), g._replace(threads=128),
+                g._replace(threads=512), g._replace(ti=8),
+                g._replace(ti=32), g._replace(to=64)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _rb_post_run(cuda, st, sel, ce, mode, bad)
+
+
+def _pick_ring(cuda, R, n, kind, seed):
+    rng = np.random.default_rng(seed)
+    ring = rng.random((R * FRB.NUM_F, n)).astype(np.float32)
+    P = rng.random((R, n)).astype(np.float32) * 2
+    if kind == "zeros":  # zero slots, an empty chunk, an empty round
+        P[rng.random((R, n)) < 0.3] = 0.0
+        P[0, :128 if n > 128 else 0] = 0.0
+        P[R - 1] = 0.0
+    elif kind == "tied":
+        P[:] = 0.25
+    elif kind == "dominant":
+        P *= 1e-6
+        P[R // 2, n - 1] = 1e3
+    ring[FRB.NUM_F - 1::FRB.NUM_F] = P
+    return torch.as_tensor(ring, device=cuda)
+
+
+def _pick_run(cuda, ring, B, geometry=None):
+    R, n = ring.shape[0] // FRB.NUM_F, ring.shape[1]
+    us = torch.tensor([0.61], device=cuda)
+    sel = torch.zeros(2, B, dtype=torch.int32, device=cuda)
+    wts = torch.zeros(B, device=cuda)
+    FRB.pick_launcher(ring, sel, wts, B, 3, 0.4, geometry)(R // 2, R, us)
+    return (sel, wts), FRB.pick_plain(ring, us, R, n, B, R // 2, R, 3, 0.4)
+
+
+# (R, n, B): the CLI's PER shape, a small ring, a batch of 1,024 and a grid
+# too large for shared memory (the global cdf), each on four grids; the
+# first two in the global layout too.
+RB_PICK_CASES = [(*s, kind, None) for s in ((8, 1024, 32), (4, 128, 8),
+                                            (8, 1024, 1024), (16, 4096, 32))
+                 for kind in ("random", "zeros", "tied", "dominant")] + [
+    (8, 1024, 32, "zeros", FRB.PICK_GLOBAL),
+    (4, 128, 8, "dominant", FRB.PICK_GLOBAL)]
+
+
+@pytest.mark.parametrize("R,n,B,kind,layout", RB_PICK_CASES)
+def test_rb_per_pick_alone_equals_plain(cuda, R, n, B, kind, layout):
+    g = (FRB.pick_geometry(R, n) if layout is None
+         else FRB.pick_tiling(R, n, layout))
+    assert g.layout == (FRB.PICK_GLOBAL if (R, n) == (16, 4096)
+                        else layout or FRB.PICK_SHARED)
+    ring = _pick_ring(cuda, R, n, kind, R * n + B)
+    before = kernels.launch_counts["rainbow_per_pick"]
+    for _ in range(2):
+        (sel, wts), (want_sel, want_w) = _pick_run(cuda, ring, B, g)
+        assert torch.equal(sel, want_sel) and torch.equal(wts, want_w)
+    assert kernels.launch_counts["rainbow_per_pick"] - before == 2
+    assert torch.isfinite(wts).all()
+
+
+def test_rb_per_pick_refuses_a_layout_it_does_not_fit(cuda):
+    """The shared layout with less shared memory than its grid or more
+    than a block has (R 16, n 4,096), the global one with a short
+    workspace or with shared memory, and an unknown layout: refused before
+    the launch."""
+    ring = _pick_ring(cuda, 8, 1024, "random", 1)
+    g = FRB.pick_geometry(8, 1024)
+    big = _pick_ring(cuda, 16, 4096, "random", 2)
+    gg = FRB.pick_tiling(8, 1024, FRB.PICK_GLOBAL)
+    for r, bad in ((ring, g._replace(smem=g.smem - 4)),
+                   (big, FRB.PickGeometry(FRB.PICK_SHARED,
+                                          4 * FRB.pick_floats(16, 4096), 0)),
+                   (ring, gg._replace(ws_floats=gg.ws_floats - 1)),
+                   (ring, gg._replace(smem=16)), (ring, g._replace(layout=2))):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _pick_run(cuda, r, 32, bad)

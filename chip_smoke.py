@@ -9,12 +9,15 @@ Phases, each of which raises (non-zero exit) on failure:
      ``merging_gym_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel);
   2. run each kernel and its plain version on the same inputs on the card,
      at the main path's shapes, and compare at the JAX tests' tolerances
-     (K6 bit for bit at each of its geometry choices: ``k6_cases``; K8's
-     ``rb_post`` and ``rb_per_pick`` also alone, in every mode and layout:
+     (K1 and K2 bit for bit at the edges of their geometry, in both action
+     sources and with 3-step episodes: ``check_k1_k2``; K6 bit for bit at
+     each of its geometry choices: ``k6_cases``; K8's ``rb_post`` and
+     ``rb_per_pick`` also alone, in every mode and layout:
      ``check_rb_post_pick``);
-  3. the two main paths, each with every launch count set to 0 just before
-     it and read just after.  Evaluation: the env rollout at 4,096 envs as
-     ``bench.py`` drives it (K1 trajectories, K2 counters), then ``eval
+  3. the main paths, each with every launch count set to 0 just before
+     it and read just after.  ``bench`` through the port's CLI: env-steps/s
+     of K2 at 4,096 envs, six launches of 1,048,576 steps.  Evaluation: K1
+     (``fused_rollout``, 512 steps at 4,096 envs), then ``eval
      --fused`` of model_zoo/L2 vs L1 at 4,096 envs x 2,600 steps (K6) and
      plain ``eval`` at 256 envs (K3 per step), through the port's CLI.
      Training, through the CLI at its defaults (1,024 envs, 200-step
@@ -36,7 +39,10 @@ Phases, each of which raises (non-zero exit) on failure:
      --opponent selfplay``, and ``evaluate_drqn`` of the trained net against
      L0;
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
-  5. time every kernel with CUDA events beside its plain version, the
+  5. time every kernel with CUDA events beside its plain version (K1 and
+     K2 in both action sources and K2's 65,536-step launch:
+     ``rollout_times``; and at each threads a block, a build for each:
+     ``rollout_sweep``, the ``k1_k2`` line), the
      least time the card could take (``bound_ms``) and, for K3 and K4, the
      three ``torch.addmm`` + ReLU library calls (K4: and ``argmax``), also
      at each main-path batch (256, 1,024, 4,096; one call and the device
@@ -1992,6 +1998,177 @@ def check_runs(np, runs, load_params_npz):
         print(f"{what}: {json.dumps(last)}", flush=True)
 
 
+# K1/K2 checks (T, N, max_steps) at the edges of their geometry (32 envs a
+# block: 1, 31, 33, 300, 4,095, 4,096, 4,097 envs), T of 1, not a multiple
+# of the 8-step fetch (37) and 512, with the default timeout and with
+# 3-step episodes; each in both action sources.
+K1_K2_CASES = ((T_ROLLOUT, N_ENVS, None), (T_ROLLOUT, N_ENVS + 1, 3),
+               (T_ROLLOUT, 300, None), (37, 1, 3), (37, 31, None),
+               (37, 33, 3), (37, N_ENVS - 1, 3), (37, N_ENVS + 1, None),
+               (1, N_ENVS, None), (1, 33, 3))
+
+
+def rollout_times(torch, np, FR, EnvParams, dev):
+    """K1 in actions and in seed mode (512 steps) and K2 in seed mode (512
+    and 65,536 steps) at 4,096 envs: ms of one launch by CUDA events,
+    median, each beside its bound.  Takes the module, so that a parent's
+    ``ops.fused_rollout`` can be timed beside the change's."""
+    ep = EnvParams()
+    actions = torch.as_tensor(
+        np.random.default_rng(0).integers(-1, 5, (T_ROLLOUT, 2, N_ENVS)),
+        dtype=torch.int32, device=dev)
+    out = FR.empty_rollout(T_ROLLOUT, N_ENVS, dev)
+    rs = torch.empty(2, N_ENVS, device=dev)
+    cs = torch.empty(4, N_ENVS, dtype=torch.int32, device=dev)
+    r = {"k1_actions_ms": cuda_ms(torch, lambda: FR.launch_rollout(
+            out, actions, None, ep), 10),
+         "k1_seed_ms": cuda_ms(torch, lambda: FR.launch_rollout(
+             out, None, 12345, ep), 10),
+         "k2_seed_ms": cuda_ms(torch, lambda: FR.launch_counters(
+             rs, cs, T_ROLLOUT, None, 12345, ep), 10),
+         "k2_long_ms": cuda_ms(torch, lambda: FR.launch_counters(
+             rs, cs, T_COUNTERS_LONG, None, 12345, ep), 5)}
+    steps = T_ROLLOUT * N_ENVS
+    # K1 writes 60 B an env-step (obs 40, rewards 8, three events 12) and
+    # reads 8 B of actions in actions mode; K2 writes 24 B an env.
+    r["bounds"] = {
+        "k1_actions": bound(steps * FR.K1_BYTES_PER_ENV_STEP,
+                            steps * (ENV_STEP_FLOPS + OBS_FLOPS)),
+        "k1_seed": bound(steps * (FR.K1_BYTES_PER_ENV_STEP - 8),
+                         steps * (ENV_STEP_FLOPS + OBS_FLOPS)),
+        "k2_seed": bound(N_ENVS * 24, steps * (ENV_STEP_FLOPS + 2)),
+        "k2_long": bound(N_ENVS * 24,
+                         T_COUNTERS_LONG * N_ENVS * (ENV_STEP_FLOPS + 2))}
+    r["k2_long_env_steps_per_s"] = (T_COUNTERS_LONG * N_ENVS
+                                    / (r["k2_long_ms"] / 1e3))
+    return r
+
+
+# Threads a block of the sweep, at the built 4 lanes an env: at 4,096
+# envs 512, 256 and 128 blocks.
+ROLLOUT_SWEEP = (32, 64, 128)
+
+
+def rollout_sweep(torch, np, kernels, FR, EnvParams, dev):
+    """K1 (actions, 512 steps) and K2 (seed, 65,536 steps) at 4,096 envs at
+    each threads a block of ``ROLLOUT_SWEEP``: a copy of env_rollout.cu
+    with its ``kThreads`` set to each, built once for each (one nvcc each,
+    all at once), each build's outputs bit-equal to the built kernel's,
+    its registers from ``-Xptxas -v``."""
+    import ctypes
+    with open(os.path.join(kernels.CSRC, "env_rollout.cu")) as f:
+        src = f.read()
+    built = f"constexpr int kThreads = {FR.ROLLOUT_THREADS};"
+    if src.count(built) != 1:
+        raise RuntimeError(f"env_rollout.cu does not hold {built!r} once")
+    builds = {}
+    for threads in ROLLOUT_SWEEP:
+        name = os.path.join(kernels.BUILD_DIR, f"env_rollout_t{threads}")
+        with open(name + ".cu", "w") as f:
+            f.write(src.replace(built,
+                                f"constexpr int kThreads = {threads};"))
+        log = open(name + ".log", "w")
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+               "-o", name + ".so", name + ".cu"]
+        builds[threads] = (subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT), name, log)
+    ep = EnvParams()
+    actions = torch.as_tensor(
+        np.random.default_rng(1).integers(-1, 5, (T_ROLLOUT, 2, N_ENVS)),
+        dtype=torch.int32, device=dev)
+    want_k1 = FR.fused_rollout(T_ROLLOUT, N_ENVS, actions=actions)
+    want_k2 = FR.fused_rollout_counters(T_COUNTERS_LONG, N_ENVS, seed=12345,
+                                        device=dev)
+    want_cs = torch.stack([want_k2[k] for k in ("episodes", "collisions",
+                                                "wins1", "wins2")])
+    stream, ptr = kernels.stream_ptr(dev), kernels.ptr
+    lanes = FR.ROLLOUT_LANES
+    rows = []
+    for threads, (proc, name, log) in builds.items():
+        rc = proc.wait()
+        log.close()
+        with open(name + ".log") as f:
+            text = f.read()
+        if rc != 0:
+            raise RuntimeError(f"sweep build {name} failed:\n{text[-3000:]}")
+        lib = ctypes.CDLL(name + ".so")
+        k1, k2 = lib.mgt_env_rollout, lib.mgt_env_counters
+        k1.argtypes, k2.argtypes = FR.ROLLOUT_ARGS, FR.COUNTERS_ARGS
+        g = FR.RolloutGeometry(lanes, threads,
+                               -(-N_ENVS // (threads // lanes)))
+        out = FR.empty_rollout(T_ROLLOUT, N_ENVS, dev)
+        bufs = [out[k] for k in ("obs", "rewards", "done", "winner",
+                                 "collision")]
+        rs = torch.empty(2, N_ENVS, device=dev)
+        cs = torch.empty(4, N_ENVS, dtype=torch.int32, device=dev)
+
+        def run_k1():
+            if k1(ptr(actions), *map(ptr, bufs), *FR.env_call_args(
+                    T_ROLLOUT, N_ENVS, None, ep, g), stream):
+                raise RuntimeError(f"sweep build {name}: K1 launch failed")
+
+        def run_k2():
+            if k2(ptr(None), ptr(rs), ptr(cs), *FR.env_call_args(
+                    T_COUNTERS_LONG, N_ENVS, 12345, ep, g), stream):
+                raise RuntimeError(f"sweep build {name}: K2 launch failed")
+        run_k1()
+        run_k2()
+        torch.cuda.synchronize()
+        got = FR.as_events(out)
+        same = (all(torch.equal(got[k], want_k1[k]) for k in want_k1)
+                and torch.equal(rs, want_k2["reward_sum"])
+                and torch.equal(cs, want_cs))
+        if not same:
+            raise AssertionError(f"sweep build {name} disagrees with K1/K2")
+        rows.append({"lanes": lanes, "threads": threads, "blocks": g.blocks,
+                     "k1_actions_ms": cuda_ms(torch, run_k1, 10),
+                     "k2_long_ms": cuda_ms(torch, run_k2, 3),
+                     "registers": [ln.strip() for ln in text.splitlines()
+                                   if "registers" in ln]})
+    return rows
+
+
+def check_k1_k2(checks, torch, np, FR, EnvParams, dev):
+    """K1 and K2 bit for bit against their plain versions in every case,
+    and K2 against K1's reductions."""
+    counts = ("episodes", "collisions", "wins1", "wins2")
+    for T, N, max_steps in K1_K2_CASES:
+        ep = EnvParams(**({} if max_steps is None else
+                          {"max_steps": max_steps}))
+        r = np.random.default_rng(T * N)
+        acts = torch.as_tensor(r.integers(-1, 5, (T, 2, N)),
+                               dtype=torch.int32, device=dev)
+        for mode, kw in (("actions", {"actions": acts}),
+                         ("seed", {"seed": 12345, "device": dev})):
+            what = f"{mode} T {T} N {N} max_steps {max_steps}"
+            k1 = FR.fused_rollout(T, N, env_params=ep, **kw)
+            k1p = FR.fused_rollout_plain(T, N, env_params=ep, **kw)
+            checks.events("K1", what, k1, k1p, tuple(k1), {})
+            k2 = FR.fused_rollout_counters(T, N, env_params=ep, **kw)
+            k2p = FR.fused_rollout_counters_plain(T, N, env_params=ep, **kw)
+            checks.events("K2", what, k2, k2p, tuple(k2), {})
+            # K2 against K1's reductions (tests/test_fused_rollout_counters
+            # .py; the rewards summed in another order, so not part of K2's
+            # error against its plain version).
+            d, w, c = k1["done"], k1["winner"], k1["collision"]
+            red = {"episodes": d.sum(0), "collisions": c.sum(0),
+                   "wins1": (d & (w == 1) & ~c).sum(0),
+                   "wins2": (d & (w == 2) & ~c).sum(0)}
+            for k in counts:
+                checks.equal("K2 vs K1", f"{what} {k}", k2[k], red[k])
+            checks.close("K2 vs K1", f"{what} reward_sum", k2["reward_sum"],
+                         k1["rewards"].sum(0), 1e-5, 1e-3)
+            if max_steps == 3:
+                assert int(k2["episodes"].sum()) >= N * (T // 3), what
+            if T == T_ROLLOUT and N == N_ENVS:
+                assert int(k2["episodes"].sum()) > 0
+                assert int(k2["collisions"].sum()) > 0
+                print(f"K1/K2 {mode}: {int(k2['episodes'].sum())} episodes, "
+                      f"{int(k2['collisions'].sum())} collisions in "
+                      f"{T} x {N}", flush=True)
+    print(f"K1/K2: {2 * len(K1_K2_CASES)} cases bit-equal", flush=True)
+
+
 def main():
     import torch
 
@@ -2001,7 +2178,7 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from merging_gym_tpu_torch import cli, kernels
+    from merging_gym_tpu_torch import bench, cli, kernels
     from merging_gym_tpu_torch.agents import dqn as D
     from merging_gym_tpu_torch.agents import drqn as DR
     from merging_gym_tpu_torch.agents import hdqn as H
@@ -2059,33 +2236,7 @@ def main():
     # ---- 2. every kernel against its plain version ----------------------
     actions = torch.as_tensor(rng.integers(-1, 5, (T_ROLLOUT, 2, N_ENVS)),
                               dtype=torch.int32, device=dev)
-    modes = {"actions": {"actions": actions},
-             "seed": {"seed": 12345, "device": dev}}
-    for mode, kw in modes.items():
-        k1 = FR.fused_rollout(T_ROLLOUT, N_ENVS, **kw)
-        k1p = FR.fused_rollout_plain(T_ROLLOUT, N_ENVS, **kw)
-        checks.events("K1", mode, k1, k1p, ("done", "winner", "collision"),
-                      {"obs": (1e-6, 1e-3), **ev_tol})
-        k2 = FR.fused_rollout_counters(T_ROLLOUT, N_ENVS, **kw)
-        k2p = FR.fused_rollout_counters_plain(T_ROLLOUT, N_ENVS, **kw)
-        counts = ("episodes", "collisions", "wins1", "wins2")
-        checks.events("K2", mode, k2, k2p, counts,
-                      {"reward_sum": (1e-6, 1e-6)})
-        # K2 against K1's reductions (tests/test_fused_rollout_counters.py;
-        # summed in another order, so not part of K2's error vs its plain
-        # version).
-        d, w, c = k1["done"], k1["winner"], k1["collision"]
-        red = {"episodes": d.sum(0), "collisions": c.sum(0),
-               "wins1": (d & (w == 1) & ~c).sum(0),
-               "wins2": (d & (w == 2) & ~c).sum(0)}
-        for k in counts:
-            checks.equal("K2 vs K1", f"{mode} {k}", k2[k], red[k])
-        checks.close("K2 vs K1", f"{mode} reward_sum", k2["reward_sum"],
-                     k1["rewards"].sum(0), 1e-5, 1e-3)
-        assert int(k2["episodes"].sum()) > 0 and int(k2["collisions"].sum()) > 0
-        print(f"K1/K2 {mode}: {int(k2['episodes'].sum())} episodes, "
-              f"{int(k2['collisions'].sum())} collisions in "
-              f"{T_ROLLOUT} x {N_ENVS}", flush=True)
+    check_k1_k2(checks, torch, np, FR, EnvParams, dev)
 
     g = torch.Generator(device=dev).manual_seed(4)
     hdqn_nets = (qnet_init(g, 10, 3), qnet_init(g, 11, 5))
@@ -2113,20 +2264,33 @@ def main():
         return out
 
     kernels.reset_launch_counts()
+    bench_line = timed("bench", lambda: cli.main(["bench"]))
+    bench_launches = dict(kernels.launch_counts)
+    print(f"bench path: {phase_s['bench']:.2f} s, launches "
+          f"{bench_launches}", flush=True)
+    if bench_launches["env_counters"] != 1 + bench.REPS:
+        raise AssertionError(f"bench launched K2 "
+                             f"{bench_launches['env_counters']} times")
+    if (list(bench_line) != ["metric", "value", "unit", "vs_baseline",
+                             "device"]
+            or bench_line["device"] != torch.cuda.get_device_name(0)
+            or not 0 < bench_line["value"] < float("inf")):
+        raise AssertionError(f"bench printed {bench_line}")
+
+    kernels.reset_launch_counts()
     traj = timed("fused_rollout", lambda: FR.fused_rollout(
         T_ROLLOUT, N_ENVS, seed=7, device=dev))
-    cnt = timed("fused_rollout_counters", lambda: FR.fused_rollout_counters(
-        T_COUNTERS_LONG, N_ENVS, seed=7, device=dev))
     fused = timed("eval --fused", lambda: cli.main(
         ["eval", "--fused", "--p1", ZOO_L2, "--p2", ZOO_L1,
          "--num-envs", str(N_ENVS)]))
     loop = timed("eval", lambda: cli.main(
         ["eval", "--p1", ZOO_L2, "--p2", ZOO_L1, "--num-envs", "256"]))
     eval_launches = dict(kernels.launch_counts)
-    print(f"evaluation path: {sum(phase_s.values()):.2f} s {phase_s}, "
+    eval_s = {k: v for k, v in phase_s.items() if k != "bench"}
+    print(f"evaluation path: {sum(eval_s.values()):.2f} s {eval_s}, "
           f"launches {eval_launches}", flush=True)
-    missing = [k for k in ("env_rollout", "env_counters", "qnet_mlp",
-                           "policy_rollout") if eval_launches[k] == 0]
+    missing = [k for k in ("env_rollout", "qnet_mlp", "policy_rollout")
+               if eval_launches[k] == 0]
     if missing:
         raise AssertionError(f"evaluation path launched no {missing}")
 
@@ -2192,18 +2356,16 @@ def main():
         check_runs(np, runs, load_params_npz)
         print("evaluate_drqn trained vs L0:", json.dumps(drqn_eval),
               flush=True)
-    launches = {k: eval_launches[k] + train_launches[k] + hdqn_launches[k]
-                + rb_launches[k] + drqn_launches[k]
+    launches = {k: bench_launches[k] + eval_launches[k] + train_launches[k]
+                + hdqn_launches[k] + rb_launches[k] + drqn_launches[k]
                 for k in kernels.launch_counts}
     launches["dqn_trainer"] = sum(train_launches[k] for k in K5_COUNTS)
     launches["hdqn_trainer"] = sum(hdqn_launches[k] for k in K7_COUNTS)
     launches["rainbow_trainer"] = sum(rb_launches[k] for k in K8_COUNTS)
     launches["drqn_trainer"] = sum(drqn_launches[k] for k in K9_COUNTS)
     assert traj["obs"].shape == (T_ROLLOUT, 10, N_ENVS)
-    assert torch.isfinite(traj["obs"]).all() and torch.isfinite(
-        cnt["reward_sum"]).all()
-    assert (cnt["wins1"] + cnt["wins2"] <= cnt["episodes"]).all()
-    assert int(cnt["episodes"].sum()) > N_ENVS
+    assert torch.isfinite(traj["obs"]).all()
+    assert int(traj["done"].sum()) > 0
     for res, min_eps in ((fused, N_ENVS), (loop, 512),
                          (trained, N_ENVS), (hdqn_eval, 512), (rb_zoo, 256),
                          (rb_trained, 256), (drqn_eval, 512)):
@@ -2235,34 +2397,25 @@ def main():
     results = []
     envs = T_ROLLOUT * N_ENVS
 
-    # K1, actions mode
-    out = FR.empty_rollout(T_ROLLOUT, N_ENVS, dev)
+    # K1 (actions and seed mode) and K2 (seed mode, bench's action source;
+    # also a long launch), then the sweep of their geometry.
     ep = EnvParams()
-    ms = cuda_ms(torch, lambda: FR.launch_rollout(out, actions, None, ep), 10)
+    k1k2 = rollout_times(torch, np, FR, EnvParams, dev)
     plain = cuda_ms(torch, lambda: FR.fused_rollout_plain(
         T_ROLLOUT, N_ENVS, actions=actions), 3)
-    b_ms, b_by = bound(envs * FR.K1_BYTES_PER_ENV_STEP,
-                       envs * (ENV_STEP_FLOPS + OBS_FLOPS))
     results.append(("K1 env_rollout", "env_rollout", "env_rollout.cu",
                     "merging_gym_tpu/ops/fused_rollout.py:116", "K1",
-                    ms, plain, b_ms, b_by, None))
-
-    # K2, seed mode (bench.py's action source), and a long launch
-    rs = torch.empty(2, N_ENVS, device=dev)
-    cs = torch.empty(4, N_ENVS, dtype=torch.int32, device=dev)
-    ms = cuda_ms(torch, lambda: FR.launch_counters(rs, cs, T_ROLLOUT, None,
-                                                   12345, ep), 10)
+                    k1k2["k1_actions_ms"], plain,
+                    *k1k2["bounds"]["k1_actions"], None))
     plain = cuda_ms(torch, lambda: FR.fused_rollout_counters_plain(
         T_ROLLOUT, N_ENVS, seed=12345, device=dev), 3)
-    b_ms, b_by = bound(N_ENVS * 24, envs * (ENV_STEP_FLOPS + 2))
     results.append(("K2 env_counters", "env_counters", "env_rollout.cu",
                     "merging_gym_tpu/ops/fused_rollout.py:168", "K2",
-                    ms, plain, b_ms, b_by, None))
-    long_ms = cuda_ms(torch, lambda: FR.launch_counters(
-        rs, cs, T_COUNTERS_LONG, None, 12345, ep), 5)
-    long_bound, _ = bound(N_ENVS * 24,
-                          T_COUNTERS_LONG * N_ENVS * (ENV_STEP_FLOPS + 2))
-    k2_rate = T_COUNTERS_LONG * N_ENVS / (long_ms / 1e3)
+                    k1k2["k2_seed_ms"], plain, *k1k2["bounds"]["k2_seed"],
+                    None))
+    k1k2["geometry"] = FR.rollout_geometry(N_ENVS)._asdict()
+    k1k2["sweep"] = rollout_sweep(torch, np, kernels, FR, EnvParams, dev)
+    print(json.dumps({"card": card, "k1_k2": k1k2}), flush=True)
 
     # K3 at B = 4096, f32
     x = torch.as_tensor(rng.standard_normal((B_MLP, 10)) * 100,
@@ -2579,20 +2732,25 @@ def main():
         "k9_chunk": k9,
         "step_loop_train_step_ms": loop_step_ms,
         "step_loop_hdqn_train_step_ms": hdqn_loop_step_ms,
-        "launches_by_path": {"evaluation": eval_launches,
+        "launches_by_path": {"bench": bench_launches,
+                             "evaluation": eval_launches,
                              "training": train_launches,
                              "h-DQN training": hdqn_launches,
                              "Rainbow training": rb_launches,
                              "DRQN training": drqn_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
-                           "ms": long_ms, "bound_ms": long_bound,
-                           "env_steps_per_s": k2_rate},
+                           "ms": k1k2["k2_long_ms"],
+                           "bound_ms": k1k2["bounds"]["k2_long"][0],
+                           "env_steps_per_s": k1k2["k2_long_env_steps_per_s"]},
+        "bench": bench_line,
         "k6_eval_launch": {"steps": T_EVAL, "envs": N_ENVS, "ms": full_ms,
                            "bound_ms": full_bound},
         "eval_fused_split": eval_split,
         "main_path_s": phase_s,
-        "occupancy_k1_k2": f"{(N_ENVS + 127) // 128} blocks of 128 threads "
-                           f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs",
+        "occupancy_k1_k2": "{blocks} blocks of {threads} threads, {lanes} "
+                           "lanes an env, on {sms} SMs".format(
+                               **k1k2["geometry"], sms=torch.cuda.
+                               get_device_properties(0).multi_processor_count),
     }))
     src = "merging_gym_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [

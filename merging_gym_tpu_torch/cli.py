@@ -7,6 +7,7 @@
       --levels 3 ...
   python -m merging_gym_tpu_torch.cli [--cpu] eval --p1 SPEC --p2 SPEC \\
       [--fused] [--num-envs N] [--episodes E] [--seed S] [env flags]
+  python -m merging_gym_tpu_torch.cli bench
 
 SPEC is ``random``, ``l0``, ``const:<a>`` or a Q-net ``params.npz`` (the
 JAX package's format, e.g. ``model_zoo/L2/params.npz``).  Runs on the card
@@ -29,6 +30,9 @@ opponent is the ``params.npz`` of a drqn run.  Every run writes
 ``params.npz`` in the JAX key format and logs
 ``scalars.jsonl``/``scalars.csv``.  ``levelk`` trains L1 against L0, then
 each level against the frozen one before it (dqn and hdqn).
+``bench`` prints the env-steps/s of the reduce-on-chip rollout (K2) at
+4,096 envs as one JSON line (``merging_gym_tpu_torch.bench``); it measures
+the card and refuses ``--cpu``.
 ``--resume``/``--checkpoint-every``, ``--plot-every`` and a reference
 ``.pth`` opponent are not ported yet and exit with an error.
 """
@@ -524,6 +528,13 @@ def cmd_eval(args) -> dict:
     return result
 
 
+def cmd_bench(args) -> dict:
+    if args.cpu:
+        raise SystemExit("bench measures the card: --cpu is refused")
+    from merging_gym_tpu_torch import bench
+    return bench.main()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="merging_gym_tpu_torch")
     p.add_argument("--cpu", action="store_true",
@@ -552,6 +563,10 @@ def main(argv=None):
                     help="run the match as one launch of the policy-rollout "
                          "kernel (Q-net policies, Phi(0.7)-greedy)")
     pe.set_defaults(fn=cmd_eval)
+
+    pb = sub.add_parser("bench", help="env-steps/s of the reduce-on-chip "
+                                      "rollout at 4,096 envs (one JSON line)")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

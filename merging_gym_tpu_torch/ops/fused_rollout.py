@@ -4,12 +4,18 @@ Replaces ``merging_gym_tpu/ops/fused_rollout.py``: ``_kernel`` (K1, the
 trajectory rollout, ``pallas_call`` at :264) and ``_kernel_counters`` (K2,
 the reduce-on-chip rollout at :321, ``bench.py``'s headline kernel).
 
-On the card both are ``kernels/csrc/env_rollout.cu``: one thread per env
-loops over the T steps with its state in registers, so the env-last
-``[T, c, N]`` writes are coalesced across each warp.  K2 keeps its
-counters in registers and writes them once.  On the CPU each wrapper runs
-its plain PyTorch version below, which repeats the kernel's arithmetic op
-for op; on the card the two agree bit for bit.
+On the card both are ``kernels/csrc/env_rollout.cu``: a group of
+``ROLLOUT_LANES`` lanes owns one env and loops over the T steps with its
+state in registers (geometry :func:`rollout_geometry`: 32 envs in each
+block of 128 threads, 128 blocks at 4,096 envs).  Lane (v, c) computes
+coordinate c of vehicle v's ``lon2coord`` and the group swaps them by
+shuffles; the next step's kinematics from the continuing state and from
+the start (a 6-entry table a block builds) are both ready before done is
+known; actions are fetched a group of ``ROLLOUT_AHEAD`` steps ahead.  The
+env-last ``[T, c, N]`` writes stay coalesced across each warp.  K2 keeps
+its counters in registers and writes them once.  On the CPU each wrapper
+runs its plain PyTorch version below, which repeats the kernel's
+arithmetic op for op; on the card the two agree bit for bit.
 
 Two action sources, as in the JAX package:
 * ``actions`` -- an int ``[T, 2, N]`` stream (-1 = the L0 arm);
@@ -24,6 +30,7 @@ Deterministic starts only, as in the JAX kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,10 +46,34 @@ from merging_gym_tpu_torch.ops import philox
 # done/winner/collision (12).  Seed mode reads no actions.
 K1_BYTES_PER_ENV_STEP = 68
 
+# The geometry env_rollout.cu is built for (kLanes, kThreads, kAhead):
+# lanes an env, threads a block, and the steps of actions fetched one
+# group ahead.
+ROLLOUT_LANES = 4
+ROLLOUT_THREADS = 128
+ROLLOUT_AHEAD = 8
+
 _ENV_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-             ctypes.c_int] + [ctypes.c_float] * 5
-_ROLLOUT_ARGS = [ctypes.c_void_p] * 6 + _ENV_ARGS + [ctypes.c_void_p]
-_COUNTERS_ARGS = [ctypes.c_void_p] * 3 + _ENV_ARGS + [ctypes.c_void_p]
+             ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_int] * 3
+ROLLOUT_ARGS = [ctypes.c_void_p] * 6 + _ENV_ARGS + [ctypes.c_void_p]
+COUNTERS_ARGS = [ctypes.c_void_p] * 3 + _ENV_ARGS + [ctypes.c_void_p]
+
+
+class RolloutGeometry(NamedTuple):
+    """Launch geometry of K1/K2: ``lanes`` lanes an env, ``threads`` a
+    block, ``blocks`` blocks of ``threads // lanes`` envs."""
+    lanes: int
+    threads: int
+    blocks: int
+
+
+def rollout_geometry(num_envs: int) -> RolloutGeometry:
+    """K1/K2's geometry for ``num_envs`` envs: 4 lanes an env, 32 envs in
+    each block of 128 threads, so 128 blocks at 4,096 envs, one warp on
+    each scheduler of 128 SMs; the last block's tail is masked."""
+    per_block = ROLLOUT_THREADS // ROLLOUT_LANES
+    return RolloutGeometry(ROLLOUT_LANES, ROLLOUT_THREADS,
+                           -(-num_envs // per_block))
 
 
 def rewards_cfg(env_params: EnvParams) -> tuple:
@@ -168,35 +199,43 @@ def fused_rollout_counters(num_steps: int, num_envs: int, actions=None,
     return _as_counters(rewsum, counts)
 
 
-def launch_rollout(out: dict, actions, seed, env_params: EnvParams) -> None:
-    """Launch K1 into the preallocated int32/f32 buffers of ``out``."""
+def launch_rollout(out: dict, actions, seed, env_params: EnvParams,
+                   geometry: RolloutGeometry | None = None) -> None:
+    """Launch K1 into the preallocated int32/f32 buffers of ``out``;
+    ``geometry`` in place of :func:`rollout_geometry`'s (the kernel
+    refuses any other than its own)."""
     T, _, N = out["obs"].shape
     bufs = [out[k] for k in ("obs", "rewards", "done", "winner", "collision")]
     dev = kernels.require_cuda(*bufs, *([] if actions is None else [actions]))
-    fn = kernels.function("env_rollout", "mgt_env_rollout", _ROLLOUT_ARGS)
+    fn = kernels.function("env_rollout", "mgt_env_rollout", ROLLOUT_ARGS)
     rc = fn(kernels.ptr(actions), *map(kernels.ptr, bufs),
-            *_env_call_args(T, N, seed, env_params), kernels.stream_ptr(dev))
+            *env_call_args(T, N, seed, env_params, geometry),
+            kernels.stream_ptr(dev))
     kernels.check("env_rollout", rc, "env_rollout launch")
     kernels.launch_counts["env_rollout"] += 1
 
 
 def launch_counters(rewsum, counts, num_steps: int, actions, seed,
-                    env_params: EnvParams) -> None:
-    """Launch K2 into ``rewsum`` f32[2, N] and ``counts`` i32[4, N]."""
+                    env_params: EnvParams,
+                    geometry: RolloutGeometry | None = None) -> None:
+    """Launch K2 into ``rewsum`` f32[2, N] and ``counts`` i32[4, N];
+    ``geometry`` as in :func:`launch_rollout`."""
     N = rewsum.shape[1]
     dev = kernels.require_cuda(rewsum, counts,
                                *([] if actions is None else [actions]))
-    fn = kernels.function("env_rollout", "mgt_env_counters", _COUNTERS_ARGS)
+    fn = kernels.function("env_rollout", "mgt_env_counters", COUNTERS_ARGS)
     rc = fn(kernels.ptr(actions), kernels.ptr(rewsum), kernels.ptr(counts),
-            *_env_call_args(num_steps, N, seed, env_params),
+            *env_call_args(num_steps, N, seed, env_params, geometry),
             kernels.stream_ptr(dev))
     kernels.check("env_rollout", rc, "env_counters launch")
     kernels.launch_counts["env_counters"] += 1
 
 
-def _env_call_args(T, N, seed, env_params):
+def env_call_args(T, N, seed, env_params, geometry=None):
+    """The C entry points' arguments between the buffers and the stream."""
     k0, k1 = philox.seed_key(0 if seed is None else seed)
-    return (T, N, k0, k1, env_params.max_steps, *rewards_cfg(env_params))
+    return (T, N, k0, k1, env_params.max_steps, *rewards_cfg(env_params),
+            *(geometry or rollout_geometry(N)))
 
 
 def _prepare(num_steps, num_envs, actions, seed, env_params, device):

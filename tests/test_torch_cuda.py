@@ -50,19 +50,55 @@ def _equal(a, b):
         assert torch.equal(a[k], b[k]), k
 
 
+# K1/K2 at the edges of their geometry (32 envs a block: 1, 31, 33, 300,
+# 4,095, 4,096, 4,097 envs), T of 1, not a multiple of the 8-step fetch
+# (37) and 512, with the default timeout and with 3-step episodes.
+K1_K2_CASES = [(1, 1, None), (37, 31, 3), (37, 33, None), (512, 300, 3),
+               (37, 4095, 3), (512, 4096, None), (1, 4097, 3),
+               (37, 4097, None)]
+
+
+@pytest.mark.parametrize("T,N,max_steps", K1_K2_CASES)
 @pytest.mark.parametrize("mode", ["actions", "seed"])
-def test_k1_k2_equal_plain(cuda, mode):
-    T, N = 128, 300  # N not a multiple of the 128-thread block
-    rng = np.random.default_rng(0)
+def test_k1_k2_equal_plain(cuda, mode, T, N, max_steps):
+    rng = np.random.default_rng(T + N)
     kw = ({"actions": torch.as_tensor(rng.integers(-1, 5, (T, 2, N)),
                                       dtype=torch.int32, device=cuda)}
           if mode == "actions" else {"seed": 9, "device": cuda})
+    if max_steps is not None:
+        kw["env_params"] = EnvParams(max_steps=max_steps)
     before = dict(kernels.launch_counts)
-    _equal(FR.fused_rollout(T, N, **kw), FR.fused_rollout_plain(T, N, **kw))
-    _equal(FR.fused_rollout_counters(T, N, **kw),
-           FR.fused_rollout_counters_plain(T, N, **kw))
+    k1 = FR.fused_rollout(T, N, **kw)
+    _equal(k1, FR.fused_rollout_plain(T, N, **kw))
+    k2 = FR.fused_rollout_counters(T, N, **kw)
+    _equal(k2, FR.fused_rollout_counters_plain(T, N, **kw))
     assert kernels.launch_counts["env_rollout"] == before["env_rollout"] + 1
     assert kernels.launch_counts["env_counters"] == before["env_counters"] + 1
+    d, w, c = k1["done"], k1["winner"], k1["collision"]
+    assert torch.equal(k2["episodes"], d.sum(0).int())
+    assert torch.equal(k2["wins1"], (d & (w == 1) & ~c).sum(0).int())
+    if max_steps == 3:
+        assert int(k2["episodes"].sum()) >= N * (T // 3)
+
+
+def test_k1_k2_refuse_a_geometry_they_are_not_built_for(cuda):
+    """Only 4 lanes x 128 threads and its block count: any other geometry
+    is refused before the launch."""
+    T, N = 8, 300
+    g = FR.rollout_geometry(N)
+    ep = EnvParams()
+    out = FR.empty_rollout(T, N, cuda)
+    rs = torch.empty(2, N, device=cuda)
+    cs = torch.empty(4, N, dtype=torch.int32, device=cuda)
+    FR.launch_rollout(out, None, 1, ep, g)
+    FR.launch_counters(rs, cs, T, None, 1, ep, g)
+    for bad in (g._replace(lanes=2), g._replace(threads=64),
+                g._replace(threads=256), g._replace(blocks=g.blocks + 1),
+                g._replace(blocks=g.blocks - 1)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FR.launch_rollout(out, None, 1, ep, bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            FR.launch_counters(rs, cs, T, None, 1, ep, bad)
 
 
 # Batches of K3 and K4: tails below one block and across a block boundary

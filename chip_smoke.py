@@ -37,7 +37,15 @@ Phases, each of which raises (non-zero exit) on failure:
      defaults: ``train --algo drqn --fused-kernel`` (K9), the same against
      the trained net as a frozen opponent, the step-loop ``train --algo drqn
      --opponent selfplay``, and ``evaluate_drqn`` of the trained net against
-     L0;
+     L0.  Resume (``resume_path``): for K5, K7, K8 (1-step and PER 3-step)
+     and K9 at the CLI's defaults and the four step loops in self-play
+     (20-step chunks; h-DQN's also with a goal ring of 2,048), run A (2
+     chunks, a checkpoint after each), B (1
+     chunk resumed from A) and C (3 chunks uninterrupted; twice for the
+     step loops), B held against C bit for bit where two uninterrupted
+     runs agree bit for bit; then ``eval --fused`` of model_zoo/L2 written
+     as a reference ``.pth`` run directory, exactly equal to the same on
+     its ``params.npz`` (``pth_path``);
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version (K1 and
      K2 in both action sources and K2's 65,536-step launch:
@@ -142,6 +150,35 @@ K8_COUNTS = ("rainbow_act", "rainbow_per_pick", "rainbow_learn_fwd",
              "rainbow_learn_grad", "rainbow_post")
 K9_COUNTS = ("drqn_act", "drqn_learn_in", "drqn_learn_rec",
              "drqn_learn_grad")
+
+# The resume phase: (label, train flags, scalar that counts learning).  The
+# fused trainers at the CLI's defaults, the step loops in self-play with
+# 20-step chunks.
+RESUME_FUSED = (
+    ("K5", ["--algo", "dqn", "--fused-kernel"], "learns"),
+    ("K7", ["--algo", "hdqn", "--fused-kernel"], "lower_learns"),
+    ("K8", ["--algo", "rainbow", "--fused-kernel"], "learns"),
+    ("K8 PER 3-step", ["--algo", "rainbow", "--fused-kernel", "--per",
+                       "--n-step", "3", "--obs-scale", "0.01"], "learns"),
+    ("K9", ["--algo", "drqn", "--fused-kernel"], "learns"))
+RESUME_LOOPS = tuple(
+    (f"{algo} step loop{label}", ["--algo", algo, "--opponent", "selfplay",
+                                  "--chunk-steps", "20", *extra], learned)
+    for algo, label, extra, learned in (
+        ("dqn", "", [], "learns"), ("hdqn", "", [], "loss"),
+        # No slot of the goal ring written twice in a step: bit for bit.
+        ("hdqn", ", goal memory 2048", ["--goal-memory-capacity", "2048"],
+         "loss"),
+        ("rainbow", "", [], "learns"), ("drqn", "", [], "learns")))
+RESUME_ROW_KEYS = ("env_steps", "episodes", "collision_rate", "win_rate")
+# A step loop whose two uninterrupted runs differ is held, B against C and
+# C against C, to this largest |difference| of a parameter.  At the CLI's
+# defaults the h-DQN step loop's goal ring (200 slots) takes up to 1,024
+# options a step, so a step writes some slots several times, and on the
+# card which write lands is not fixed (PERF.md §6 has the measured
+# differences); over 3 chunks of 20 steps, ~58 lower learns at lr 0.01 can
+# move a weight by ~0.6.
+LOOP_RUN_TO_RUN_ATOL = 0.25
 
 # The Rainbow net of K8: trunk 10 -> 32 -> 64, noisy value 64 -> 64 -> 51,
 # noisy advantage 64 -> 64 -> 5 x 51 (ranbowdqn.py:498-548).
@@ -732,6 +769,102 @@ def drqn_path(cli, tmp, evaluate_drqn, EnvParams, load_params_npz,
                                                          "learns"),
             "drqn train (step loop)": (loop, 2, "learns")}
     return runs, res
+
+
+def flat_params(load_params_npz, run):
+    """A run's ``params.npz`` as ``{"layer.key": array}``."""
+    def walk(tree, prefix):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}.")
+            else:
+                yield prefix + k, v
+    return dict(walk(load_params_npz(os.path.join(run, "params.npz")), ""))
+
+
+def params_err(np, load_params_npz, a, b):
+    """Largest |difference| between two runs' parameters."""
+    pa, pb = (flat_params(load_params_npz, r) for r in (a, b))
+    if sorted(pa) != sorted(pb):
+        raise AssertionError(f"{a} and {b} hold other params")
+    return max(float(np.abs(pa[k].astype(np.float64) - pb[k]).max())
+               for k in pa)
+
+
+def last_row(run):
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        return [json.loads(ln) for ln in f][-1]
+
+
+def resume_path(cli, np, tmp, load_params_npz, CheckpointManager, torch):
+    """The ``resume`` phase through the CLI: for each trainer run A
+    (``--max-chunks 2 --checkpoint-every 1``), B (``--max-chunks 1
+    --resume A``) and C (``--max-chunks 3``, uninterrupted; twice for the
+    step loops).  B must equal C bit for bit where two uninterrupted runs
+    do; a step loop whose two runs differ is held, B against C as C
+    against C, to ``LOOP_RUN_TO_RUN_ATOL``.  Returns each trainer's wall
+    times, checkpoint sizes and differences."""
+    out = {}
+
+    def run(label, flags, name, *extra):
+        path = os.path.join(tmp, "resume", label.replace(" ", "_"), name)
+        t = time.perf_counter()
+        cli.main(["train", *flags, "--episodes", BIG, "--out", path, *extra])
+        torch.cuda.synchronize()
+        return path, time.perf_counter() - t
+
+    for label, flags, learned in RESUME_FUSED + RESUME_LOOPS:
+        loop = "--fused-kernel" not in flags
+        a, a_s = run(label, flags, "A", "--max-chunks", "2",
+                     "--checkpoint-every", "1")
+        b, b_s = run(label, flags, "B", "--max-chunks", "1", "--resume", a)
+        c, c_s = run(label, flags, "C", "--max-chunks", "3")
+        ckpt = CheckpointManager(os.path.join(a, "ckpt"))
+        if ckpt.all_steps() != [0, 1, 2]:
+            raise AssertionError(f"{label}: A kept steps {ckpt.all_steps()}")
+        rec = {"wall_s": {"A": a_s, "B": b_s, "C": c_s},
+               "ckpt_bytes": os.path.getsize(ckpt.step_path(2)),
+               "max_abs_err": params_err(np, load_params_npz, b, c)}
+        keys = RESUME_ROW_KEYS + (learned,)
+        rb, rc = last_row(b), last_row(c)
+        if loop:
+            c2, rec["wall_s"]["C2"] = run(label, flags, "C2", "--max-chunks",
+                                          "3")
+            rec["run_to_run_err"] = params_err(np, load_params_npz, c, c2)
+            rc2 = last_row(c2)
+            rec["run_to_run_rows_equal"] = all(rc[k] == rc2[k] for k in keys)
+        if rc["env_steps"] != rb["env_steps"] or rc[learned] <= 0:
+            raise AssertionError(f"{label}: B {rb}, C {rc}")
+        if not loop or rec["run_to_run_err"] == 0.0:
+            # Bit for bit: params and the last scalars row.
+            if rec["max_abs_err"] != 0.0 or any(rb[k] != rc[k] for k in keys):
+                raise AssertionError(f"{label}: resumed run differs from the "
+                                     f"uninterrupted one: {rec}, B {rb}, "
+                                     f"C {rc}")
+        elif max(rec["max_abs_err"],
+                 rec["run_to_run_err"]) > LOOP_RUN_TO_RUN_ATOL:
+            raise AssertionError(f"{label}: {rec}")
+        out[label] = rec
+    return out
+
+
+def pth_path(cli, tmp, load_params_npz, qnet_params_from_numpy,
+             qnet_to_state_dict, torch):
+    """``eval --fused`` of model_zoo/L2 written as a reference ``.pth`` run
+    directory must equal the same command on L2's ``params.npz``."""
+    ref = os.path.join(tmp, "ref_l2")
+    os.makedirs(ref)
+    sd = qnet_to_state_dict(qnet_params_from_numpy(load_params_npz(ZOO_L2),
+                                                   "cpu"))
+    for name in ("eval.pth", "target.pth"):
+        torch.save(sd, os.path.join(ref, name))
+    args = ["eval", "--fused", "--p2", ZOO_L1]
+    got = cli.main([*args, "--p1", ref])
+    want = cli.main([*args, "--p1", ZOO_L2])
+    if got != want:
+        raise AssertionError(f"eval --fused of a .pth run dir: {got} != "
+                             f"{want}")
+    return got
 
 
 def rainbow_path(cli, tmp, evaluate, rainbow_policy, l0_policy, EnvParams,
@@ -2190,7 +2323,9 @@ def main():
                                                        fused_outcomes)
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.core.geometry import lon2coord
-    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.io.checkpoint import (CheckpointManager,
+                                                     load_params_npz)
+    from merging_gym_tpu_torch.io.torch_import import qnet_to_state_dict
     from merging_gym_tpu_torch.nn.lstm import (drqn_init,
                                                drqn_params_from_numpy)
     from merging_gym_tpu_torch.nn.mlp import (qnet_apply, qnet_init,
@@ -2356,13 +2491,31 @@ def main():
         check_runs(np, runs, load_params_npz)
         print("evaluate_drqn trained vs L0:", json.dumps(drqn_eval),
               flush=True)
+
+        kernels.reset_launch_counts()
+        resumed, pth_eval = timed("resume", lambda: (
+            resume_path(cli, np, tmp, load_params_npz, CheckpointManager,
+                        torch),
+            pth_path(cli, tmp, load_params_npz, qnet_params_from_numpy,
+                     qnet_to_state_dict, torch)))
+        resume_launches = dict(kernels.launch_counts)
+        print(json.dumps({"card": card, "resume": resumed,
+                          "resume_s": phase_s["resume"],
+                          "launches": resume_launches}), flush=True)
+        missing = [k for k in (*K5_COUNTS, *K7_COUNTS, *K8_COUNTS,
+                               *K9_COUNTS, "fused_actor", "policy_rollout")
+                   if resume_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"resume path launched no {missing}")
+        print("eval --fused of a .pth run dir:", json.dumps(pth_eval),
+              flush=True)
     launches = {k: bench_launches[k] + eval_launches[k] + train_launches[k]
                 + hdqn_launches[k] + rb_launches[k] + drqn_launches[k]
-                for k in kernels.launch_counts}
-    launches["dqn_trainer"] = sum(train_launches[k] for k in K5_COUNTS)
-    launches["hdqn_trainer"] = sum(hdqn_launches[k] for k in K7_COUNTS)
-    launches["rainbow_trainer"] = sum(rb_launches[k] for k in K8_COUNTS)
-    launches["drqn_trainer"] = sum(drqn_launches[k] for k in K9_COUNTS)
+                + resume_launches[k] for k in kernels.launch_counts}
+    launches["dqn_trainer"] = sum(launches[k] for k in K5_COUNTS)
+    launches["hdqn_trainer"] = sum(launches[k] for k in K7_COUNTS)
+    launches["rainbow_trainer"] = sum(launches[k] for k in K8_COUNTS)
+    launches["drqn_trainer"] = sum(launches[k] for k in K9_COUNTS)
     assert traj["obs"].shape == (T_ROLLOUT, 10, N_ENVS)
     assert torch.isfinite(traj["obs"]).all()
     assert int(traj["done"].sum()) > 0
@@ -2737,7 +2890,8 @@ def main():
                              "training": train_launches,
                              "h-DQN training": hdqn_launches,
                              "Rainbow training": rb_launches,
-                             "DRQN training": drqn_launches},
+                             "DRQN training": drqn_launches,
+                             "resume": resume_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": k1k2["k2_long_ms"],
                            "bound_ms": k1k2["bounds"]["k2_long"][0],

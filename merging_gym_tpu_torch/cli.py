@@ -9,9 +9,10 @@
       [--fused] [--num-envs N] [--episodes E] [--seed S] [env flags]
   python -m merging_gym_tpu_torch.cli bench
 
-SPEC is ``random``, ``l0``, ``const:<a>`` or a Q-net ``params.npz`` (the
-JAX package's format, e.g. ``model_zoo/L2/params.npz``).  Runs on the card
-unless ``--cpu`` is given; without a card and without ``--cpu`` it fails.
+SPEC is ``random``, ``l0``, ``const:<a>``, a Q-net ``params.npz`` (the
+JAX package's format, e.g. ``model_zoo/L2/params.npz``) or a reference run
+directory holding ``eval.pth``.  Runs on the card unless ``--cpu`` is
+given; without a card and without ``--cpu`` it fails.
 
 ``train --algo dqn --fused-kernel`` runs the single-kernel trainer (K5,
 ``ops.fused_trainer``), plain ``train --algo dqn`` the step-loop trainer
@@ -33,8 +34,13 @@ each level against the frozen one before it (dqn and hdqn).
 ``bench`` prints the env-steps/s of the reduce-on-chip rollout (K2) at
 4,096 envs as one JSON line (``merging_gym_tpu_torch.bench``); it measures
 the card and refuses ``--cpu``.
-``--resume``/``--checkpoint-every``, ``--plot-every`` and a reference
-``.pth`` opponent are not ported yet and exit with an error.
+``train --checkpoint-every N`` saves the whole train carry under
+``<out>/ckpt`` every N chunks and at the end (``io.checkpoint``; 0, the
+default, saves none), ``--resume DIR`` restores the newest step of
+``DIR/ckpt`` and trains on from it, and ``--plot-every N`` redraws the
+step loops' ``curves.png`` every N chunks (it is drawn at the end too).
+A frozen Q-net or h-DQN opponent may be a reference ``.pth`` run
+directory (``io.torch_import``).
 """
 
 from __future__ import annotations
@@ -70,13 +76,24 @@ def _env_params(args):
                      random_start=args.random_start, **extra)
 
 
+def _is_reference_run(path, files=("eval.pth",)):
+    return os.path.isdir(path) and all(
+        os.path.exists(os.path.join(path, f)) for f in files)
+
+
 def _load_qnet(path, device):
+    """A Q-net: a ``params.npz``, or the eval net of a reference run
+    directory (``eval.pth``, as the JAX CLI's ``_load_frozen_qnet``)."""
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.io.torch_import import load_qnet_pth
     from merging_gym_tpu_torch.nn.mlp import qnet_params_from_numpy
 
+    if _is_reference_run(path):
+        return load_qnet_pth(os.path.join(path, "eval.pth"), device)
     if not (path.endswith(".npz") and os.path.exists(path)):
-        raise SystemExit(f"cannot load a Q-net from {path!r} "
-                         "(expected a params.npz)")
+        raise SystemExit(f"cannot load a Q-net from {path!r} (expected a "
+                         "params.npz or a reference run directory holding "
+                         "eval.pth)")
     return qnet_params_from_numpy(load_params_npz(path), device)
 
 
@@ -95,11 +112,6 @@ def _policy_from_spec(spec: str, device):
     return P.q_policy(qnet_apply, _load_qnet(spec, device), greedy=False)
 
 
-# Flags of the JAX CLI whose code paths are not ported yet: a run that
-# sets one exits instead of ignoring it.
-_NOT_PORTED = ("--resume", "--checkpoint-every", "--plot-every")
-
-
 def _train_args(p):
     _add_env_args(p)
     p.add_argument("--algo", choices=["dqn", "hdqn", "rainbow", "drqn"],
@@ -107,7 +119,8 @@ def _train_args(p):
     p.add_argument("--opponent", default="L0",
                    help='"L0", "selfplay", or a params.npz (frozen; for '
                         'hdqn the {upper, lower} nets of an hdqn run, for '
-                        'drqn the net of a drqn run)')
+                        'drqn the net of a drqn run) or, for dqn, hdqn and '
+                        'rainbow, a reference .pth run directory')
     p.add_argument("--num-envs", type=int, default=1024)
     p.add_argument("--episodes", type=int, default=2000,
                    help="stop once this many episodes completed (main.py:170)")
@@ -164,12 +177,20 @@ def _train_args(p):
     p.add_argument("--greedy-actor", action="store_true",
                    help="with --fused-kernel: pure-argmax actor "
                         "(deterministic, no Philox draws)")
-    for flag in _NOT_PORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help="not yet ported")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save the whole train carry under <out>/ckpt every "
+                        "N chunks and at the end (0 = no checkpoints)")
+    p.add_argument("--resume", default=None,
+                   help="run dir to resume from: restores the newest step "
+                        "of its ckpt/ (params, optimizer, replay, envs, "
+                        "counters, RNG) into the carry these flags build")
+    p.add_argument("--plot-every", type=int, default=0,
+                   help="step loops: redraw curves.png every N chunks (also "
+                        "drawn at the end; the live matplotlib panel of "
+                        "main.py:176-235)")
 
 
-def _refuse_unported(args):
+def _refuse_unwired(args):
     if args.algo in ("rainbow", "drqn") and (
             args.hidden or args.compute_dtype != "float32"):
         raise SystemExit("--hidden/--compute-dtype are wired into the dqn "
@@ -184,10 +205,6 @@ def _refuse_unported(args):
     if args.algo == "hdqn" and args.learn_rounds != 1:
         raise SystemExit("--learn-rounds is a dqn-only option (hdqn "
                          "supports --learn-batch)")
-    for flag in _NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise SystemExit(f"{flag} is not yet ported to the PyTorch "
-                             "package")
 
 
 def _opponent_mode(opponent: str) -> str:
@@ -198,19 +215,21 @@ def _opponent_mode(opponent: str) -> str:
 
 
 def _load_frozen_hdqn(path, device):
-    """A frozen hierarchical opponent: the ``{"upper", "lower"}`` nets of a
-    ``params.npz`` that an h-DQN run wrote.  The JAX CLI also reads a
-    reference ``.pth`` run directory (``io/torch_import``), not ported yet."""
+    """A frozen hierarchical opponent ``(upper, lower)``: the ``{"upper",
+    "lower"}`` nets of a ``params.npz`` that an h-DQN run wrote, or the meta
+    and lower eval nets of a reference h-DQN run directory."""
     from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.io.torch_import import load_reference_hdqn
     from merging_gym_tpu_torch.nn.mlp import qnet_params_from_numpy
 
-    if os.path.isdir(path):
-        raise SystemExit(f"{path!r}: a reference .pth run directory as an "
-                         "h-DQN opponent is not yet ported to the PyTorch "
-                         "package (pass a params.npz)")
+    if _is_reference_run(path, ("eval.pth", "target.pth", "meta_eval.pth",
+                                "meta_target.pth")):
+        nets = load_reference_hdqn(path, device)
+        return nets["meta_eval"], nets["lower_eval"]
     if not (path.endswith(".npz") and os.path.exists(path)):
         raise SystemExit(f"cannot load a frozen h-DQN opponent from {path!r} "
-                         "(expected the params.npz of an h-DQN run)")
+                         "(expected the params.npz of an h-DQN run or a "
+                         "reference h-DQN run directory)")
     nets = load_params_npz(path)
     if set(nets) != {"upper", "lower"}:
         raise SystemExit(f"{path!r} holds {sorted(nets)}, not the "
@@ -346,13 +365,8 @@ def _rainbow_trainer(args, env_params, common, device):
     from merging_gym_tpu_torch.io.metrics import rates_from_counters
     from merging_gym_tpu_torch.ops import fused_rainbow as FRB
 
-    opp = None
-    if common["opponent"] == D.OPP_FROZEN:
-        if os.path.isdir(args.opponent):
-            raise SystemExit(f"{args.opponent!r}: a reference .pth run "
-                             "directory as an opponent is not yet ported to "
-                             "the PyTorch package (pass a params.npz)")
-        opp = _load_qnet(args.opponent, device)
+    opp = (_load_qnet(args.opponent, device)
+           if common["opponent"] == D.OPP_FROZEN else None)
     kw = dict(opponent=common["opponent"], per=args.per,
               per_alpha=args.per_alpha, per_beta=args.per_beta,
               n_step=args.n_step,
@@ -436,15 +450,40 @@ def _drqn_trainer(args, env_params, common, device):
             scalars_of, lambda c: c.params)
 
 
+def _resume(path, carry):
+    """``carry`` (the fresh carry of this run's flags, the template) with
+    the newest step of ``path/ckpt`` restored into it."""
+    from merging_gym_tpu_torch.io.checkpoint import CheckpointManager
+
+    try:
+        return CheckpointManager(os.path.join(path, "ckpt")).restore(carry)
+    except ValueError as e:
+        raise SystemExit(f"cannot resume from {path!r}: {e}") from None
+
+
+def _plot_curves(out):
+    """Redraw ``out/curves.png``; raises where matplotlib is missing."""
+    from merging_gym_tpu_torch.io.analysis import plot_training_curves
+    plot_training_curves(out)
+
+
 def cmd_train(args) -> str:
     """Train one DQN, h-DQN, Rainbow or DRQN agent; returns the run
-    directory."""
+    directory.
+
+    As in the JAX CLI: ``--resume`` restores into the carry that these
+    flags build, and the resumed run counts its chunks from 0 again (its
+    ``--episodes`` stop and ``env_steps_per_sec`` read the cumulative
+    counters); checkpoints are saved only with ``--checkpoint-every``,
+    under the chunk index, and at the end under ``--max-chunks``; the
+    fused trainers draw no curves."""
     from merging_gym_tpu_torch.device import resolve_device
-    from merging_gym_tpu_torch.io.checkpoint import (run_dir_name,
+    from merging_gym_tpu_torch.io.checkpoint import (CheckpointManager,
+                                                     run_dir_name,
                                                      save_params_npz)
     from merging_gym_tpu_torch.io.metrics import MetricsWriter
 
-    _refuse_unported(args)
+    _refuse_unwired(args)
     device = resolve_device("cpu" if args.cpu else None)
     env_params = _env_params(args)
     if args.fused_kernel and env_params.random_start and args.greedy_actor:
@@ -461,10 +500,17 @@ def cmd_train(args) -> str:
                "rainbow": _rainbow_trainer, "drqn": _drqn_trainer}[args.algo]
     carry, chunk, scalars_of, params_of = trainer(args, env_params, common,
                                                   device)
+    if args.resume:
+        carry = _resume(args.resume, carry)
+        print(f"resumed from {args.resume} at step "
+              f"{scalars_of(carry)['env_steps']}", flush=True)
     out = args.out or run_dir_name(f" {args.algo}", args.opponent,
                                    env_params.reward_tuple())
     os.makedirs(out, exist_ok=True)
     writer = MetricsWriter(out)
+    ckpt = (CheckpointManager(os.path.join(out, "ckpt"))
+            if args.checkpoint_every else None)
+    plots = not args.fused_kernel
     t0 = time.time()
     for i in range(args.max_chunks):
         carry = chunk(carry)
@@ -473,9 +519,24 @@ def cmd_train(args) -> str:
                                         / (time.time() - t0))
         writer.log(i, scalars)
         print(f"chunk {i}: {json.dumps(scalars)}", flush=True)
+        if plots and args.plot_every and (i + 1) % args.plot_every == 0:
+            try:
+                _plot_curves(out)
+            except Exception:
+                pass
+        if ckpt and (i + 1) % args.checkpoint_every == 0:
+            ckpt.save(i, carry)
         if scalars["episodes"] >= args.episodes:
             break
     save_params_npz(os.path.join(out, "params.npz"), params_of(carry))
+    if plots:
+        try:
+            _plot_curves(out)
+        except Exception as e:  # no matplotlib on a minimal host
+            print(f"curve plot skipped: {e}")
+    if ckpt:
+        ckpt.save(args.max_chunks, carry, wait=True)
+        ckpt.close()
     writer.close()
     print(f"run saved to {out}")
     return out

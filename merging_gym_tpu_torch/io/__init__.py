@@ -1,1 +1,2 @@
-"""Param files."""
+"""Param files, checkpoints, metrics, reference .pth import and training
+curves."""

@@ -308,7 +308,7 @@ def _grads_plain(p, tp, batch, *, gamma, burn_in, windows):
     hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :L - 1]], dim=1)
 
     # Per-block sums over the block's windows, rows window by window in t
-    # order, then the blocks in order (drqn_adam).
+    # order, then the blocks in order (grad_kernel).
     tile = windows * L
 
     def rows(x):

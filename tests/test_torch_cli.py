@@ -162,7 +162,7 @@ def test_levelk_hdqn_chains_two_levels(tmp_path):
 @pytest.mark.parametrize("flags,message", [
     (["--hidden", "64", "32"], "--hidden"),
     (["--opponent", "not_params.txt"], "cannot load"),
-    (["--opponent", "."], "not yet ported"),
+    (["--opponent", "."], "cannot load"),
     (["--learn-rounds", "2", "--fused-kernel"], "--learn-rounds")],
     ids=["hidden", "non_npz_opponent", "pth_run_dir", "learn_rounds"])
 def test_hdqn_refusals(tmp_path, flags, message):
@@ -217,7 +217,7 @@ def test_train_rainbow_writes_params_that_both_packages_load(tmp_path,
 @pytest.mark.parametrize("cmd,flags,message", [
     ("train", ["--hidden", "64", "32"], "--hidden"),
     ("train", ["--learn-rounds", "2", "--fused-kernel"], "--learn-rounds"),
-    ("train", ["--opponent", "."], "not yet ported"),
+    ("train", ["--opponent", "."], "cannot load"),
     ("levelk", [], "levelk supports --algo dqn or hdqn")],
     ids=["hidden", "learn_rounds", "pth_run_dir", "levelk"])
 def test_rainbow_refusals(tmp_path, cmd, flags, message):
@@ -225,19 +225,6 @@ def test_rainbow_refusals(tmp_path, cmd, flags, message):
               "rainbow", *flags, "--num-envs", "128", "--max-chunks", "1",
               "--out", str(tmp_path / "run")], timeout=120)
     assert r.returncode != 0 and message in r.stderr
-    assert not (tmp_path / "run").exists()
-
-
-@pytest.mark.parametrize("flags", [
-    ["--algo", "drqn", "--resume", "some_run"], ["--resume", "some_run"],
-    ["--plot-every", "1"], ["--per", "--algo", "drqn", "--plot-every", "1"],
-    ["--checkpoint-every", "2"]],
-    ids=lambda f: f[0])
-def test_unported_options_exit(tmp_path, flags):
-    r = _run(["-m", "merging_gym_tpu_torch.cli", "--cpu", "train", *flags,
-              "--num-envs", "128", "--max-chunks", "1",
-              "--out", str(tmp_path / "run")], timeout=120)
-    assert r.returncode != 0 and "not yet ported" in r.stderr
     assert not (tmp_path / "run").exists()
 
 

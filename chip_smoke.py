@@ -45,7 +45,16 @@ Phases, each of which raises (non-zero exit) on failure:
      step loops), B held against C bit for bit where two uninterrupted
      runs agree bit for bit; then ``eval --fused`` of model_zoo/L2 written
      as a reference ``.pth`` run directory, exactly equal to the same on
-     its ``params.npz`` (``pth_path``);
+     its ``params.npz`` (``pth_path``).  Spmd (``parallel/``): under NCCL
+     at one rank, K5's and K7's local-SGD chunks (200 steps, random mode)
+     and the (1, 1) DQN step loop bit for bit against the single-chip
+     trainers (``spmd_world_of_one``); then two gloo ranks spawned on the
+     one card at 1,024 envs each: K5's and K7's chunks (greedy, each
+     rank's own streams) with each rank's lanes equal to its solo run and
+     the averaged sets equal to the mean of the two solo runs, bit for
+     bit, and a (1, 2) tensor-parallel DQN step loop whose replicated
+     tensors agree and whose gradients equal the single-device ones at
+     rtol 1e-5 (``spmd_world_of_two``);
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version (K1 and
      K2 in both action sources and K2's 65,536-step launch:
@@ -865,6 +874,528 @@ def pth_path(cli, tmp, load_params_npz, qnet_params_from_numpy,
         raise AssertionError(f"eval --fused of a .pth run dir: {got} != "
                              f"{want}")
     return got
+
+
+# ---------------------------------------------------------------------------
+# The spmd phase: parallel/ on the card
+# ---------------------------------------------------------------------------
+
+SPMD_T = 200           # steps of a local-SGD chunk (the CLI's chunk length)
+SPMD_LOOP_T = 20       # steps of a step-loop chunk
+SPMD_RANKS = 2         # the gloo world on one card
+SPMD_TIMEOUT_S = 600   # for every rank's answer
+TP_GRAD_RTOL = 1e-5    # tensor-parallel against single-device gradients
+SPMD_ROUNDS = 5        # rounds of the one-rank chunk readings
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def counted(kernels, fn):
+    """``fn()`` and the launches it made."""
+    before = dict(kernels.launch_counts)
+    out = fn()
+    return out, {k: kernels.launch_counts[k] - before[k] for k in before}
+
+
+def add_counts(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def event_call(torch, fn):
+    """``(fn(), ms)``: one call between two CUDA events (a gloo collective
+    on CUDA tensors holds the stream while the host reduces, so its time
+    is in the span)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def host_call(torch, fn):
+    """``(fn(), ms, host ms)``: one call between two CUDA events, and the
+    host's time from the call to its return (to issue its work, and to
+    wait where it reads a result back)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), host
+
+
+def interleaved_ms(torch, kernels, spmd_fn, single_fn, rounds=SPMD_ROUNDS):
+    """Medians of ``spmd_fn``'s and ``single_fn``'s times (CUDA events)
+    over ``rounds`` rounds of spmd, single, single, spmd after one call
+    of each, and the launches of the spmd calls."""
+    single_fn()
+    launches = counted(kernels, spmd_fn)[1]
+    a, b = [], []
+    for _ in range(rounds):
+        for fn, times in ((spmd_fn, a), (single_fn, b), (single_fn, b),
+                          (spmd_fn, a)):
+            (_, ms), lc = counted(kernels, lambda: event_call(torch, fn))
+            times.append(ms)
+            if fn is spmd_fn:
+                add_counts(launches, lc)
+    return statistics.median(a), statistics.median(b), launches
+
+
+def local_sgd_split(torch, state_fn, reduce_fn, fold_fn, finish_fn,
+                    reps=SPMD_ROUNDS):
+    """Medians over ``reps`` of the parts of a local-SGD chunk, each
+    between its own events: the kernels' chunk (``chunk_state``; ms and
+    the host's ms to issue it), the average of its sets with the metric
+    and loss read-backs (``_reduce_chunk``), the fold into the carry, and
+    the single-chip chunk's own fold (``_finish``) on the same state."""
+    parts = {k: [] for k in ("state_ms", "state_host_ms", "reduce_ms",
+                             "fold_ms", "single_chip_fold_ms")}
+    for _ in range(reps + 1):
+        st, ms, host = host_call(torch, state_fn)
+        red, rms, _ = host_call(torch, lambda: reduce_fn(st))
+        fms = host_call(torch, lambda: fold_fn(st, red))[1]
+        sms = host_call(torch, lambda: finish_fn(st))[1]
+        for k, v in zip(parts, (ms, host, rms, fms, sms)):
+            parts[k].append(v)
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
+def tree_equal(torch, a, b, path="carry"):
+    """Raise unless two ``state_tree``s agree bit for bit."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b)):
+            raise AssertionError(f"{path} differs")
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            tree_equal(torch, a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            tree_equal(torch, x, y, f"{path}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{path}: {a} != {b}")
+
+
+def local_sgd_carry(c):
+    """A local-SGD carry without its two lane counts, as a single-chip
+    carry."""
+    return {k: v for k, v in c.items() if k not in ("n_local", "n_global")}
+
+
+def spmd_world_of_one(torch, kernels, dev):
+    """A world of one rank under NCCL on ``dev``: the local-SGD chunks of
+    K5 and K7 (random mode, 200 steps, 1,024 envs) and the (1, 1) DQN step
+    loop (20 steps) against the single-chip trainers, bit for bit.
+    Returns the readings and the spmd calls' launches."""
+    import torch.distributed as dist
+
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import hdqn as H
+    from merging_gym_tpu_torch.core.env import EnvParams
+    from merging_gym_tpu_torch.io.checkpoint import state_tree
+    from merging_gym_tpu_torch.ops import fused_hdqn as FH
+    from merging_gym_tpu_torch.ops import fused_trainer as FT
+    from merging_gym_tpu_torch.parallel import mesh as M
+    from merging_gym_tpu_torch.parallel import multihost, spmd
+
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world of one runs {dist.get_backend()}")
+        mesh = M.make_mesh(1, 1)
+        group = mesh.get_group("data")
+        n, launches, out = N_TRAIN, {}, {"backend": "nccl", "ranks": 1}
+        ep = EnvParams(random_start=True, max_steps=60)
+
+        cfg = D.DQNConfig(memory_capacity=4 * n, opponent="selfplay")
+        c0 = spmd.spmd_fused_dqn_init(0, cfg, ep, n, mesh, device=dev)
+
+        def k5():
+            return spmd.spmd_fused_dqn_chunk(mesh, cfg, ep, c0, SPMD_T, 5)
+        got, l5 = counted(kernels, k5)
+        s0 = FT.fused_dqn_init(0, cfg, ep, n, device=dev)
+        want = FT.fused_dqn_chunk(cfg, ep, s0, SPMD_T, 5)
+        tree_equal(torch, state_tree(local_sgd_carry(got)), state_tree(want),
+                   "K5 world of one")
+        if not (want["learns"] > 0 and want["episodes"] > 0):
+            raise AssertionError("K5 world of one: nothing learned")
+        # Warm chunks of local SGD and of the single chip, interleaved,
+        # and the parts of each.
+        names5 = ("p", "tp", "m", "v")
+        dims5 = FT._dims(c0["p"])
+        out["k5_chunk_ms"], out["k5_single_chip_chunk_ms"], l5t = \
+            interleaved_ms(torch, kernels, k5, lambda: FT.fused_dqn_chunk(
+                cfg, ep, s0, SPMD_T, 5))
+
+        def fold5(st, red):
+            sets, met, loss = red
+            o = {k: FT._transposed(a, dims5) for k, a in zip(names5, sets)}
+            o["env"], o["ring"] = st["env"], st["ring"]
+            return FT.apply_chunk(c0, o, SPMD_T, met, loss)
+        out["k5_split"] = local_sgd_split(
+            torch, lambda: FT.chunk_state(cfg, ep, c0, SPMD_T, 5),
+            lambda st: spmd._reduce_chunk(st, names5, mesh), fold5,
+            lambda st: FT._finish(s0, st, dims5, SPMD_T))
+        sets5 = [FT._flat(c0[k]) for k in names5]
+        out["k5_average_ms"] = cuda_ms(torch, lambda: M.pmean(sets5, group),
+                                       20)
+        out["k5_average_floats"] = sum(t.numel() for t in sets5)
+        add_counts(launches, l5)
+        add_counts(launches, l5t)
+
+        hcfg = H.HDQNConfig(memory_capacity=4 * n, goal_memory_capacity=2 * n,
+                            opponent="selfplay")
+        h0 = spmd.spmd_fused_hdqn_init(0, hcfg, ep, n, mesh, device=dev)
+
+        def k7():
+            return spmd.spmd_fused_hdqn_chunk(mesh, hcfg, ep, h0, SPMD_T, 6)
+        got, l7 = counted(kernels, k7)
+        s0 = FH.fused_hdqn_init(0, hcfg, ep, n, device=dev)
+        want = FH.fused_hdqn_chunk(hcfg, ep, s0, SPMD_T, 6)
+        tree_equal(torch, state_tree(local_sgd_carry(got)), state_tree(want),
+                   "K7 world of one")
+        if not (want["lo_learns"] > 0 and want["episodes"] > 0):
+            raise AssertionError("K7 world of one: nothing learned")
+        names7 = FH.SETS[:8]
+        du, dl = FT._dims(h0["u_p"]), FT._dims(h0["l_p"])
+        out["k7_chunk_ms"], out["k7_single_chip_chunk_ms"], l7t = \
+            interleaved_ms(torch, kernels, k7, lambda: FH.fused_hdqn_chunk(
+                hcfg, ep, s0, SPMD_T, 6))
+
+        def fold7(st, red):
+            sets, met, loss = red
+            groups = [FT._transposed(a, du if k.startswith("u_") else dl)
+                      for k, a in zip(names7, sets)]
+            return FH.apply_hdqn_chunk(h0, groups, st["state"],
+                                       st["lo_ring"], st["up_ring"], SPMD_T,
+                                       met, loss)
+        out["k7_split"] = local_sgd_split(
+            torch, lambda: FH.chunk_state(hcfg, ep, h0, SPMD_T, 6),
+            lambda st: spmd._reduce_chunk(st, names7, mesh), fold7,
+            lambda st: FH._finish(s0, st, SPMD_T))
+        sets7 = [FT._flat(h0[k]) for k in names7]
+        out["k7_average_ms"] = cuda_ms(torch, lambda: M.pmean(sets7, group),
+                                       20)
+        out["k7_average_floats"] = sum(t.numel() for t in sets7)
+        add_counts(launches, l7)
+        add_counts(launches, l7t)
+
+        lcfg, lep = D.DQNConfig(opponent="selfplay"), EnvParams()
+
+        c1 = spmd.spmd_train_init(3, lcfg, lep, n, mesh, device=dev)
+        (got, ms), ll = counted(kernels, lambda: event_call(
+            torch, lambda: spmd.spmd_train_chunk(mesh, lcfg, lep, c1,
+                                                 SPMD_LOOP_T)))
+        out["loop_step_ms"] = ms / SPMD_LOOP_T
+        want = D.train_chunk(lcfg, lep, D.train_init(3, lcfg, lep, n,
+                                                     device=dev), SPMD_LOOP_T)
+        tree_equal(torch, state_tree(got), state_tree(want),
+                   "step loop world of one")
+        if int(want.dqn.learn_counter) == 0:
+            raise AssertionError("step loop world of one: no learn")
+        add_counts(launches, ll)
+        out["bit_for_bit"] = ["K5 chunk", "K7 chunk", "DQN step loop (1, 1)"]
+        return out, launches
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_rank(rank, world, addr, results):
+    """One rank of the gloo world on ``cuda:0`` (spawned by
+    :func:`spmd_world_of_two`); puts ``(rank, error, result)``."""
+    try:
+        results.put((rank, None, _spmd_rank(rank, world, addr)))
+    except Exception:
+        import traceback
+        results.put((rank, traceback.format_exc(), None))
+
+
+def _spmd_rank(rank, world, addr):
+    import datetime
+
+    import torch
+
+    from merging_gym_tpu_torch import kernels
+    from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import hdqn as H
+    from merging_gym_tpu_torch.core.env import EnvParams
+    from merging_gym_tpu_torch.core.geometry import lon2coord
+    from merging_gym_tpu_torch.ops import fused_hdqn as FH
+    from merging_gym_tpu_torch.ops import fused_trainer as FT
+    from merging_gym_tpu_torch.ops import replay as rp
+    from merging_gym_tpu_torch.parallel import mesh as M
+    from merging_gym_tpu_torch.parallel import multihost, spmd
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # Both ranks on this host: gloo's pairs over the loopback interface.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dev = multihost.initialize(addr, world, rank, device="cuda:0",
+                               backend="gloo",
+                               timeout=datetime.timedelta(seconds=300))
+    n = world * N_TRAIN
+    out, launches = {"rank": rank}, {}
+
+    def host(x):
+        return [t.detach().cpu().numpy() for t in x]
+
+    try:
+        mesh = M.make_mesh(world, 1)
+        group = mesh.get_group("data")
+        ep = EnvParams(max_steps=60)
+        g = torch.Generator().manual_seed(1000 + rank)
+
+        # K5: greedy from race starts, this rank's own explicit streams.
+        cfg = D.DQNConfig(lr=1e-3, target_sync=7, memory_capacity=4 * n,
+                          opponent="selfplay")
+        c0 = spmd.spmd_fused_dqn_init(0, cfg, ep, n, mesh, device=dev)
+        for k in ("p", "tp"):
+            c0[k] = tuple((a - a.mean()) * 0.05 for a in c0[k])
+        c0["opp"] = c0["p"]
+        c0["env"] = race_rows(torch, lon2coord, c0["env"], N_TRAIN, dev,
+                              100 + rank)
+        rounds = torch.randint(0, c0["R"], (SPMD_T,), generator=g)
+        cols = torch.zeros(SPMD_T, dtype=torch.int32)
+        def k5():
+            return spmd.spmd_fused_dqn_chunk(mesh, cfg, ep, c0, SPMD_T, 9,
+                                             greedy=True, rounds=rounds,
+                                             cols=cols)
+
+        def k5_solo():
+            return FT.fused_dqn_chunk(cfg, ep, c0, SPMD_T,
+                                      spmd.data_seed(9, rank), greedy=True,
+                                      rounds=rounds, cols=cols)
+        (got, out["k5_first_chunk_ms"]), l5 = counted(
+            kernels, lambda: event_call(torch, k5))
+        solo = k5_solo()
+        # Warm readings; both ranks run each at once, sharing the card.
+        (_, out["k5_chunk_ms"]), l5w = counted(
+            kernels, lambda: event_call(torch, k5))
+        dist.barrier()
+        out["k5_solo_chunk_ms"] = event_call(torch, k5_solo)[1]
+        add_counts(launches, l5w)
+        sets = [FT._flat(got[k]) for k in ("p", "tp", "m", "v")]
+        out["k5"] = {
+            "sets": host(sets),
+            "solo_sets": host(FT._flat(solo[k]) for k in ("p", "tp", "m",
+                                                          "v")),
+            "lanes_equal_solo": all(torch.equal(got[k], solo[k])
+                                    for k in ("env", "ring")),
+            "counts": {k: got[k] for k in ("learns", "episodes", "wins",
+                                           "collisions", "env_steps")},
+            "solo_counts": {k: solo[k] for k in ("learns", "episodes",
+                                                 "wins", "collisions")}}
+        out["k5_average_ms"] = cuda_ms(torch, lambda: M.pmean(sets, group),
+                                       20)
+        add_counts(launches, l5)
+
+        # K7 likewise.
+        hcfg = H.HDQNConfig(lr=1e-3, target_sync=7, memory_capacity=4 * n,
+                            goal_memory_capacity=2 * n, opponent="L0")
+        h0 = spmd.spmd_fused_hdqn_init(0, hcfg, ep, n, mesh, device=dev)
+        for k in ("u_p", "u_tp", "l_p", "l_tp"):
+            h0[k] = tuple((a - a.mean()) * 0.05 for a in h0[k])
+        h0["opp_u"], h0["opp_l"] = h0["u_p"], h0["l_p"]
+        h0["state"] = race_rows(torch, lon2coord, h0["state"], N_TRAIN, dev,
+                                200 + rank)
+        lo_r = torch.randint(0, h0["R_lo"], (SPMD_T,), generator=g)
+        up_r = torch.randint(0, h0["R_up"], (SPMD_T,), generator=g)
+        def k7():
+            return spmd.spmd_fused_hdqn_chunk(mesh, hcfg, ep, h0, SPMD_T, 10,
+                                              greedy=True, lo_rounds=lo_r,
+                                              up_rounds=up_r)
+
+        def k7_solo():
+            return FH.fused_hdqn_chunk(hcfg, ep, h0, SPMD_T,
+                                       spmd.data_seed(10, rank), greedy=True,
+                                       lo_rounds=lo_r, up_rounds=up_r)
+        (got, out["k7_first_chunk_ms"]), l7 = counted(
+            kernels, lambda: event_call(torch, k7))
+        solo = k7_solo()
+        (_, out["k7_chunk_ms"]), l7w = counted(
+            kernels, lambda: event_call(torch, k7))
+        dist.barrier()
+        out["k7_solo_chunk_ms"] = event_call(torch, k7_solo)[1]
+        add_counts(launches, l7w)
+        sets = [FT._flat(got[k]) for k in FH.SETS[:8]]
+        out["k7"] = {
+            "sets": host(sets),
+            "solo_sets": host(FT._flat(solo[k]) for k in FH.SETS[:8]),
+            "lanes_equal_solo": all(torch.equal(got[k], solo[k])
+                                    for k in ("state", "lo_ring", "up_ring")),
+            "counts": {k: got[k] for k in ("lo_learns", "episodes", "wins",
+                                           "collisions", "env_steps")},
+            "solo_counts": {k: solo[k] for k in ("lo_learns", "episodes",
+                                                 "wins", "collisions")}}
+        out["k7_average_ms"] = cuda_ms(torch, lambda: M.pmean(sets, group),
+                                       20)
+        add_counts(launches, l7)
+
+        # The (1, world) tensor-parallel DQN step loop.
+        tmesh = M.make_mesh(1, world)
+        mg = tmesh.get_group("model")
+        lcfg, lep = D.DQNConfig(opponent="selfplay"), EnvParams()
+        c = spmd.spmd_train_init(3, lcfg, lep, N_TRAIN, tmesh, device=dev)
+        for chunk in ("tp_first_step_ms", "tp_step_ms"):
+            (c, ms), lt = counted(kernels, lambda: event_call(
+                torch, lambda: spmd.spmd_train_chunk(tmesh, lcfg, lep, c,
+                                                     SPMD_LOOP_T)))
+            out[chunk] = ms / SPMD_LOOP_T
+            add_counts(launches, lt)
+        if int(c.dqn.learn_counter) == 0:
+            raise AssertionError("tensor-parallel loop: no learn")
+        rep = [c.dqn.params["fc1"]["b"], c.dqn.params["fc2"]["w"],
+               c.dqn.params["fc2"]["b"], c.dqn.opt_state.mu["fc2"]["w"],
+               c.dqn.opt_state.nu["fc2"]["w"], c.obs, c.replay.cursor]
+        out["tp_replicated"] = host(rep)
+
+        # Its gradients against the single-device ones, on the full nets
+        # assembled by one sum of zero-padded shards over the model group.
+        m = M.axis_index(tmesh, "model")
+
+        def full(shard, like):
+            k = shard["fc0"]["w"].shape[1]
+            cut = slice(m * k, (m + 1) * k)
+            z = {layer: {k2: torch.zeros_like(v) for k2, v in p.items()}
+                 for layer, p in like.items()}
+            z["fc0"]["w"][:, cut] = shard["fc0"]["w"]
+            z["fc0"]["b"][cut] = shard["fc0"]["b"]
+            z["fc1"]["w"][cut] = shard["fc1"]["w"]
+            parts = M.psum([z["fc0"]["w"], z["fc0"]["b"], z["fc1"]["w"]], mg)
+            return {"fc0": {"w": parts[0], "b": parts[1]},
+                    "fc1": {"w": parts[2], "b": shard["fc1"]["b"]},
+                    "fc2": dict(shard["fc2"])}
+        like = D.dqn_init(torch.Generator(device=dev).manual_seed(0), lcfg,
+                          dev).params
+        p_full = full(c.dqn.params, like)
+        t_full = full(c.dqn.target_params, like)
+        batch = rp.gather(c.replay, torch.arange(lcfg.batch_size,
+                                                 device=dev))
+
+        def grads(params, loss_fn):
+            with torch.enable_grad():
+                p = D._tree_map(lambda a: a.detach().requires_grad_(True),
+                                params)
+                loss = loss_fn(p)
+                it = iter(torch.autograd.grad(loss, D._leaves(p)))
+            return D._tree_map(lambda _: next(it), p), loss
+        t_shard = spmd.qnet_shard(t_full, m, world)
+        g_tp, loss_tp = grads(c.dqn.params, lambda p: spmd._td_loss_tp(
+            p, t_shard, batch, lcfg, mg))
+        g_one, loss_one = grads(p_full, lambda p: D.td_loss(
+            p, t_full, batch, lcfg))
+        g_one = spmd.qnet_shard(g_one, m, world)
+        errs = {}
+        for layer in g_tp:
+            for k in g_tp[layer]:
+                a, b = g_tp[layer][k], g_one[layer][k]
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                errs[f"{layer}.{k}"] = err / max(scale, 1e-30)
+                if not bool(((a - b).abs() <= TP_GRAD_RTOL * (
+                        b.abs() + scale)).all()):
+                    raise AssertionError(
+                        f"tensor-parallel gradient {layer}.{k}: max |diff| "
+                        f"{err} at scale {scale}")
+        out["tp_grad_rel_err"] = errs
+        out["tp_loss"] = [float(loss_tp.detach()),
+                          float(loss_one.detach())]
+        out["launches"] = launches
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_world_of_two(torch, np):
+    """Spawn ``SPMD_RANKS`` gloo ranks on ``cuda:0`` (kernels already
+    built), hold their local-SGD chunks against the mean of their solo
+    runs bit for bit and their replicas against each other; returns the
+    ranks' readings and their summed launches."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    addr = f"localhost:{free_port()}"
+    procs = [ctx.Process(target=spmd_rank,
+                         args=(r, SPMD_RANKS, addr, results))
+             for r in range(SPMD_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        res, errors = [None] * SPMD_RANKS, []
+        for _ in range(SPMD_RANKS):
+            rank, err, out = results.get(timeout=SPMD_TIMEOUT_S)
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+            res[rank] = out
+        if errors:
+            raise AssertionError("spmd world of two failed:\n"
+                                 + "\n".join(errors))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"spmd ranks exited with {bad}")
+
+    for key, learn_key in (("k5", "learns"), ("k7", "lo_learns")):
+        a, b = (r[key] for r in res)
+        for i, (x, y, sa, sb) in enumerate(zip(a["sets"], b["sets"],
+                                               a["solo_sets"],
+                                               b["solo_sets"])):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{key} set {i}: replicas differ")
+            mean = (sa + sb) / np.float32(2.0)
+            if not np.array_equal(x, mean):
+                raise AssertionError(
+                    f"{key} set {i}: not the mean of the solo runs, max "
+                    f"|diff| {float(np.abs(x - mean).max())}")
+        for r in res:
+            c, sc = r[key]["counts"], [x[key]["solo_counts"] for x in res]
+            if not r[key]["lanes_equal_solo"]:
+                raise AssertionError(f"{key} rank {r['rank']}: lanes differ "
+                                     "from its solo run")
+            if c[learn_key] != sc[0][learn_key] or any(
+                    c[k] != sc[0][k] + sc[1][k]
+                    for k in ("episodes", "wins", "collisions")):
+                raise AssertionError(f"{key}: counts {c} vs solos {sc}")
+            if c["env_steps"] != SPMD_T * SPMD_RANKS * N_TRAIN:
+                raise AssertionError(f"{key}: env_steps {c['env_steps']}")
+            if not (c[learn_key] > 0 and c["episodes"] > 0):
+                raise AssertionError(f"{key}: nothing learned or finished")
+    for i, (x, y) in enumerate(zip(res[0]["tp_replicated"],
+                                   res[1]["tp_replicated"])):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"tensor-parallel replica {i} differs")
+    launches = {}
+    for r in res:
+        add_counts(launches, r.pop("launches"))
+        for key in ("k5", "k7"):
+            r[key] = {"counts": r[key]["counts"]}
+        r.pop("tp_replicated")
+    return res, launches
 
 
 def rainbow_path(cli, tmp, evaluate, rainbow_policy, l0_policy, EnvParams,
@@ -2509,9 +3040,28 @@ def main():
             raise AssertionError(f"resume path launched no {missing}")
         print("eval --fused of a .pth run dir:", json.dumps(pth_eval),
               flush=True)
+
+    # The spmd path: parallel/ under NCCL at one rank, then gloo at two
+    # ranks on this card; the counts of both worlds' spmd calls.
+    kernels.reset_launch_counts()
+    one, spmd_launches = timed("spmd world of one", lambda: spmd_world_of_one(
+        torch, kernels, dev))
+    two, two_launches = timed("spmd world of two", lambda: spmd_world_of_two(
+        torch, np))
+    add_counts(spmd_launches, two_launches)
+    print(json.dumps({"card": card, "spmd": {
+        "world_of_one": one, "world_of_two": two,
+        "s": {k: phase_s[k] for k in ("spmd world of one",
+                                      "spmd world of two")},
+        "launches": spmd_launches}}), flush=True)
+    missing = [k for k in (*K5_COUNTS, *K7_COUNTS, "fused_actor")
+               if spmd_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"spmd path launched no {missing}")
     launches = {k: bench_launches[k] + eval_launches[k] + train_launches[k]
                 + hdqn_launches[k] + rb_launches[k] + drqn_launches[k]
-                + resume_launches[k] for k in kernels.launch_counts}
+                + resume_launches[k] + spmd_launches.get(k, 0)
+                for k in kernels.launch_counts}
     launches["dqn_trainer"] = sum(launches[k] for k in K5_COUNTS)
     launches["hdqn_trainer"] = sum(launches[k] for k in K7_COUNTS)
     launches["rainbow_trainer"] = sum(launches[k] for k in K8_COUNTS)
@@ -2891,7 +3441,8 @@ def main():
                              "h-DQN training": hdqn_launches,
                              "Rainbow training": rb_launches,
                              "DRQN training": drqn_launches,
-                             "resume": resume_launches},
+                             "resume": resume_launches,
+                             "spmd": spmd_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": k1k2["k2_long_ms"],
                            "bound_ms": k1k2["bounds"]["k2_long"][0],

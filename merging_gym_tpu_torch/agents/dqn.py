@@ -51,6 +51,7 @@ from merging_gym_tpu_torch.core.vector import (autoreset_step,
 from merging_gym_tpu_torch.device import resolve_device
 from merging_gym_tpu_torch.nn.mlp import qnet_apply_autograd, qnet_init
 from merging_gym_tpu_torch.ops import replay as rp
+from merging_gym_tpu_torch.ops.collectives import pmean, psum
 from merging_gym_tpu_torch.ops.fused_actor import fused_eps_greedy_actions
 from merging_gym_tpu_torch.ops.fused_trainer import (ADAM_B1, ADAM_B2,
                                                      ADAM_EPS, OPP_FROZEN,
@@ -172,17 +173,26 @@ def _adam(params, grads, opt: AdamState, lr: float):
     return new, AdamState(count, mu, nu)
 
 
-def learn(state: DQNState, batch, cfg: DQNConfig) -> DQNState:
+def learn(state: DQNState, batch, cfg: DQNConfig, axis=None,
+          loss_fn=td_loss) -> DQNState:
     """One SGD step, with the every-``target_sync``-learns target sync
-    applied *before* the update, exactly as the reference (main.py:125-127)."""
+    applied *before* the update, exactly as the reference (main.py:125-127).
+
+    ``axis``: a process group (the mesh's ``data`` group); given one, the
+    gradients and the loss are averaged over it before Adam, so that
+    replicated params stay bitwise equal (the JAX ``axis``).  ``loss_fn``
+    has :func:`td_loss`'s signature (``parallel.spmd`` passes its
+    tensor-parallel loss)."""
     sync = state.learn_counter % cfg.target_sync == 0
     target = _tree_map(lambda e, t: torch.where(sync, e, t), state.params,
                        state.target_params)
     with torch.enable_grad():
         params = _tree_map(lambda p: p.detach().requires_grad_(True),
                            state.params)
-        loss = td_loss(params, target, batch, cfg)
+        loss = loss_fn(params, target, batch, cfg)
         flat = torch.autograd.grad(loss, _leaves(params))
+    if axis is not None:
+        *flat, loss = pmean([*flat, loss.detach()], axis)
     it = iter(flat)
     grads = _tree_map(lambda _: next(it), params)
     new_params, opt = _adam(state.params, grads, state.opt_state, cfg.lr)
@@ -231,6 +241,23 @@ class Metrics:
         return cls(env_steps=z(), episodes=z(), collisions=z(), wins=z(),
                    sum_ep_reward=torch.zeros((), dtype=torch.float32,
                                              device=device))
+
+
+def add_metrics(m: Metrics, done, collision, won, ep_reward,
+                axis=None) -> Metrics:
+    """``m`` plus one step's increments; given a process group ``axis``,
+    the increments are summed over it first, so every rank holds the
+    global counters (the JAX ``psum`` of the increments)."""
+    counts = torch.stack([torch.full_like(m.env_steps, done.shape[0]),
+                          done.sum(), collision.sum(), won.sum()])
+    reward = torch.where(done, ep_reward, 0.0).sum()
+    if axis is not None:
+        counts, reward = psum(counts, axis), psum(reward, axis)
+    return Metrics(env_steps=m.env_steps + counts[0],
+                   episodes=m.episodes + counts[1],
+                   collisions=m.collisions + counts[2],
+                   wins=m.wins + counts[3],
+                   sum_ep_reward=m.sum_ep_reward + reward)
 
 
 @dataclass
@@ -338,14 +365,7 @@ def train_step(cfg: DQNConfig, env_params: EnvParams,
     ep_reward = carry.ep_reward + torch.where(store_mask, ts.rewards[:, 0],
                                               0.0)
     won = done & (carry.obs[:, 8] > carry.obs[:, 3])
-    m = carry.metrics
-    metrics = Metrics(
-        env_steps=m.env_steps + done.shape[0],
-        episodes=m.episodes + done.sum(),
-        collisions=m.collisions + ts.collision.sum(),
-        wins=m.wins + won.sum(),
-        sum_ep_reward=m.sum_ep_reward + torch.where(done, ep_reward,
-                                                    0.0).sum())
+    metrics = add_metrics(carry.metrics, done, ts.collision, won, ep_reward)
     return TrainCarry(env_state=env_state, obs=next_obs,
                       ep_reward=torch.where(done, 0.0, ep_reward), dqn=dqn,
                       opp_params=carry.opp_params, replay=replay,

@@ -57,6 +57,7 @@ from merging_gym_tpu_torch.core.vector import (autoreset_step,
                                                reset_batch)
 from merging_gym_tpu_torch.device import resolve_device
 from merging_gym_tpu_torch.ops import replay as rp
+from merging_gym_tpu_torch.ops.collectives import pmin, psum
 from merging_gym_tpu_torch.ops.fused_actor import fused_eps_greedy_actions
 
 # K4 launches per step against an opponent net: the ego's goal, action and
@@ -97,17 +98,14 @@ class HDQNConfig:
     mask_terminal: bool = False
     opponent: str = D.OPP_L0
     faithful_meta: bool = True
-    # Data-parallel training sets an axis name in the JAX package; the
-    # port's distributed trainers are not written yet.
+    # Data-parallel training: "data" marks a config whose steps take the
+    # mesh's data group as ``axis`` (``parallel.spmd.spmd_hdqn_chunk``),
+    # which averages both learns, gates the upper learn and sums the
+    # metrics.
     pmean_axis: str | None = None
     # Both learners' forwards (agents.dqn contract: compute-dtype
     # operands, f32 masters and moments); flows into K7 too.
     compute_dtype: str = "float32"
-
-    def __post_init__(self):
-        if self.pmean_axis is not None:
-            raise ValueError("pmean_axis (data-parallel h-DQN) is not yet "
-                             "ported to the PyTorch package")
 
     def replace(self, **changes) -> "HDQNConfig":
         return dataclasses.replace(self, **changes)
@@ -208,10 +206,20 @@ def _choose_actions_lower(params, goal, obs, seed: int, cfg: HDQNConfig):
                                     cfg.epsilon)
 
 
-def hdqn_step(cfg: HDQNConfig, env_params: EnvParams,
-              carry: HDQNCarry) -> HDQNCarry:
+def _check_axis(cfg: HDQNConfig, axis) -> None:
+    """``cfg.pmean_axis`` set if and only if a process group is given."""
+    if (cfg.pmean_axis is None) != (axis is None):
+        raise ValueError(f"pmean_axis={cfg.pmean_axis!r} needs the data "
+                         "group that parallel.spmd.spmd_hdqn_chunk passes "
+                         "as axis, and axis needs pmean_axis='data'")
+
+
+def hdqn_step(cfg: HDQNConfig, env_params: EnvParams, carry: HDQNCarry,
+              axis=None) -> HDQNCarry:
     """One lockstep step of both controllers, both replays and both
-    learners over all envs."""
+    learners over all envs.  ``axis``: the mesh's data group, given with
+    ``cfg.pmean_axis`` (as ``agents.dqn.learn`` takes it)."""
+    _check_axis(cfg, axis)
     obs = carry.obs
 
     def seed(call):
@@ -259,7 +267,8 @@ def hdqn_step(cfg: HDQNConfig, env_params: EnvParams,
     })
     batch, _ = rp.sample(lower_replay, carry.generator, cfg.batch_size)
     lower = D._where_state(rp.can_learn(lower_replay),
-                           D.learn(carry.lower, batch, cfg.lower_cfg()),
+                           D.learn(carry.lower, batch, cfg.lower_cfg(),
+                                   axis=axis),
                            carry.lower)
 
     # Option termination (hdqn.py:322-323).
@@ -275,11 +284,17 @@ def hdqn_step(cfg: HDQNConfig, env_params: EnvParams,
     }, option_end)
     # One meta learn per step when any option ended (the reference: one
     # per option end, hdqn.py:326-327; at one env this matches exactly).
+    # Under SPMD the gate is a global decision: option ends and masked
+    # goal-memory fills differ per rank.
     batch, _ = rp.sample(upper_replay, carry.generator, cfg.batch_size)
-    gate = (upper_replay.cursor >= cfg.goal_memory_capacity) & \
-        option_end.any()
+    upper_fill, any_end = upper_replay.cursor, option_end.any()
+    if axis is not None:
+        upper_fill = pmin(upper_fill, axis)
+        any_end = psum(any_end.to(torch.int64), axis) > 0
+    gate = (upper_fill >= cfg.goal_memory_capacity) & any_end
     upper = D._where_state(gate, D.learn(carry.upper, batch,
-                                         cfg.upper_cfg()), carry.upper)
+                                         cfg.upper_cfg(), axis=axis),
+                           carry.upper)
 
     # Metrics (hdqn.py:330-346): unconditional reward accumulation; the
     # win is tested on the post-step obs (hdqn.py:342 reads the state
@@ -287,14 +302,8 @@ def hdqn_step(cfg: HDQNConfig, env_params: EnvParams,
     done = ts.done
     ep_reward = carry.ep_reward + ts.rewards[:, 0]
     won = done & (ts.obs[:, 8] > ts.obs[:, 3])
-    m = carry.metrics
-    metrics = D.Metrics(
-        env_steps=m.env_steps + done.shape[0],
-        episodes=m.episodes + done.sum(),
-        collisions=m.collisions + ts.collision.sum(),
-        wins=m.wins + won.sum(),
-        sum_ep_reward=m.sum_ep_reward + torch.where(done, ep_reward,
-                                                    0.0).sum())
+    metrics = D.add_metrics(carry.metrics, done, ts.collision, won,
+                            ep_reward, axis)
     return HDQNCarry(
         env_state=env_state, obs=next_obs_env, goal=goal_new,
         goal_op=goal_op, option_start_obs=start_obs,
@@ -310,8 +319,9 @@ def hdqn_step(cfg: HDQNConfig, env_params: EnvParams,
 
 
 def hdqn_train_chunk(cfg: HDQNConfig, env_params: EnvParams,
-                     carry: HDQNCarry, num_steps: int) -> HDQNCarry:
+                     carry: HDQNCarry, num_steps: int,
+                     axis=None) -> HDQNCarry:
     """``num_steps`` hierarchical training steps."""
     for _ in range(num_steps):
-        carry = hdqn_step(cfg, env_params, carry)
+        carry = hdqn_step(cfg, env_params, carry, axis)
     return carry

@@ -10,14 +10,27 @@ files written here load in the JAX package.
 
 ``CheckpointManager`` keeps the JAX class's API and retention (the last
 ``max_to_keep`` steps by step number; a step at or below the newest one
-kept is not written, as orbax skips it), for one process: the
-multi-process branch belongs with the parallel trainers.  A checkpoint is
-the whole train carry, one ``<step>.pt`` file per step written by
-``torch.save`` to a temporary file in the directory and then renamed, so
-a killed save leaves no partial step.  The carry goes through
-:func:`state_tree`, a plain tree of tensors, Python scalars, strings,
-``None``, dicts, tuples and lists (dataclasses become their fields, a
-``torch.Generator`` its ``get_state()`` and device type), so that
+kept is not written, as orbax skips it).  A checkpoint is the whole train
+carry, one ``<step>.pt`` file per step written by ``torch.save`` to a
+temporary file in the directory and then renamed, so a killed save leaves
+no partial step.  In a run of several ranks (``torch.distributed``
+initialised, ``parallel.spmd``) every rank constructs the manager on the
+same directory and saves its own rank-local carry as
+``<step>.rank<r>-of-<world>.pt``; ``save`` returns only after a barrier
+that every rank reaches once its file is in place (the JAX manager's
+``wait``), and ``restore`` reads this rank's file and refuses a
+directory written by a world of another size.  A step counts only once
+it is committed, as orbax shows a step only after every process has
+written it: after the barrier rank 0 writes the marker
+``<step>.of-<world>.done``, and a second barrier makes it visible to
+every rank before ``save`` returns.  A run killed before the marker
+(with some ranks' files of the step in place, or all) leaves the step
+before as the newest on every rank, so all ranks skip, write and
+restore the same steps, and the step is written again in full.  The
+carry goes through :func:`state_tree`, a plain tree of tensors, Python
+scalars, strings, ``None``, dicts, tuples and lists (dataclasses become
+their fields, a ``torch.Generator`` its ``get_state()`` and device
+type), so that
 ``torch.load(..., weights_only=True)`` reads it back without running
 pickled code.  :func:`load_into` is led by a template, as orbax's
 ``StandardRestore`` is: the fresh carry that the same arguments build.
@@ -45,6 +58,8 @@ import torch
 
 _KEY = re.compile(r"\['([^']*)'\]")
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
+_RANK_FILE = re.compile(r"^(\d+)\.rank(\d+)-of-(\d+)\.pt$")
+_COMMIT = re.compile(r"^(\d+)\.of-(\d+)\.done$")
 FORMAT = "merging_gym_tpu_torch.checkpoint/1"
 
 
@@ -176,25 +191,58 @@ def load_into(state_like, tree, path: str = "state"):
     return tree
 
 
+def _rank_world() -> tuple:
+    """``(rank, world size)`` of the default process group, or ``(0, 1)``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 class CheckpointManager:
-    """Full-carry saves with retention, the JAX class's API for one
-    process: ``save(step, state, wait=False)``, ``restore(state_like,
-    step=None)``, ``latest_step()``, ``all_steps()``, ``close()``."""
+    """Full-carry saves with retention, the JAX class's API:
+    ``save(step, state, wait=False)``, ``restore(state_like, step=None)``,
+    ``latest_step()``, ``all_steps()``, ``close()``.  Under several ranks
+    every rank calls each method (see above)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.rank, self.world = _rank_world()
 
     def step_path(self, step: int) -> str:
-        return os.path.join(self.directory, f"{step}.pt")
+        if self.world == 1:
+            return os.path.join(self.directory, f"{step}.pt")
+        return os.path.join(self.directory,
+                            f"{step}.rank{self.rank}-of-{self.world}.pt")
 
-    def all_steps(self) -> list:
-        """Steps held, oldest first (temporary files of a save that did
-        not finish are not steps)."""
+    def _files(self):
         if not os.path.isdir(self.directory):
             return []
+        return os.listdir(self.directory)
+
+    def commit_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}.of-{self.world}.done")
+
+    def all_steps(self) -> list:
+        """Steps held, oldest first: under several ranks, the committed
+        ones (temporary files of a save that did not finish are not steps
+        either)."""
+        if self.world == 1:
+            return sorted(int(m.group(1)) for m in map(
+                _STEP_FILE.match, self._files()) if m)
         return sorted(int(m.group(1)) for m in map(
-            _STEP_FILE.match, os.listdir(self.directory)) if m)
+            _COMMIT.match, self._files())
+            if m and int(m.group(2)) == self.world)
+
+    def _worlds_found(self) -> set:
+        """World sizes of the steps in the directory."""
+        found = {int(m.group(3)) for m in map(_RANK_FILE.match, self._files())
+                 if m}
+        if any(map(_STEP_FILE.match, self._files())):
+            found.add(1)
+        return found
 
     def latest_step(self):
         steps = self.all_steps()
@@ -204,25 +252,56 @@ class CheckpointManager:
         """Write ``state`` as ``step`` and drop all but the newest
         ``max_to_keep`` steps; a step at or below the newest held is
         skipped (returns False), as orbax skips it.  Saves are synchronous,
-        so ``wait`` changes nothing."""
+        so ``wait`` changes nothing; under several ranks every rank returns
+        once the step is committed (see above), and then drops its own
+        files of older steps."""
         latest = self.latest_step()
-        if latest is not None and step <= latest:
-            return False
+        written = latest is None or step > latest
+        if written:
+            self._write(self.step_path(step), {
+                "format": FORMAT, "step": int(step), "rank": self.rank,
+                "world": self.world, "state": state_tree(state)})
+        if self.world > 1:
+            import torch.distributed as dist
+            dist.barrier()
+            if written and self.rank == 0:
+                self._write(self.commit_path(step), {"step": int(step)})
+            dist.barrier()
+        if written:
+            self._prune()
+        return written
+
+    def _write(self, path: str, payload) -> None:
+        """``payload`` to ``path`` through a temporary file and a rename."""
         os.makedirs(self.directory, exist_ok=True)
-        tmp = os.path.join(self.directory, f".{step}.pt.{os.getpid()}.tmp")
+        tmp = os.path.join(self.directory,
+                           f".{os.path.basename(path)}.{os.getpid()}.tmp")
         with open(tmp, "wb") as f:
-            torch.save({"format": FORMAT, "step": int(step),
-                        "state": state_tree(state)}, f)
+            torch.save(payload, f)
             f.flush()
             os.fsync(f.fileno())
-        os.replace(tmp, self.step_path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.step_path(old))
-        return True
+        os.replace(tmp, path)
+
+    def _prune(self) -> None:
+        """Remove this rank's files (and rank 0 the markers) of the steps
+        before the newest ``max_to_keep``, committed or not."""
+        keep = self.all_steps()[-self.max_to_keep:]
+        if self.world == 1:
+            old = [(s, self.step_path(s)) for s in self.all_steps()]
+        else:
+            old = [(int(m.group(1)), os.path.join(self.directory, m.group(0)))
+                   for m in map(_RANK_FILE.match, self._files())
+                   if m and (int(m.group(2)), int(m.group(3))) == (
+                       self.rank, self.world)]
+            if self.rank == 0:
+                old += [(s, self.commit_path(s)) for s in self.all_steps()]
+        for s, path in old:
+            if s < keep[0]:
+                os.remove(path)
 
     def restore(self, state_like, step=None):
-        """The carry saved as ``step`` (default: the newest), shaped and
-        placed as the template ``state_like``."""
+        """The carry saved as ``step`` (default: the newest that every rank
+        holds), shaped and placed as the template ``state_like``."""
         step = self.latest_step() if step is None else step
         if step is None:
             if _is_orbax_dir(self.directory):
@@ -230,12 +309,21 @@ class CheckpointManager:
                     f"{self.directory} holds orbax checkpoints of the JAX "
                     "package, which the PyTorch port cannot read without "
                     "JAX")
+            worlds = self._worlds_found() - {self.world}
+            if worlds:
+                raise ValueError(
+                    f"{self.directory} holds checkpoints of a world of "
+                    f"{sorted(worlds)} rank(s); this run has {self.world}")
             raise ValueError(f"no checkpoints under {self.directory}")
         payload = torch.load(self.step_path(step), map_location="cpu",
                              weights_only=True)
         if not (isinstance(payload, dict) and payload.get("format") == FORMAT):
             raise ValueError(f"{self.step_path(step)} is not a checkpoint of "
                              "the PyTorch port")
+        if payload.get("world", 1) != self.world:
+            raise ValueError(f"{self.step_path(step)} was written by a world "
+                             f"of {payload['world']} ranks; this run has "
+                             f"{self.world}")
         return load_into(state_like, payload["state"])
 
     def close(self) -> None:

@@ -60,15 +60,22 @@ def select(q, mask_bits, rand_bits, greedy: bool, threshold: int):
     return torch.where(mask_bits < threshold, a, rand)
 
 
+def eps_greedy_pick(q: torch.Tensor, seed: int, epsilon: float):
+    """K4's pick on Q-values ``q`` [N, A]: row ``r`` draws the Philox
+    words at counter ``(0, r, 0, 0)`` under ``seed`` for :func:`select`
+    (``parallel.spmd`` picks on its tensor-parallel Q-values with it)."""
+    bits = philox.draw(0, q.shape[0], philox.STREAM_ACTIONS,
+                       philox.seed_key(seed), q.device)
+    return select(q, bits[0], bits[1], False, greedy_threshold(epsilon))
+
+
 def fused_eps_greedy_actions_plain(params: dict, obs: torch.Tensor,
                                    seed: int, epsilon: float = 0.7,
                                    compute_dtype: str = "float32"):
     """Plain PyTorch version of K4 (see :func:`fused_eps_greedy_actions`)."""
     dtype = compute_dtype_of(compute_dtype)
     q = mlp_plain(cast_weights(params, dtype, obs.device), obs, dtype)
-    bits = philox.draw(0, obs.shape[0], philox.STREAM_ACTIONS,
-                       philox.seed_key(seed), obs.device)
-    return select(q, bits[0], bits[1], False, greedy_threshold(epsilon))
+    return eps_greedy_pick(q, seed, epsilon)
 
 
 def fused_eps_greedy_actions(params: dict, obs: torch.Tensor, seed: int,

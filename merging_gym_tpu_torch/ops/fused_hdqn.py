@@ -321,6 +321,13 @@ def fused_hdqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
                            greedy=False, lo_rounds=None, up_rounds=None,
                            cols=None) -> dict:
     """Plain PyTorch version of K7 (see :func:`fused_hdqn_chunk`)."""
+    st = _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
+                      lo_rounds, up_rounds, cols)
+    return _finish(carry, st, num_steps)
+
+
+def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, lo_rounds,
+                 up_rounds, cols) -> dict:
     lo_rounds, up_rounds, cols, dtype = _prepare(
         cfg, env_params, carry, num_steps, seed, greedy, lo_rounds,
         up_rounds, cols)
@@ -441,7 +448,7 @@ def fused_hdqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
             goal_op.to(f32), torch.where(opt_end, 0.0, extr),
             opt_end.to(f32)]), s[15:16]])
     _set_upper_learns(st["state"], lc_up)
-    return _finish(carry, st, num_steps)
+    return st
 
 
 def fused_hdqn_chunk(cfg, env_params, carry, num_steps, seed, *,
@@ -458,18 +465,26 @@ def fused_hdqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     K7 runs, one to five launches per step, with no read-back inside the
     chunk.  The input carry is left as it was.
     """
+    st = chunk_state(cfg, env_params, carry, num_steps, seed, greedy=greedy,
+                     lo_rounds=lo_rounds, up_rounds=up_rounds, cols=cols)
+    return _finish(carry, st, num_steps)
+
+
+def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
+                lo_rounds=None, up_rounds=None, cols=None) -> dict:
+    """The flat working state after a chunk, not yet folded into a carry:
+    K7 on the card, the plain version on the CPU (``parallel.spmd``
+    averages it over the ranks before the fold)."""
     if carry["state"].device.type == "cpu":
-        return fused_hdqn_chunk_plain(cfg, env_params, carry, num_steps,
-                                      seed, greedy=greedy,
-                                      lo_rounds=lo_rounds,
-                                      up_rounds=up_rounds, cols=cols)
+        return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
+                            lo_rounds, up_rounds, cols)
     lo_rounds, up_rounds, cols, dtype = _prepare(
         cfg, env_params, carry, num_steps, seed, greedy, lo_rounds,
         up_rounds, cols)
     st = working_state(carry, dtype)
     launch_hdqn(st, carry, cfg, env_params, num_steps, seed, greedy,
                 lo_rounds, up_rounds, cols)
-    return _finish(carry, st, num_steps)
+    return st
 
 
 def launch_hdqn(st, carry, cfg, env_params, num_steps, seed, greedy,

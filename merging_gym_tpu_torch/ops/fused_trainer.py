@@ -539,6 +539,13 @@ def _prepare(cfg, env_params, carry, num_steps, seed, greedy, rounds, cols):
 def fused_dqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
                           greedy=False, rounds=None, cols=None) -> dict:
     """Plain PyTorch version of K5 (see :func:`fused_dqn_chunk`)."""
+    st = _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
+                      rounds, cols)
+    return _finish(carry, st, _dims(carry["p"]), num_steps)
+
+
+def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
+                 cols) -> dict:
     rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps, seed,
                                    greedy, rounds, cols)
     dims = _dims(carry["p"])
@@ -621,7 +628,7 @@ def fused_dqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
             npos[:, 0], npos[:, 1], nvel[:, 0], nvel[:, 1], nx1, ny1, nx2,
             ny2, torch.where(done, 0, ns.winner).to(f32),
             torch.where(done, 0, ns.t).to(f32), ep])
-    return _finish(carry, st, dims, num_steps)
+    return st
 
 
 def fused_dqn_chunk(cfg, env_params, carry, num_steps, seed, *,
@@ -636,16 +643,25 @@ def fused_dqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     learning step (one before the ring has filled), with no read-back
     until the chunk ends.  The input carry is left as it was.
     """
+    st = chunk_state(cfg, env_params, carry, num_steps, seed, greedy=greedy,
+                     rounds=rounds, cols=cols)
+    return _finish(carry, st, _dims(carry["p"]), num_steps)
+
+
+def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
+                rounds=None, cols=None) -> dict:
+    """The flat working state (:func:`working_state`) after a chunk, not
+    yet folded into a carry: K5 on the card, the plain version on the
+    CPU (``parallel.spmd`` averages it over the ranks before the fold)."""
     if carry["env"].device.type == "cpu":
-        return fused_dqn_chunk_plain(cfg, env_params, carry, num_steps, seed,
-                                     greedy=greedy, rounds=rounds, cols=cols)
+        return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
+                            rounds, cols)
     rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps, seed,
                                    greedy, rounds, cols)
-    dims = _dims(carry["p"])
     st = working_state(carry, dtype)
     launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
                    rounds, cols)
-    return _finish(carry, st, dims, num_steps)
+    return st
 
 
 def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,

@@ -139,8 +139,13 @@ def test_end_to_end_counters(opponent, n, T):
 
 
 def test_config_refuses_pmean_axis_and_splits_learners():
-    with pytest.raises(ValueError, match="not yet ported"):
-        H.HDQNConfig(pmean_axis="data")
+    # pmean_axis is accepted; a step refuses it without the mesh's groups
+    # (parallel.spmd.spmd_hdqn_chunk passes them).
+    cfg = H.HDQNConfig(pmean_axis="data", memory_capacity=16,
+                       goal_memory_capacity=4, batch_size=4)
+    carry = H.hdqn_init(0, cfg, EnvParams(), 4, device=CPU)
+    with pytest.raises(ValueError, match="spmd_hdqn_chunk"):
+        H.hdqn_step(cfg, EnvParams(), carry)
     cfg = H.HDQNConfig(compute_dtype="bfloat16")
     lo, up = cfg.lower_cfg(), cfg.upper_cfg()
     assert (lo.obs_dim, lo.num_actions, lo.memory_capacity) == (11, 5, 2000)

@@ -46,15 +46,19 @@ Phases, each of which raises (non-zero exit) on failure:
      runs agree bit for bit; then ``eval --fused`` of model_zoo/L2 written
      as a reference ``.pth`` run directory, exactly equal to the same on
      its ``params.npz`` (``pth_path``).  Spmd (``parallel/``): under NCCL
-     at one rank, K5's and K7's local-SGD chunks (200 steps, random mode)
-     and the (1, 1) DQN step loop bit for bit against the single-chip
-     trainers (``spmd_world_of_one``); then two gloo ranks spawned on the
-     one card at 1,024 envs each: K5's and K7's chunks (greedy, each
-     rank's own streams) with each rank's lanes equal to its solo run and
-     the averaged sets equal to the mean of the two solo runs, bit for
-     bit, and a (1, 2) tensor-parallel DQN step loop whose replicated
-     tensors agree and whose gradients equal the single-device ones at
-     rtol 1e-5 (``spmd_world_of_two``);
+     at one rank, the local-SGD chunks of K5, K7, K8 (uniform and PER
+     3-step) and K9 (200 steps, random mode) and the (1, 1) DQN, Rainbow
+     and DRQN step loops bit for bit against the single-chip trainers
+     (``spmd_world_of_one``); then two gloo ranks spawned on the one card
+     at 1,024 envs each: the chunks of K5, K7, K8 (PER 3-step) and K9
+     (greedy, each rank's own streams) with each rank's lanes (and K8's
+     noise) equal to its solo run and the averaged sets equal to the mean
+     of the two solo runs, bit for bit, K8's running max priority the
+     larger of the two, and a (1, 2) tensor-parallel DQN step loop whose
+     replicated tensors agree and whose gradients equal the single-device
+     ones at rtol 1e-5 (``spmd_world_of_two``); then the port's dryrun
+     (``python -m merging_gym_tpu_torch.parallel.dryrun``) at two
+     processes on the card (``dryrun_on_card``);
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version (K1 and
      K2 in both action sources and K2's 65,536-step launch:
@@ -1002,16 +1006,21 @@ def local_sgd_carry(c):
 
 def spmd_world_of_one(torch, kernels, dev):
     """A world of one rank under NCCL on ``dev``: the local-SGD chunks of
-    K5 and K7 (random mode, 200 steps, 1,024 envs) and the (1, 1) DQN step
-    loop (20 steps) against the single-chip trainers, bit for bit.
-    Returns the readings and the spmd calls' launches."""
+    K5, K7, K8 (uniform and PER 3-step) and K9 (random mode, 200 steps,
+    1,024 envs) and the (1, 1) DQN, Rainbow and DRQN step loops (20 steps)
+    against the single-chip trainers, bit for bit.  Returns the readings
+    and the spmd calls' launches."""
     import torch.distributed as dist
 
     from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import drqn as DR
     from merging_gym_tpu_torch.agents import hdqn as H
+    from merging_gym_tpu_torch.agents import rainbow as RB
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.io.checkpoint import state_tree
+    from merging_gym_tpu_torch.ops import fused_drqn as FD
     from merging_gym_tpu_torch.ops import fused_hdqn as FH
+    from merging_gym_tpu_torch.ops import fused_rainbow as FRB
     from merging_gym_tpu_torch.ops import fused_trainer as FT
     from merging_gym_tpu_torch.parallel import mesh as M
     from merging_gym_tpu_torch.parallel import multihost, spmd
@@ -1098,6 +1107,120 @@ def spmd_world_of_one(torch, kernels, dev):
         add_counts(launches, l7)
         add_counts(launches, l7t)
 
+        # K8 (uniform 1-step, PER 3-step) and K9 at the CLI's rings.
+        for key, rcfg, seed in (
+                ("k8", RB.RainbowConfig(memory_capacity=8 * n,
+                                        opponent="selfplay"), 11),
+                ("k8_per", RB.RainbowConfig(memory_capacity=8 * n, per=True,
+                                            n_step=3, obs_scale=0.01,
+                                            opponent="selfplay"), 12)):
+            r0 = spmd.spmd_fused_rainbow_init(0, rcfg, ep, n, mesh,
+                                              device=dev)
+            s0 = FRB.fused_rainbow_init(0, rcfg, ep, n, device=dev)
+
+            def k8(rcfg=rcfg, r0=r0, seed=seed):
+                return spmd.spmd_fused_rainbow_chunk(mesh, rcfg, ep, r0,
+                                                     SPMD_T, seed)
+
+            def k8_single(rcfg=rcfg, s0=s0, seed=seed):
+                return FRB.fused_rainbow_chunk(rcfg, ep, s0, SPMD_T, seed)
+            got, l8 = counted(kernels, k8)
+            want = k8_single()
+            tree_equal(torch, state_tree(local_sgd_carry(got)),
+                       state_tree(want), f"K8 {key} world of one")
+            if not (want["learns"] > 0 and want["episodes"] > 0):
+                raise AssertionError(f"K8 {key} world of one: nothing "
+                                     "learned")
+            out[f"{key}_chunk_ms"], out[f"{key}_single_chip_chunk_ms"], \
+                l8t = interleaved_ms(torch, kernels, k8, k8_single)
+
+            def reduce8(st, rcfg=rcfg):
+                if rcfg.per:
+                    st["env"][13] = M.pmax(st["env"][13], group)
+                return spmd._reduce_chunk(st, names5, mesh)
+
+            def fold8(st, red, rcfg=rcfg, r0=r0):
+                sets, met, loss = red
+                o = {k: st[k] for k in ("eps", "teps", "env", "ring")}
+                o.update(zip(names5, sets))
+                return FRB.apply_rainbow_chunk(r0, o, SPMD_T, met, loss,
+                                               nwarm=rcfg.n_step)
+            out[f"{key}_split"] = local_sgd_split(
+                torch, lambda rcfg=rcfg, r0=r0, seed=seed: FRB.chunk_state(
+                    rcfg, ep, r0, SPMD_T, seed)[0], reduce8, fold8,
+                lambda st, rcfg=rcfg, s0=s0: FRB._finish(
+                    s0, st, SPMD_T, rcfg.n_step, True))
+            add_counts(launches, l8)
+            add_counts(launches, l8t)
+        sets8 = [r0[k] for k in names5]
+        out["k8_average_ms"] = cuda_ms(torch, lambda: M.pmean(sets8, group),
+                                       20)
+        out["k8_average_floats"] = sum(t.numel() for t in sets8)
+
+        dcfg = DR.DRQNConfig(memory_capacity=4 * n)
+        d0 = spmd.spmd_fused_drqn_init(0, dcfg, ep, n, mesh, device=dev)
+        s0 = FD.fused_drqn_init(0, dcfg, ep, n, device=dev)
+
+        def k9():
+            return spmd.spmd_fused_drqn_chunk(mesh, dcfg, ep, d0, SPMD_T, 13)
+
+        def k9_single():
+            return FD.fused_drqn_chunk(dcfg, ep, s0, SPMD_T, 13)
+        got, l9 = counted(kernels, k9)
+        want = k9_single()
+        tree_equal(torch, state_tree(local_sgd_carry(got)), state_tree(want),
+                   "K9 world of one")
+        if not (want["learns"] > 0 and want["episodes"] > 0):
+            raise AssertionError("K9 world of one: nothing learned")
+        out["k9_chunk_ms"], out["k9_single_chip_chunk_ms"], l9t = \
+            interleaved_ms(torch, kernels, k9, k9_single)
+
+        def fold9(st, red):
+            sets, met, loss = red
+            o = {k: st[k] for k in ("env", "win", "ring")}
+            o.update(zip(names5, sets))
+            return FD.apply_drqn_chunk(d0, o, SPMD_T, met, loss)
+        out["k9_split"] = local_sgd_split(
+            torch, lambda: FD.chunk_state(dcfg, ep, d0, SPMD_T, 13),
+            lambda st: spmd._reduce_chunk(st, names5, mesh), fold9,
+            lambda st: FD._finish(s0, st, SPMD_T))
+        sets9 = [d0[k] for k in names5]
+        out["k9_average_ms"] = cuda_ms(torch, lambda: M.pmean(sets9, group),
+                                       20)
+        out["k9_average_floats"] = sum(t.numel() for t in sets9)
+        add_counts(launches, l9)
+        add_counts(launches, l9t)
+
+        # The (1, 1) Rainbow and DRQN step loops (random starts: a
+        # noisy-greedy self-play clones every env from equal starts).
+        rand_ep = EnvParams(random_start=True)
+        for key, cfg_, init, chunk, tinit, tchunk in (
+                ("rainbow", RB.RainbowConfig(opponent="selfplay"),
+                 spmd.spmd_rainbow_init, spmd.spmd_rainbow_chunk,
+                 RB.rainbow_train_init, RB.rainbow_train_chunk),
+                ("drqn", DR.DRQNConfig(memory_capacity=2 * n,
+                                       opponent="selfplay"),
+                 spmd.spmd_drqn_init, spmd.spmd_drqn_chunk,
+                 DR.drqn_train_init, DR.drqn_train_chunk)):
+            c1 = init(3, cfg_.replace(pmean_axis="data"), rand_ep, n, mesh,
+                      device=dev)
+            (got, ms), ll = counted(kernels, lambda: event_call(
+                torch, lambda: chunk(mesh, cfg_.replace(pmean_axis="data"),
+                                     rand_ep, c1, SPMD_LOOP_T)))
+            out[f"{key}_loop_step_ms"] = ms / SPMD_LOOP_T
+            t0 = tinit(3, cfg_, rand_ep, n, device=dev)
+            want, ms = event_call(torch, lambda: tchunk(cfg_, rand_ep, t0,
+                                                        SPMD_LOOP_T))
+            out[f"{key}_single_loop_step_ms"] = ms / SPMD_LOOP_T
+            tree_equal(torch, state_tree(got), state_tree(want),
+                       f"{key} step loop world of one")
+            learned = (want.opt_state.count if key == "rainbow"
+                       else want.learn_counter)
+            if int(learned) == 0:
+                raise AssertionError(f"{key} step loop world of one: no "
+                                     "learn")
+            add_counts(launches, ll)
+
         lcfg, lep = D.DQNConfig(opponent="selfplay"), EnvParams()
 
         c1 = spmd.spmd_train_init(3, lcfg, lep, n, mesh, device=dev)
@@ -1112,7 +1235,11 @@ def spmd_world_of_one(torch, kernels, dev):
         if int(want.dqn.learn_counter) == 0:
             raise AssertionError("step loop world of one: no learn")
         add_counts(launches, ll)
-        out["bit_for_bit"] = ["K5 chunk", "K7 chunk", "DQN step loop (1, 1)"]
+        out["bit_for_bit"] = ["K5 chunk", "K7 chunk", "K8 chunk",
+                              "K8 PER 3-step chunk", "K9 chunk",
+                              "Rainbow step loop (1, 1)",
+                              "DRQN step loop (1, 1)",
+                              "DQN step loop (1, 1)"]
         return out, launches
     finally:
         dist.destroy_process_group()
@@ -1135,10 +1262,14 @@ def _spmd_rank(rank, world, addr):
 
     from merging_gym_tpu_torch import kernels
     from merging_gym_tpu_torch.agents import dqn as D
+    from merging_gym_tpu_torch.agents import drqn as DR
     from merging_gym_tpu_torch.agents import hdqn as H
+    from merging_gym_tpu_torch.agents import rainbow as RB
     from merging_gym_tpu_torch.core.env import EnvParams
     from merging_gym_tpu_torch.core.geometry import lon2coord
+    from merging_gym_tpu_torch.ops import fused_drqn as FD
     from merging_gym_tpu_torch.ops import fused_hdqn as FH
+    from merging_gym_tpu_torch.ops import fused_rainbow as FRB
     from merging_gym_tpu_torch.ops import fused_trainer as FT
     from merging_gym_tpu_torch.ops import replay as rp
     from merging_gym_tpu_torch.parallel import mesh as M
@@ -1250,6 +1381,76 @@ def _spmd_rank(rank, world, addr):
                                        20)
         add_counts(launches, l7)
 
+        # K8, PER 3-step (its running max priority shared), and K9; each
+        # rank keeps its own noise (K8) and draws its own streams.
+        rcfg = RB.RainbowConfig(lr=1e-3, target_sync_episodes=7,
+                                memory_capacity=8 * n, per=True, n_step=3,
+                                obs_scale=0.01, opponent="selfplay")
+        r0 = spmd.spmd_fused_rainbow_init(0, rcfg, ep, n, mesh, device=dev)
+        r0["env"] = race_rows(torch, lon2coord, r0["env"], N_TRAIN, dev,
+                              300 + rank)
+        dcfg = DR.DRQNConfig(lr=1e-3, target_sync=7, memory_capacity=4 * n,
+                             opponent="selfplay")
+        d0 = spmd.spmd_fused_drqn_init(0, dcfg, ep, n, mesh, device=dev)
+        d0["p"], d0["tp"] = shrink_drqn(FD, d0["p"]), shrink_drqn(FD,
+                                                                  d0["tp"])
+        d0["opp"] = d0["p"]
+        d0["env"] = race_rows(torch, lon2coord, d0["env"], N_TRAIN, dev,
+                              400 + rank)
+        d0["win"] = d0["win"].clone()
+        d0["win"][0:10] = FD._obs_rows(d0["env"][0:8])
+        streams8 = dict(rounds=FRB.draw_start_rounds(r0, SPMD_T, g,
+                                                     rcfg.n_step),
+                        cols=torch.zeros(SPMD_T, dtype=torch.int32),
+                        us=torch.rand(SPMD_T, generator=g))
+        streams9 = dict(rounds=torch.randint(0, d0["R"], (SPMD_T,),
+                                             generator=g),
+                        cols=torch.zeros(SPMD_T, dtype=torch.int32))
+        cases = {
+            "k8": (lambda: spmd.spmd_fused_rainbow_chunk(
+                       mesh, rcfg, ep, r0, SPMD_T, 11, greedy=True,
+                       **streams8),
+                   lambda: FRB.fused_rainbow_chunk(
+                       rcfg, ep, r0, SPMD_T, spmd.data_seed(11, rank),
+                       greedy=True, **streams8),
+                   ("eps", "teps", "ring", "env13")),
+            "k9": (lambda: spmd.spmd_fused_drqn_chunk(
+                       mesh, dcfg, ep, d0, SPMD_T, 12, greedy=True,
+                       **streams9),
+                   lambda: FD.fused_drqn_chunk(
+                       dcfg, ep, d0, SPMD_T, spmd.data_seed(12, rank),
+                       greedy=True, **streams9),
+                   ("env", "win", "ring"))}
+        for key, (fn, solo_fn, lanes) in cases.items():
+            (got, out[f"{key}_first_chunk_ms"]), lk = counted(
+                kernels, lambda: event_call(torch, fn))
+            solo = solo_fn()
+            (_, out[f"{key}_chunk_ms"]), lkw = counted(
+                kernels, lambda: event_call(torch, fn))
+            dist.barrier()
+            out[f"{key}_solo_chunk_ms"] = event_call(torch, solo_fn)[1]
+            add_counts(launches, lk)
+            add_counts(launches, lkw)
+            sets = [got[k] for k in ("p", "tp", "m", "v")]
+
+            def part(c, k):   # K8's rows 0-12 are rank-local, 13 shared
+                return c["env"][:13] if k == "env13" else c[k]
+            out[key] = {
+                "sets": host(sets),
+                "solo_sets": host(solo[k] for k in ("p", "tp", "m", "v")),
+                "lanes_equal_solo": all(torch.equal(part(got, k),
+                                                    part(solo, k))
+                                        for k in lanes),
+                "row13": (host([got["env"][13], solo["env"][13]])
+                          if key == "k8" else None),
+                "noise": host([got["eps"]]) if key == "k8" else None,
+                "counts": {k: got[k] for k in ("learns", "episodes", "wins",
+                                               "collisions", "env_steps")},
+                "solo_counts": {k: solo[k] for k in ("learns", "episodes",
+                                                     "wins", "collisions")}}
+            out[f"{key}_average_ms"] = cuda_ms(
+                torch, lambda: M.pmean(sets, group), 20)
+
         # The (1, world) tensor-parallel DQN step loop.
         tmesh = M.make_mesh(1, world)
         mg = tmesh.get_group("model")
@@ -1360,7 +1561,8 @@ def spmd_world_of_two(torch, np):
     if bad:
         raise AssertionError(f"spmd ranks exited with {bad}")
 
-    for key, learn_key in (("k5", "learns"), ("k7", "lo_learns")):
+    for key, learn_key in (("k5", "learns"), ("k7", "lo_learns"),
+                           ("k8", "learns"), ("k9", "learns")):
         a, b = (r[key] for r in res)
         for i, (x, y, sa, sb) in enumerate(zip(a["sets"], b["sets"],
                                                a["solo_sets"],
@@ -1385,6 +1587,17 @@ def spmd_world_of_two(torch, np):
                 raise AssertionError(f"{key}: env_steps {c['env_steps']}")
             if not (c[learn_key] > 0 and c["episodes"] > 0):
                 raise AssertionError(f"{key}: nothing learned or finished")
+    # K8's running max priority is the larger of the two solo maxima, and
+    # its noise is each rank's own.
+    maxp = np.maximum(res[0]["k8"]["row13"][1], res[1]["k8"]["row13"][1])
+    for r in res:
+        if not np.array_equal(r["k8"]["row13"][0], maxp):
+            raise AssertionError(f"K8 rank {r['rank']}: row 13 is not the "
+                                 "ranks' maximum")
+    if not maxp.min() > 1.0:
+        raise AssertionError("K8: the running max priority never moved")
+    if np.array_equal(res[0]["k8"]["noise"][0], res[1]["k8"]["noise"][0]):
+        raise AssertionError("K8: both ranks hold the same noise")
     for i, (x, y) in enumerate(zip(res[0]["tp_replicated"],
                                    res[1]["tp_replicated"])):
         if not np.array_equal(x, y):
@@ -1392,10 +1605,58 @@ def spmd_world_of_two(torch, np):
     launches = {}
     for r in res:
         add_counts(launches, r.pop("launches"))
-        for key in ("k5", "k7"):
+        for key in ("k5", "k7", "k8", "k9"):
             r[key] = {"counts": r[key]["counts"]}
         r.pop("tp_replicated")
     return res, launches
+
+
+DRYRUN_TAGS = ("OK", "FUSED OK", "RAINBOW OK", "HDQN OK", "DRQN OK",
+               "CKPT OK")
+
+
+def dryrun_on_card(np):
+    """``python -m merging_gym_tpu_torch.parallel.dryrun`` at
+    ``SPMD_RANKS`` processes on this card (gloo: more ranks than cards;
+    kernels already built): every tag on every rank with equal
+    checksums.  Returns each rank's lines and the summed launches."""
+    procs, outs = [], []
+    port = free_port()
+    with tempfile.TemporaryDirectory() as ckpt:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        for r in range(SPMD_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "merging_gym_tpu_torch.parallel.dryrun",
+                 str(r), str(SPMD_RANKS), str(port), "--ckpt-dir", ckpt],
+                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=SPMD_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError(f"dryrun ranks failed {bad}:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    lines, launches = {}, {}
+    for r, out in enumerate(outs):
+        for ln in out.splitlines():
+            if ln.startswith(f"PROC{r} LAUNCHES "):
+                add_counts(launches, json.loads(ln.split(" ", 2)[2]))
+            elif ln.startswith(f"PROC{r} "):
+                lines.setdefault(r, []).append(ln)
+    for tag in DRYRUN_TAGS:
+        got = [ln for r in range(SPMD_RANKS) for ln in lines.get(r, [])
+               if ln.startswith(f"PROC{r} {tag} env_steps=")]
+        if len(got) != SPMD_RANKS or len({ln.split(" ", 1)[1]
+                                          for ln in got}) != 1:
+            raise AssertionError(f"dryrun {tag}: {got}")
+    return lines, launches
 
 
 def rainbow_path(cli, tmp, evaluate, rainbow_policy, l0_policy, EnvParams,
@@ -3049,13 +3310,16 @@ def main():
     two, two_launches = timed("spmd world of two", lambda: spmd_world_of_two(
         torch, np))
     add_counts(spmd_launches, two_launches)
+    dry, dry_launches = timed("spmd dryrun", lambda: dryrun_on_card(np))
+    add_counts(spmd_launches, dry_launches)
     print(json.dumps({"card": card, "spmd": {
-        "world_of_one": one, "world_of_two": two,
+        "world_of_one": one, "world_of_two": two, "dryrun": dry,
         "s": {k: phase_s[k] for k in ("spmd world of one",
-                                      "spmd world of two")},
+                                      "spmd world of two", "spmd dryrun")},
         "launches": spmd_launches}}), flush=True)
-    missing = [k for k in (*K5_COUNTS, *K7_COUNTS, "fused_actor")
-               if spmd_launches[k] == 0]
+    missing = [k for k in (*K5_COUNTS, *K7_COUNTS, *K8_COUNTS, *K9_COUNTS,
+                           "fused_actor")
+               if spmd_launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"spmd path launched no {missing}")
     launches = {k: bench_launches[k] + eval_launches[k] + train_launches[k]

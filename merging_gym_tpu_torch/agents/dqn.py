@@ -201,6 +201,16 @@ def learn(state: DQNState, batch, cfg: DQNConfig, axis=None,
                     last_loss=loss.detach().to(torch.float32))
 
 
+def check_axis(pmean_axis, axis, chunk: str) -> None:
+    """A config's ``pmean_axis`` is set if and only if a process group is
+    given as ``axis`` (``parallel.spmd``'s ``chunk`` passes the mesh's
+    data group)."""
+    if (pmean_axis is None) != (axis is None):
+        raise ValueError(f"pmean_axis={pmean_axis!r} needs the data group "
+                         f"that parallel.spmd.{chunk} passes as axis, and "
+                         "axis needs pmean_axis='data'")
+
+
 def _where_state(gate, new: DQNState, old: DQNState) -> DQNState:
     """``new`` where the 0-d bool ``gate`` holds, else ``old`` (no host
     read-back)."""

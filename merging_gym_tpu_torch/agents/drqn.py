@@ -30,6 +30,13 @@ batch_size``) is a device tensor (a gated-off learn is computed and
 discarded), and every draw comes from the carry's ``torch.Generator``.
 The actor's draws differ from JAX's threefry stream; the two draw from the
 same distribution.
+
+Data-parallel training (``pmean_axis="data"``, ``parallel.spmd.
+spmd_drqn_chunk``): a step given the mesh's data group as ``axis`` gates
+the learner on the group minimum of the ring cursors, averages the
+gradients and the loss over the group before Adam and sums the metric
+increments; the learn count, and with it the every-``target_sync`` copy,
+stays equal on every rank.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from merging_gym_tpu_torch.device import resolve_device
 from merging_gym_tpu_torch.nn.lstm import (drqn_init, drqn_step, drqn_unroll,
                                            lstm_zero_carry)
 from merging_gym_tpu_torch.ops import replay as rp
+from merging_gym_tpu_torch.ops.collectives import pmean, pmin
 
 
 @dataclass(frozen=True)
@@ -69,14 +77,9 @@ class DRQNConfig:
     seq_len: int = 16
     burn_in: int = 4
     opponent: str = D.OPP_L0
-    # Data-parallel training sets an axis name in the JAX package; the
-    # port's distributed trainers are not written yet.
+    # Data-parallel training: "data" marks a config whose steps take the
+    # mesh's data group as ``axis`` (``parallel.spmd.spmd_drqn_chunk``).
     pmean_axis: str | None = None
-
-    def __post_init__(self):
-        if self.pmean_axis is not None:
-            raise ValueError("pmean_axis (data-parallel DRQN) is not yet "
-                             "ported to the PyTorch package")
 
     def replace(self, **changes) -> "DRQNConfig":
         return dataclasses.replace(self, **changes)
@@ -194,9 +197,11 @@ def drqn_loss(params, target_params, batch, cfg: DRQNConfig):
     return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
-def _learn(carry: DRQNCarry, batch, cfg: DRQNConfig):
+def _learn(carry: DRQNCarry, batch, cfg: DRQNConfig, axis=None):
     """One Adam step with the every-``target_sync``-learns target sync
-    applied before the update: ``(params, target, opt_state, loss)``."""
+    applied before the update: ``(params, target, opt_state, loss)``.
+    Given a process group ``axis``, the gradients and the loss are averaged
+    over it before Adam (each rank's batch is drawn from its own ring)."""
     sync = carry.learn_counter % cfg.target_sync == 0
     target = D._tree_map(lambda e, t: torch.where(sync, e, t), carry.params,
                          carry.target_params)
@@ -205,15 +210,20 @@ def _learn(carry: DRQNCarry, batch, cfg: DRQNConfig):
                              carry.params)
         loss = drqn_loss(params, target, batch, cfg)
         flat = torch.autograd.grad(loss, D._leaves(params))
+    loss = loss.detach()
+    if axis is not None:
+        *flat, loss = pmean([*flat, loss], axis)
     it = iter(flat)
     grads = D._tree_map(lambda _: next(it), params)
     new_params, opt = D._adam(carry.params, grads, carry.opt_state, cfg.lr)
-    return new_params, target, opt, loss.detach().to(torch.float32)
+    return new_params, target, opt, loss.to(torch.float32)
 
 
 def drqn_train_step(cfg: DRQNConfig, env_params: EnvParams,
-                    carry: DRQNCarry) -> DRQNCarry:
-    """One lockstep actor + window + replay + learner step."""
+                    carry: DRQNCarry, axis=None) -> DRQNCarry:
+    """One lockstep actor + window + replay + learner step.  ``axis``: the
+    mesh's data group, given with ``cfg.pmean_axis``."""
+    D.check_axis(cfg.pmean_axis, axis, "spmd_drqn_chunk")
     gen = carry.generator
     obs = carry.obs
     n = obs.shape[0]
@@ -262,10 +272,11 @@ def drqn_train_step(cfg: DRQNConfig, env_params: EnvParams,
     w["done"] = torch.where(emit[:, None], torch.zeros_like(w["done"]),
                             w["done"])
 
-    # Learner, gated on a device tensor.
+    # Learner, gated on a device tensor; under a group the gate is global.
     batch, _ = rp.sample_valid(replay, gen, cfg.batch_size)
-    gate = replay.cursor >= cfg.batch_size
-    params, target, opt, loss = _learn(carry, batch, cfg)
+    fill = replay.cursor if axis is None else pmin(replay.cursor, axis)
+    gate = fill >= cfg.batch_size
+    params, target, opt, loss = _learn(carry, batch, cfg, axis)
 
     def pick(new, old):
         return D._tree_map(lambda a, b: torch.where(gate, a, b), new, old)
@@ -279,13 +290,8 @@ def drqn_train_step(cfg: DRQNConfig, env_params: EnvParams,
     ep_reward = carry.ep_reward + ts.rewards[:, 0]
     done = ts.done
     won = done & (obs[:, 8] > obs[:, 3])
-    m = carry.metrics
-    metrics = D.Metrics(
-        env_steps=m.env_steps + n, episodes=m.episodes + done.sum(),
-        collisions=m.collisions + ts.collision.sum(),
-        wins=m.wins + won.sum(),
-        sum_ep_reward=m.sum_ep_reward + torch.where(done, ep_reward,
-                                                    0.0).sum())
+    metrics = D.add_metrics(carry.metrics, done, ts.collision, won,
+                            ep_reward, axis)
     return DRQNCarry(
         env_state=env_state, obs=next_obs, lstm_h=h, lstm_c=c, lstm_h2=h2,
         lstm_c2=c2, opp_params=carry.opp_params, window=w, window_len=wl,
@@ -298,8 +304,9 @@ def drqn_train_step(cfg: DRQNConfig, env_params: EnvParams,
 
 
 def drqn_train_chunk(cfg: DRQNConfig, env_params: EnvParams,
-                     carry: DRQNCarry, num_steps: int) -> DRQNCarry:
+                     carry: DRQNCarry, num_steps: int,
+                     axis=None) -> DRQNCarry:
     """``num_steps`` recurrent actor + learner steps."""
     for _ in range(num_steps):
-        carry = drqn_train_step(cfg, env_params, carry)
+        carry = drqn_train_step(cfg, env_params, carry, axis)
     return carry

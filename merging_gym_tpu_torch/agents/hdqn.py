@@ -206,20 +206,12 @@ def _choose_actions_lower(params, goal, obs, seed: int, cfg: HDQNConfig):
                                     cfg.epsilon)
 
 
-def _check_axis(cfg: HDQNConfig, axis) -> None:
-    """``cfg.pmean_axis`` set if and only if a process group is given."""
-    if (cfg.pmean_axis is None) != (axis is None):
-        raise ValueError(f"pmean_axis={cfg.pmean_axis!r} needs the data "
-                         "group that parallel.spmd.spmd_hdqn_chunk passes "
-                         "as axis, and axis needs pmean_axis='data'")
-
-
 def hdqn_step(cfg: HDQNConfig, env_params: EnvParams, carry: HDQNCarry,
               axis=None) -> HDQNCarry:
     """One lockstep step of both controllers, both replays and both
     learners over all envs.  ``axis``: the mesh's data group, given with
     ``cfg.pmean_axis`` (as ``agents.dqn.learn`` takes it)."""
-    _check_axis(cfg, axis)
+    D.check_axis(cfg.pmean_axis, axis, "spmd_hdqn_chunk")
     obs = carry.obs
 
     def seed(call):

@@ -31,6 +31,18 @@ Reference semantics kept (the quirks of the JAX module):
 * ``won`` read from the pre-step obs;
 * extensions: PER (``per``), n-step returns (``n_step``), the optional
   Phi(eps)-greedy wrap (``epsilon``) and L0 / frozen-MLP opponents.
+
+Data-parallel training (``pmean_axis="data"``, ``parallel.spmd.
+spmd_rainbow_chunk``): a step given the mesh's data group as ``axis``
+gates the learner on the group minimum of the ring fills, averages the
+gradients and the loss over the group before Adam, takes the group
+maximum of PER's running max priority after its write-back, sums the
+metric increments, so the episodic target sync is a global decision, and
+keeps the noise replicated: every rank takes the group's first rank's
+fresh draw (the JAX step draws it from ``noise_key``, a stream that every
+device shares).  The learn is computed on every step and kept with
+``torch.where``, so every rank reaches every collective whether its gate
+is open or not.
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ from merging_gym_tpu_torch.nn.rainbow_net import (NUM_ATOMS, rainbow_apply,
                                                   support)
 from merging_gym_tpu_torch.ops import per as per_ops
 from merging_gym_tpu_torch.ops import replay as rp
+from merging_gym_tpu_torch.ops.collectives import (broadcast, pmax, pmean,
+                                                   pmin)
 from merging_gym_tpu_torch.ops.fused_actor import fused_eps_greedy_actions
 from merging_gym_tpu_torch.ops.nstep import (NStepState, nstep_init,
                                              nstep_update)
@@ -88,14 +102,9 @@ class RainbowConfig:
     epsilon: float | None = None
     # Input normalisation (None = the reference's raw observations).
     obs_scale: float | None = None
-    # Data-parallel training sets an axis name in the JAX package; the
-    # port's distributed trainers are not written yet.
+    # Data-parallel training: "data" marks a config whose steps take the
+    # mesh's data group as ``axis`` (``parallel.spmd.spmd_rainbow_chunk``).
     pmean_axis: str | None = None
-
-    def __post_init__(self):
-        if self.pmean_axis is not None:
-            raise ValueError("pmean_axis (data-parallel Rainbow) is not yet "
-                             "ported to the PyTorch package")
 
     def replace(self, **changes) -> "RainbowConfig":
         return dataclasses.replace(self, **changes)
@@ -199,9 +208,12 @@ def _where_tree(gate, new, old):
     return D._tree_map(lambda a, b: torch.where(gate, a, b), new, old)
 
 
-def _learn(carry: RainbowCarry, replay, cfg: RainbowConfig):
+def _learn(carry: RainbowCarry, replay, cfg: RainbowConfig, axis=None):
     """One learn on a draw from ``replay``; returns ``(params, opt_state,
-    replay, loss)`` (the replay with updated priorities under PER)."""
+    replay, loss)`` (the replay with updated priorities under PER).  Given
+    a process group ``axis``, the gradients and the loss are averaged over
+    it before Adam and the running max priority is the group's maximum;
+    the priorities written back are this rank's own."""
     if cfg.per:
         batch, idx, weights = per_ops.per_sample(
             replay, carry.generator, cfg.batch_size, cfg.per_beta)
@@ -215,13 +227,19 @@ def _learn(carry: RainbowCarry, replay, cfg: RainbowConfig):
         loss, ce = rainbow_loss(params, carry.target_params, carry.noise,
                                 carry.target_noise, batch, weights, cfg)
         flat = torch.autograd.grad(loss, D._leaves(params))
+    loss = loss.detach()
+    if axis is not None:
+        *flat, loss = pmean([*flat, loss], axis)
     it = iter(flat)
     grads = D._tree_map(lambda _: next(it), params)
     new_params, opt = D._adam(carry.params, grads, carry.opt_state, cfg.lr)
     if cfg.per:
         replay = per_ops.per_update_priorities(replay, idx,
                                                ce.detach() + 1e-5)
-    return new_params, opt, replay, loss.detach().to(torch.float32)
+        if axis is not None:
+            replay = dataclasses.replace(
+                replay, max_priority=pmax(replay.max_priority, axis))
+    return new_params, opt, replay, loss.to(torch.float32)
 
 
 def _explore(a, generator, epsilon, num_actions):
@@ -234,10 +252,11 @@ def _explore(a, generator, epsilon, num_actions):
 
 
 def rainbow_train_step(cfg: RainbowConfig, env_params: EnvParams,
-                       carry: RainbowCarry) -> RainbowCarry:
-    """One lockstep actor + replay + learner step over all envs."""
+                       carry: RainbowCarry, axis=None) -> RainbowCarry:
+    """One lockstep actor + replay + learner step over all envs.
+    ``axis``: the mesh's data group, given with ``cfg.pmean_axis``."""
+    D.check_axis(cfg.pmean_axis, axis, "spmd_rainbow_chunk")
     obs, gen = carry.obs, carry.generator
-    num_envs = obs.shape[0]
     a1 = _act(carry.params, carry.noise, obs, cfg)
     if cfg.opponent == D.OPP_L0:
         a2 = torch.full_like(a1, C.ACTION_NONE)
@@ -273,10 +292,13 @@ def rainbow_train_step(cfg: RainbowConfig, env_params: EnvParams,
     else:
         replay = rp.add_batch(carry.replay, items, store_mask)
         fill = replay.cursor
+    if axis is not None:
+        # The n-step emit masks make the fills differ: the gate is global.
+        fill = pmin(fill, axis)
     fill_ok = fill > cfg.batch_size
 
     # Learner, computed always and kept where the gate is open.
-    params, opt, learned, loss = _learn(carry, replay, cfg)
+    params, opt, learned, loss = _learn(carry, replay, cfg, axis)
     params = _where_tree(fill_ok, params, carry.params)
     opt = D.AdamState(torch.where(fill_ok, opt.count, carry.opt_state.count),
                       _where_tree(fill_ok, opt.mu, carry.opt_state.mu),
@@ -293,19 +315,20 @@ def rainbow_train_step(cfg: RainbowConfig, env_params: EnvParams,
     # Noise resampled only when the learner ran (ranbowdqn.py:606-607).
     fresh = rainbow_sample_noise(gen, cfg.num_actions, cfg.num_atoms)
     fresh_t = rainbow_sample_noise(gen, cfg.num_actions, cfg.num_atoms)
+    if axis is not None:   # replicated noise: the first rank's draw
+        it = iter(broadcast(D._leaves(fresh) + D._leaves(fresh_t), axis))
+        fresh = D._tree_map(lambda _: next(it), fresh)
+        fresh_t = D._tree_map(lambda _: next(it), fresh_t)
     noise = _where_tree(fill_ok, fresh, carry.noise)
     target_noise = _where_tree(fill_ok, fresh_t, carry.target_noise)
 
-    # Metrics; the win is tested on the pre-step obs (main.py:225).
+    # Metrics; the win is tested on the pre-step obs (main.py:225).  Under
+    # a group the increments are summed, so the counters are global.
     done = ts.done
     ep_reward = carry.ep_reward + ts.rewards[:, 0]
     won = done & (obs[:, 8] > obs[:, 3])
-    m = carry.metrics
-    metrics = D.Metrics(
-        env_steps=m.env_steps + num_envs, episodes=m.episodes + done.sum(),
-        collisions=m.collisions + ts.collision.sum(), wins=m.wins + won.sum(),
-        sum_ep_reward=m.sum_ep_reward + torch.where(done, ep_reward,
-                                                   0.0).sum())
+    metrics = D.add_metrics(carry.metrics, done, ts.collision, won,
+                            ep_reward, axis)
 
     # Hard target sync every target_sync_episodes episodes, post-update.
     chunks = metrics.episodes // cfg.target_sync_episodes
@@ -321,7 +344,8 @@ def rainbow_train_step(cfg: RainbowConfig, env_params: EnvParams,
 
 
 def rainbow_train_chunk(cfg: RainbowConfig, env_params: EnvParams,
-                        carry: RainbowCarry, num_steps: int) -> RainbowCarry:
+                        carry: RainbowCarry, num_steps: int,
+                        axis=None) -> RainbowCarry:
     for _ in range(num_steps):
-        carry = rainbow_train_step(cfg, env_params, carry)
+        carry = rainbow_train_step(cfg, env_params, carry, axis)
     return carry

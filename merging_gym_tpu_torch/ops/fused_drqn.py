@@ -560,6 +560,12 @@ def _prepare(cfg, env_params, carry, num_steps, seed, greedy, rounds, cols):
 def fused_drqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
                            greedy=False, rounds=None, cols=None) -> dict:
     """Plain PyTorch version of K9 (see :func:`fused_drqn_chunk`)."""
+    return _finish(carry, _plain_state(cfg, env_params, carry, num_steps,
+                                       seed, greedy, rounds, cols), num_steps)
+
+
+def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
+                 cols) -> dict:
     rounds, cols = _prepare(cfg, env_params, carry, num_steps, seed, greedy,
                             rounds, cols)
     st = working_state(carry)
@@ -651,7 +657,7 @@ def fused_drqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
             torch.where(done, 0, ns.winner).to(f32),
             torch.where(done, 0, ns.t).to(f32), ep]),
             torch.where(d, 0.0, hc_new).T])
-    return _finish(carry, st, num_steps)
+    return st
 
 
 def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
@@ -669,15 +675,25 @@ def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     place of :func:`act_geometry`'s (a forced partial last block in the
     card's checks); the plain version has none.
     """
+    st = chunk_state(cfg, env_params, carry, num_steps, seed, greedy=greedy,
+                     rounds=rounds, cols=cols, act_geom=act_geom)
+    return _finish(carry, st, num_steps)
+
+
+def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
+                rounds=None, cols=None, act_geom=None) -> dict:
+    """The working state (:func:`working_state`) after a chunk, not yet
+    folded into a carry: K9 on the card, the plain version on the CPU
+    (``parallel.spmd`` averages it over the ranks before the fold)."""
     if carry["env"].device.type == "cpu":
-        return fused_drqn_chunk_plain(cfg, env_params, carry, num_steps, seed,
-                                      greedy=greedy, rounds=rounds, cols=cols)
+        return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
+                            rounds, cols)
     rounds, cols = _prepare(cfg, env_params, carry, num_steps, seed, greedy,
                             rounds, cols)
     st = working_state(carry)
     launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
                 cols, act_geom)
-    return _finish(carry, st, num_steps)
+    return st
 
 
 # ---------------------------------------------------------------------------

@@ -865,6 +865,13 @@ def fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
                               greedy=False, rounds=None, cols=None,
                               us=None) -> dict:
     """Plain PyTorch version of K8 (see :func:`fused_rainbow_chunk`)."""
+    st, learned = _plain_state(cfg, env_params, carry, num_steps, seed,
+                               greedy, rounds, cols, us)
+    return _finish(carry, st, num_steps, cfg.n_step, learned)
+
+
+def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
+                 cols, us) -> tuple:
     rounds, cols, us = _prepare(cfg, env_params, carry, num_steps, seed,
                                 greedy, rounds, cols, us)
     st = working_state(carry)
@@ -1006,7 +1013,7 @@ def fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
         st["env"][11] = synced
         st["wp"] = effective_weights(st["p"], st["eps"])
         st["wt"] = effective_weights(st["tp"], st["teps"])
-    return _finish(carry, st, num_steps, ns, learned)
+    return st, learned
 
 
 # ---------------------------------------------------------------------------
@@ -1392,16 +1399,27 @@ def fused_rainbow_chunk(cfg, env_params, carry, num_steps, seed, *,
     place of :func:`act_geometry`'s (a forced partial last block in the
     card's checks); the plain version has none.
     """
+    st, learned = chunk_state(cfg, env_params, carry, num_steps, seed,
+                              greedy=greedy, rounds=rounds, cols=cols, us=us,
+                              act_geom=act_geom)
+    return _finish(carry, st, num_steps, cfg.n_step, learned)
+
+
+def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
+                rounds=None, cols=None, us=None, act_geom=None) -> tuple:
+    """``(st, learned)``: the working state (:func:`working_state`) after a
+    chunk, not yet folded into a carry, and whether its last step learned:
+    K8 on the card, the plain version on the CPU (``parallel.spmd``
+    averages it over the ranks before the fold)."""
     if carry["env"].device.type == "cpu":
-        return fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps,
-                                         seed, greedy=greedy, rounds=rounds,
-                                         cols=cols, us=us)
+        return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
+                            rounds, cols, us)
     rounds, cols, us = _prepare(cfg, env_params, carry, num_steps, seed,
                                 greedy, rounds, cols, us)
     st = working_state(carry)
     learned = launch_rainbow(st, carry, cfg, env_params, num_steps, seed,
                              greedy, rounds, cols, us, act_geom=act_geom)
-    return _finish(carry, st, num_steps, cfg.n_step, learned)
+    return st, learned
 
 
 def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,

@@ -5,8 +5,8 @@ runs one controller over global arrays; here every rank is a process
 that holds only its own part, so a "sharding" is the part of an axis
 that this rank keeps, and a collective is an explicit
 ``torch.distributed.all_reduce`` over one dimension's process group, as
-the JAX package's ``psum`` / ``pmean`` / ``pmin`` run over one mesh axis
-inside ``shard_map``.
+the JAX package's ``psum`` / ``pmean`` / ``pmin`` / ``pmax`` run over one
+mesh axis inside ``shard_map``.
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the dims
 ``("data", "model")``; ``mesh.get_group("data")`` and
@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from merging_gym_tpu_torch.ops.collectives import (  # noqa: F401
-    pmean, pmin, psum)
+    broadcast, pmax, pmean, pmin, psum)
 
 DIMS = ("data", "model")
 

@@ -1,10 +1,11 @@
-"""SPMD training over torch.distributed: the DQN family.
+"""SPMD training over torch.distributed: the four trainer families.
 
-Counterpart of ``merging_gym_tpu/parallel/spmd.py`` for Double-DQN and
-h-DQN: the data- and tensor-parallel step loops (``spmd_train_*``,
-``spmd_hdqn_*``) and the fused trainers K5 and K7 on every rank under
-local SGD (``spmd_fused_dqn_*``, ``spmd_fused_hdqn_*``).  Rainbow and
-DRQN are not ported here yet.
+Counterpart of ``merging_gym_tpu/parallel/spmd.py``: the data- and
+tensor-parallel DQN step loop (``spmd_train_*``), the data-parallel
+h-DQN, Rainbow and DRQN step loops (``spmd_hdqn_*``, ``spmd_rainbow_*``,
+``spmd_drqn_*``) and the fused trainers K5, K7, K8 and K9 on every rank
+under local SGD (``spmd_fused_dqn_*``, ``spmd_fused_hdqn_*``,
+``spmd_fused_rainbow_*``, ``spmd_fused_drqn_*``).
 
 One process per rank runs the same program on its own part of the work
 and holds a rank-local carry: its env lanes, its replay rings and its
@@ -15,9 +16,12 @@ plain local ones.  On a ``(data, model)`` mesh (``parallel.mesh``):
 * **data parallelism**: every rank steps its own envs, stores into its
   own ring and samples its own batch; the gradients and the loss are
   averaged over the ``data`` group before an identical Adam update
-  (``agents.dqn.learn``'s ``axis``), the learn gate is the data-group
-  minimum of the ring cursors, and the metric increments are summed over
-  ``data`` every step, so every rank holds the global counters;
+  (``agents.dqn.learn``'s ``axis``; the Rainbow and DRQN steps take the
+  same ``axis``), the learn gate is the data-group minimum of the ring
+  fills, PER's running max priority is the data-group maximum, and the
+  metric increments are summed over ``data`` every step, so every rank
+  holds the global counters (and Rainbow's episodic target sync is a
+  global decision);
 * **tensor parallelism** (the DQN step loop): fc0 column-parallel, fc1
   row-parallel with one sum over ``model`` on its partial products, fc2
   replicated.  The sum's backward passes the cotangent through
@@ -27,21 +31,34 @@ plain local ones.  On a ``(data, model)`` mesh (``parallel.mesh``):
   ``tp`` times their gradient; the port does not copy that (ROADMAP.md,
   Queue 3);
 * **local SGD** (the fused trainers): each rank runs the whole chunk on
-  its lanes (K5 or K7 on the card, their plain versions on the CPU), then
-  the ranks average the parameters, target parameters and both Adam
-  moments, sum the metrics and average the loss.
+  its lanes (K5, K7, K8 or K9 on the card, their plain versions on the
+  CPU), then the ranks average the parameters, target parameters and
+  both Adam moments, sum the metrics and average the loss; under PER,
+  K8's running max priority (env row 13) is the ranks' maximum.
 
 Streams.  Data rank ``d`` runs under ``data_seed(seed, d) = seed + d *
 0x9E3779B9``: the step loops' generator (env resets, replay draws) and
 their actors' Philox keys, and the fused chunks' Philox key and host
 ``rounds``/``cols`` generator (``seed ^ 0x5EED`` for K5, ``seed ^ 0x4D0``
-and ``seed ^ 0xC01`` for K7, of the rank's seed).  Rank 0 keeps the
+and ``seed ^ 0xC01`` for K7, ``seed ^ 0x51C``, ``seed ^ 0xC01`` and
+``seed ^ 0xBE7`` for K8's ``rounds``, ``cols`` and ``us``, ``seed ^
+0xD7D7`` for K9, of the rank's seed).  Rank 0 keeps the
 run's seed, so a world of one reproduces the single-device trainers bit
 for bit; the increment is odd, so the low 32 bits, which the step loops'
 actors key on, differ between any two data ranks.  The model ranks of one
 data row share their seed, envs, samples and exploration draws.  The
 nets are drawn from the run's seed on every rank, so replicas start
 equal.
+
+Rainbow's noise.  The step loop keeps it replicated, as the JAX step
+does by drawing it from ``noise_key``, a stream that every device shares:
+every rank starts from the noise of the run's seed and takes data rank
+0's fresh draw (``agents.rainbow``).  K8 keeps it rank-local, as JAX
+lane-shards it, never averaged (an average of factorised noise would
+shrink it toward zero): rank ``d`` starts from the noise that a
+single-chip ``fused_rainbow_init`` under ``data_seed(seed, d)`` draws,
+beside the shared net, and redraws it under its own Philox key.  Rank 0's
+noise is the single-device run's in both.
 """
 
 from __future__ import annotations
@@ -54,18 +71,22 @@ import numpy as np
 import torch
 
 from merging_gym_tpu_torch.agents import dqn as D
+from merging_gym_tpu_torch.agents import drqn as DR
 from merging_gym_tpu_torch.agents import hdqn as H
+from merging_gym_tpu_torch.agents import rainbow as RB
 from merging_gym_tpu_torch.core import constants as C
 from merging_gym_tpu_torch.core.env import EnvParams, swap_obs
 from merging_gym_tpu_torch.core.vector import (autoreset_step,
                                                observe_after_reset)
+from merging_gym_tpu_torch.ops import fused_drqn as FD
 from merging_gym_tpu_torch.ops import fused_hdqn as FH
+from merging_gym_tpu_torch.ops import fused_rainbow as FRB
 from merging_gym_tpu_torch.ops import fused_trainer as FT
 from merging_gym_tpu_torch.ops import replay as rp
 from merging_gym_tpu_torch.ops.fused_actor import eps_greedy_pick
 from merging_gym_tpu_torch.parallel.mesh import (axis_index, axis_size,
-                                                 data_sharding, pmean, pmin,
-                                                 psum)
+                                                 data_sharding, pmax, pmean,
+                                                 pmin, psum)
 
 SEED_STRIDE = 0x9E3779B9
 
@@ -90,25 +111,46 @@ def _axes(mesh) -> _Axes:
                  axis_index(mesh, "data"), axis_index(mesh, "model"))
 
 
-def _local_rows(obj, names, part):
+def _local_rows(obj, names, part, second_axis=False):
     """``obj`` (a dataclass) with its per-env fields ``names`` cut to this
-    rank's rows; an ``EnvState`` field is cut field by field."""
+    rank's rows; a dataclass or dict field is cut entry by entry.  With
+    ``second_axis`` the envs of an array of more than one dimension lie on
+    its second axis (the n-step history, the JAX ``P(None, "data")``)."""
     def cut(x):
         if dataclasses.is_dataclass(x):
             return dataclasses.replace(x, **{
                 f.name: cut(getattr(x, f.name))
                 for f in dataclasses.fields(x)})
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if second_axis and x.ndim > 1:
+            return x[:, part.rows(x.shape[1])].clone()
         return part.place(x).clone()
     return dataclasses.replace(obj, **{k: cut(getattr(obj, k))
                                        for k in names})
 
 
 def _reseed(carry, seed: int, d: int):
-    """Data rank ``d``'s streams (rank 0 keeps the run's)."""
+    """Data rank ``d``'s streams (rank 0 keeps the run's): its generator,
+    and its run seed where the carry keys an actor on one."""
     if d == 0:
         return carry
     carry.generator.manual_seed(data_seed(seed, d))
-    return dataclasses.replace(carry, seed=data_seed(seed, d))
+    if hasattr(carry, "seed"):
+        carry = dataclasses.replace(carry, seed=data_seed(seed, d))
+    return carry
+
+
+def _data_ranks(mesh, num_envs: int, cfg, name: str) -> _Axes:
+    """The mesh's axes, once ``num_envs`` divides over its data ranks and
+    ``cfg`` (a ``name``) sets ``pmean_axis='data'``."""
+    ax = _axes(mesh)
+    if num_envs % ax.dp:
+        raise ValueError(f"num_envs {num_envs} must divide over {ax.dp} "
+                         "data ranks")
+    if cfg.pmean_axis != "data":
+        raise ValueError(f"set {name}(pmean_axis='data')")
+    return ax
 
 
 # ---------------------------------------------------------------------------
@@ -308,12 +350,7 @@ def spmd_hdqn_init(seed: int, cfg: H.HDQNConfig, env_params: EnvParams,
                    device=None) -> H.HDQNCarry:
     """This rank's h-DQN carry; both memory capacities are per rank and
     ``num_envs`` is global."""
-    ax = _axes(mesh)
-    if num_envs % ax.dp:
-        raise ValueError(f"num_envs {num_envs} must divide over {ax.dp} "
-                         "data ranks")
-    if cfg.pmean_axis != "data":
-        raise ValueError("set HDQNConfig(pmean_axis='data')")
+    ax = _data_ranks(mesh, num_envs, cfg, "HDQNConfig")
     carry = H.hdqn_init(seed, cfg, env_params, num_envs, opp_upper,
                         opp_lower, device)
     carry = _local_rows(carry, _HDQN_ROWS, data_sharding(mesh))
@@ -328,7 +365,77 @@ def spmd_hdqn_chunk(mesh, cfg: H.HDQNConfig, env_params: EnvParams,
 
 
 # ---------------------------------------------------------------------------
-# Fused trainers (K5, K7) under local SGD
+# Data-parallel Rainbow and DRQN step loops
+# ---------------------------------------------------------------------------
+
+def spmd_rainbow_init(seed: int, cfg: RB.RainbowConfig,
+                      env_params: EnvParams, num_envs: int, mesh,
+                      device=None) -> RB.RainbowCarry:
+    """This rank's Rainbow carry: its ``num_envs / data`` envs and their
+    n-step history, and a ring (with its PER state under ``cfg.per``) of
+    ``cfg.memory_capacity`` per rank; ``num_envs`` is global.  Every rank
+    starts from the run's net and noise, which stays replicated (see
+    above).  Use ``env_params.random_start=True`` for vectorised
+    self-play: with deterministic starts and no epsilon, noisy-greedy
+    clones every env."""
+    ax = _data_ranks(mesh, num_envs, cfg, "RainbowConfig")
+    carry = RB.rainbow_train_init(seed, cfg, env_params, num_envs,
+                                  device=device)
+    part = data_sharding(mesh)
+    carry = _local_rows(carry, ("env_state", "obs", "ep_reward"), part)
+    carry = _local_rows(carry, ("nstep",), part, second_axis=True)
+    return _reseed(carry, seed, ax.d)
+
+
+def spmd_rainbow_chunk(mesh, cfg: RB.RainbowConfig, env_params: EnvParams,
+                       carry: RB.RainbowCarry,
+                       num_steps: int) -> RB.RainbowCarry:
+    """Rainbow data-parallel over the mesh's ``data`` group: one averaged
+    learner, a global learn gate and a global episodic target sync."""
+    return RB.rainbow_train_chunk(cfg, env_params, carry, num_steps,
+                                  axis=mesh.get_group("data"))
+
+
+_DRQN_ROWS = ("env_state", "obs", "lstm_h", "lstm_c", "lstm_h2", "lstm_c2",
+              "window", "window_len", "ep_reward")
+
+
+def spmd_drqn_init(seed: int, cfg: DR.DRQNConfig, env_params: EnvParams,
+                   num_envs: int, mesh, opp_params=None,
+                   device=None) -> DR.DRQNCarry:
+    """This rank's DRQN carry: its envs, both seats' LSTM states and its
+    accumulating windows, and a sequence ring of ``cfg.memory_capacity``
+    windows per rank, which must hold one flush of its ``num_envs /
+    data`` windows; ``num_envs`` is global."""
+    ax = _data_ranks(mesh, num_envs, cfg, "DRQNConfig")
+    local = num_envs // ax.dp
+    if cfg.memory_capacity < local:
+        raise ValueError(f"per-rank memory_capacity={cfg.memory_capacity} "
+                         f"< local envs {local}: each rank's sequence ring "
+                         "must hold one synchronized flush")
+    # drqn_train_init checks its ring against the global envs; the rank's
+    # ring is checked above and built below.
+    big = cfg.memory_capacity < num_envs
+    carry = DR.drqn_train_init(
+        seed, cfg.replace(memory_capacity=num_envs) if big else cfg,
+        env_params, num_envs, opp_params, device)
+    if big:
+        carry = dataclasses.replace(carry, replay=rp.replay_init(
+            cfg.memory_capacity,
+            DR._window_example(cfg, carry.obs.device)))
+    carry = _local_rows(carry, _DRQN_ROWS, data_sharding(mesh))
+    return _reseed(carry, seed, ax.d)
+
+
+def spmd_drqn_chunk(mesh, cfg: DR.DRQNConfig, env_params: EnvParams,
+                    carry: DR.DRQNCarry, num_steps: int) -> DR.DRQNCarry:
+    """Recurrent DQN data-parallel over the mesh's ``data`` group."""
+    return DR.drqn_train_chunk(cfg, env_params, carry, num_steps,
+                               axis=mesh.get_group("data"))
+
+
+# ---------------------------------------------------------------------------
+# Fused trainers (K5, K7, K8, K9) under local SGD
 # ---------------------------------------------------------------------------
 
 def _check_fused_launch(num_steps, env_params, greedy):
@@ -453,6 +560,96 @@ def spmd_fused_hdqn_chunk(mesh, cfg: H.HDQNConfig, env_params: EnvParams,
     return _fold_counts(new, carry, num_steps)
 
 
+def spmd_fused_rainbow_init(seed: int, cfg: RB.RainbowConfig,
+                            env_params: EnvParams, num_envs: int, mesh,
+                            opp_params=None, learn_batch=None,
+                            device=None) -> dict:
+    """This rank's K8 carry (cf. :func:`spmd_fused_dqn_init`):
+    ``num_envs / data`` lanes and a ring of ``cfg.memory_capacity /
+    data``, both global counts.  Every rank starts from the same lanes,
+    net and moments; rank ``d``'s noise (``eps``, ``teps``) is the noise
+    that ``fused_rainbow_init`` under ``data_seed(seed, d)`` draws (rank
+    0's is the run's)."""
+    ndev, n_local = _split_lanes(mesh, num_envs,
+                                 {"memory_capacity": cfg.memory_capacity})
+    local = cfg.replace(memory_capacity=cfg.memory_capacity // ndev)
+
+    def init(s):
+        return FRB.fused_rainbow_init(s, local, env_params, n_local,
+                                      opp_params, learn_batch=learn_batch,
+                                      device=device)
+    carry = init(seed)
+    d = axis_index(mesh, "data")
+    if d:
+        own = init(data_seed(seed, d))
+        carry["eps"], carry["teps"] = own["eps"], own["teps"]
+    return {**carry, "n_local": n_local, "n_global": num_envs}
+
+
+def spmd_fused_rainbow_chunk(mesh, cfg: RB.RainbowConfig,
+                             env_params: EnvParams, carry: dict,
+                             num_steps: int, seed: int, *, greedy=False,
+                             rounds=None, cols=None, us=None) -> dict:
+    """One K8 chunk on every rank under ``data_seed(seed, d)``, then the
+    average of ``p``, ``tp``, ``m`` and ``v`` over ``data`` (the noise
+    stays on its rank), the metric sums and the mean loss (0.0 when the
+    chunk's last step did not learn, on every rank); under PER, env row
+    13 (the running max priority) is the ranks' maximum.  The episodic
+    target sync and rows 11-12 stay rank-local.  ``rounds``/``cols``/
+    ``us``: this rank's own streams (default: drawn from its seed)."""
+    _check_fused_launch(num_steps, env_params, greedy)
+    st, learned = FRB.chunk_state(cfg, env_params, carry, num_steps,
+                                  data_seed(seed, axis_index(mesh, "data")),
+                                  greedy=greedy, rounds=rounds, cols=cols,
+                                  us=us)
+    if not learned:
+        st["loss"] = torch.zeros_like(st["loss"])
+    if cfg.per:
+        st["env"][13] = pmax(st["env"][13], mesh.get_group("data"))
+    names = ("p", "tp", "m", "v")
+    sets, met, loss = _reduce_chunk(st, names, mesh)
+    out = {k: st[k] for k in ("eps", "teps", "env", "ring")}
+    out.update(zip(names, sets))
+    new = FRB.apply_rainbow_chunk(carry, out, num_steps, met, loss,
+                                  nwarm=cfg.n_step)
+    return _fold_counts(new, carry, num_steps)
+
+
+def spmd_fused_drqn_init(seed: int, cfg: DR.DRQNConfig,
+                         env_params: EnvParams, num_envs: int, mesh,
+                         opp_params=None, learn_batch=None,
+                         device=None) -> dict:
+    """This rank's K9 carry (cf. :func:`spmd_fused_dqn_init`): its lanes
+    of the env rows (both seats' LSTM states among them), the window
+    buffer and the sequence ring; ``cfg.memory_capacity`` is a global
+    window count split over the data ranks."""
+    ndev, n_local = _split_lanes(mesh, num_envs,
+                                 {"memory_capacity": cfg.memory_capacity})
+    carry = FD.fused_drqn_init(
+        seed, cfg.replace(memory_capacity=cfg.memory_capacity // ndev),
+        env_params, n_local, opp_params, learn_batch=learn_batch,
+        device=device)
+    return {**carry, "n_local": n_local, "n_global": num_envs}
+
+
+def spmd_fused_drqn_chunk(mesh, cfg: DR.DRQNConfig, env_params: EnvParams,
+                          carry: dict, num_steps: int, seed: int, *,
+                          greedy=False, rounds=None, cols=None) -> dict:
+    """One K9 chunk on every rank under ``data_seed(seed, d)``, then the
+    average of the four parameter sets over ``data``, the metric sums and
+    the mean loss."""
+    _check_fused_launch(num_steps, env_params, greedy)
+    st = FD.chunk_state(cfg, env_params, carry, num_steps,
+                        data_seed(seed, axis_index(mesh, "data")),
+                        greedy=greedy, rounds=rounds, cols=cols)
+    names = ("p", "tp", "m", "v")
+    sets, met, loss = _reduce_chunk(st, names, mesh)
+    out = {k: st[k] for k in ("env", "win", "ring")}
+    out.update(zip(names, sets))
+    new = FD.apply_drqn_chunk(carry, out, num_steps, met, loss)
+    return _fold_counts(new, carry, num_steps)
+
+
 def _rank_lanes(carry: dict, rank: int, world: int, keys) -> tuple:
     n_global = int(carry["n"])
     n_local = int(carry.get("n_local", n_global // world))
@@ -483,4 +680,31 @@ def hdqn_fused_carry_from_numpy(carry: dict, rank: int, world: int,
     local, n_local, n_global = _rank_lanes(
         carry, rank, world, ("state", "lo_ring", "up_ring"))
     out = FH.hdqn_carry_from_numpy(local, device)
+    return {**out, "n_local": n_local, "n_global": n_global}
+
+
+def rainbow_fused_carry_from_numpy(carry: dict, rank: int, world: int,
+                                   device=None) -> dict:
+    """Rank ``rank``'s K8 carry from a JAX ``spmd_fused_rainbow_*`` carry:
+    its lanes of ``env`` and ``ring`` and its block of the lane-sharded
+    noise (``[464, 64 * world]`` and ``[464, world]``, block ``rank``)."""
+    local, n_local, n_global = _rank_lanes(carry, rank, world,
+                                           ("env", "ring"))
+    for k in ("eps", "teps"):
+        blocks = []
+        for a in map(np.asarray, carry[k]):
+            w = a.shape[1] // world
+            blocks.append(a[:, rank * w:(rank + 1) * w])
+        local[k] = tuple(blocks)
+    out = FRB.rainbow_carry_from_numpy(local, device)
+    return {**out, "n_local": n_local, "n_global": n_global}
+
+
+def drqn_fused_carry_from_numpy(carry: dict, rank: int, world: int,
+                                device=None) -> dict:
+    """Rank ``rank``'s K9 carry from a JAX ``spmd_fused_drqn_*`` carry:
+    its lanes of ``env``, ``win`` and ``ring``."""
+    local, n_local, n_global = _rank_lanes(carry, rank, world,
+                                           ("env", "win", "ring"))
+    out = FD.drqn_carry_from_numpy(local, device)
     return {**out, "n_local": n_local, "n_global": n_global}

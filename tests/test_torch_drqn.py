@@ -212,9 +212,13 @@ def test_config_defaults_and_init_checks():
         JDR.DRQNConfig.__dataclass_fields__)
     for name, field in DR.DRQNConfig.__dataclass_fields__.items():
         assert getattr(JDR.DRQNConfig(), name) == field.default, name
-    with pytest.raises(ValueError, match="pmean_axis"):
-        DR.DRQNConfig(pmean_axis="data")
+    # pmean_axis is accepted; a step refuses it without the mesh's groups
+    # (parallel.spmd.spmd_drqn_chunk passes them).
     ep = EnvParams()
+    cfg = DR.DRQNConfig(pmean_axis="data", memory_capacity=16, batch_size=4)
+    carry = DR.drqn_train_init(0, cfg, ep, 4, device=CPU)
+    with pytest.raises(ValueError, match="pmean_axis"):
+        DR.drqn_train_step(cfg, ep, carry)
     with pytest.raises(ValueError, match="frozen opponent needs params"):
         DR.drqn_train_init(0, DR.DRQNConfig(opponent="frozen"), ep, 8,
                            device=CPU)

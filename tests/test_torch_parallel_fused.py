@@ -49,7 +49,7 @@ from merging_gym_tpu_torch.ops import fused_hdqn as FH
 from merging_gym_tpu_torch.ops import fused_trainer as FT
 from merging_gym_tpu_torch.parallel import spmd
 from tests.torch_threads import one_torch_thread  # noqa: F401
-from tests.torch_world import World
+from tests.torch_world import World, assert_results_equal
 
 CPU = torch.device("cpu")
 N, SETS5 = 2 * 128, ("p", "tp", "m", "v")
@@ -323,8 +323,8 @@ def test_checkpoint_resume_equals_continue_on_two_ranks(world, tmp_path):
     for r, res in enumerate(out):
         for name in ("fused", "loop"):
             assert res[name]["steps"] == [1, 2]
-            _assert_tree_equal(res[name]["b"], res[name]["c"], name)
-            _assert_tree_equal(res[name]["b"], res[name]["a"], name)
+            assert_results_equal(res[name]["b"], res[name]["c"], name)
+            assert_results_equal(res[name]["b"], res[name]["a"], name)
         assert "world of [1] rank(s); this run has 2" in res["refused"]
     assert sorted(os.listdir(tmp_path / "fused")) == sorted(
         [f"{s}.rank{r}-of-2.pt" for s in (1, 2) for r in (0, 1)]
@@ -353,17 +353,3 @@ def test_checkpoint_cut_between_ranks_restores_the_same_step(world,
     assert sorted(os.listdir(tmp_path)) == sorted(
         [f"{s}.rank{r}-of-2.pt" for s in (1, 2) for r in (0, 1)]
         + ["1.of-2.done", "2.of-2.done"])
-
-
-def _assert_tree_equal(a, b, path):
-    if isinstance(a, dict):
-        assert set(a) == set(b), path
-        for k in a:
-            _assert_tree_equal(a[k], b[k], f"{path}[{k!r}]")
-    elif isinstance(a, (tuple, list)):
-        for i, (x, y) in enumerate(zip(a, b)):
-            _assert_tree_equal(x, y, f"{path}[{i}]")
-    elif isinstance(a, np.ndarray):
-        np.testing.assert_array_equal(a, b, path)
-    else:
-        assert a == b, path

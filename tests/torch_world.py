@@ -103,3 +103,22 @@ class World:
             if p.is_alive():
                 p.kill()
                 p.join()
+
+
+def assert_results_equal(a, b, path="result"):
+    """Two results of :meth:`World.run` (dicts, tuples, lists, numpy
+    arrays and scalars) bit for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_results_equal(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_results_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, path)
+    else:
+        assert a == b, path

@@ -14,9 +14,14 @@ import numpy as np
 import torch
 
 from merging_gym_tpu_torch.agents import dqn as D
+from merging_gym_tpu_torch.agents import drqn as DR
 from merging_gym_tpu_torch.agents import hdqn as H
+from merging_gym_tpu_torch.agents import rainbow as RB
 from merging_gym_tpu_torch.core.env import EnvParams
 from merging_gym_tpu_torch.io.checkpoint import CheckpointManager, state_tree
+from merging_gym_tpu_torch.nn.lstm import drqn_params_from_numpy
+from merging_gym_tpu_torch.nn.rainbow_net import rainbow_params_from_numpy
+from merging_gym_tpu_torch.ops import replay as rp
 from merging_gym_tpu_torch.parallel import mesh as M
 from merging_gym_tpu_torch.parallel import spmd
 
@@ -325,4 +330,294 @@ def checkpoint_cut_between_ranks(directory):
     out["resaved"] = mgr.save(2, state(2))
     out["steps_after"] = mgr.all_steps()
     out["restored_after"] = to_numpy(mgr.restore(state(0)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rainbow and DRQN step loops
+# ---------------------------------------------------------------------------
+
+def collectives_rb():
+    """``pmax`` and ``broadcast`` over the data group."""
+    mesh = M.make_mesh()
+    g, r = mesh.get_group("data"), float(M.axis_index(mesh, "data"))
+    x = torch.tensor([r, -r, 2.5])
+    return {"max": M.pmax(x, g).numpy(),
+            "bcast": [t.numpy() for t in M.broadcast(
+                [x + 10.0, torch.full((2,), r)], g)]}
+
+
+def _rb_cfg(cfg_kw):
+    return RB.RainbowConfig(pmean_axis="data", **cfg_kw)
+
+
+def _dr_cfg(cfg_kw):
+    return DR.DRQNConfig(pmean_axis="data", **cfg_kw)
+
+
+def rainbow_loop(cfg_kw, ep_kw, num_envs, seed, chunks):
+    """``spmd_rainbow_chunk`` for each length in ``chunks``: the global
+    env-step count after each, then the learner, noise and counters."""
+    mesh = M.make_mesh()
+    cfg, ep = _rb_cfg(cfg_kw), EnvParams(**ep_kw)
+    carry = spmd.spmd_rainbow_init(seed, cfg, ep, num_envs, mesh, device=CPU)
+    noise0 = to_numpy(carry.noise)
+    steps = []
+    for T in chunks:
+        carry = spmd.spmd_rainbow_chunk(mesh, cfg, ep, carry, T)
+        steps.append(int(carry.metrics.env_steps))
+    replay = carry.replay.base if cfg.per else carry.replay
+    return {"env_steps": steps, "seed": carry.seed,
+            "learner": to_numpy({"params": carry.params,
+                                 "target": carry.target_params,
+                                 "opt": carry.opt_state,
+                                 "sync_chunks": carry.sync_chunks,
+                                 "loss": carry.last_loss}),
+            "noise": to_numpy(carry.noise), "noise0": noise0,
+            "metrics": to_numpy(carry.metrics),
+            "max_priority": (float(carry.replay.max_priority) if cfg.per
+                             else None),
+            "cursor": int(replay.cursor), "obs": carry.obs.numpy()}
+
+
+def drqn_loop(cfg_kw, ep_kw, num_envs, seed, chunks):
+    mesh = M.make_mesh()
+    cfg, ep = _dr_cfg(cfg_kw), EnvParams(**ep_kw)
+    carry = spmd.spmd_drqn_init(seed, cfg, ep, num_envs, mesh, device=CPU)
+    steps = []
+    for T in chunks:
+        carry = spmd.spmd_drqn_chunk(mesh, cfg, ep, carry, T)
+        steps.append(int(carry.metrics.env_steps))
+    return {"env_steps": steps,
+            "learner": to_numpy({"params": carry.params,
+                                 "target": carry.target_params,
+                                 "opt": carry.opt_state,
+                                 "count": carry.learn_counter,
+                                 "loss": carry.last_loss}),
+            "metrics": to_numpy(carry.metrics),
+            "capacity": rp.replay_capacity(carry.replay),
+            "cursor": int(carry.replay.cursor), "obs": carry.obs.numpy()}
+
+
+def _prefilled(replay, fill):
+    """``replay`` with its cursor at ``fill`` (as if that many zero items
+    had been stored)."""
+    base = replay.base if hasattr(replay, "base") else replay
+    base = dataclasses.replace(base, cursor=torch.tensor(fill))
+    if hasattr(replay, "base"):
+        return dataclasses.replace(replay, base=base)
+    return base
+
+
+def rainbow_gate(cfg_kw, num_envs, fills, steps):
+    """Rank ``r``'s ring starts at ``fills[r]`` items; after each of
+    ``steps`` steps, this rank's Adam count and fill, and what a
+    single-device step from the same carry would count."""
+    mesh = M.make_mesh()
+    r = M.axis_index(mesh, "data")
+    cfg, ep = _rb_cfg(cfg_kw), EnvParams()
+    carry = spmd.spmd_rainbow_init(0, cfg, ep, num_envs, mesh, device=CPU)
+    carry = dataclasses.replace(carry,
+                                replay=_prefilled(carry.replay, fills[r]))
+    out = []
+    for _ in range(steps):
+        alone = RB.rainbow_train_step(cfg.replace(pmean_axis=None), ep,
+                                      _fork(carry))
+        carry = spmd.spmd_rainbow_chunk(mesh, cfg, ep, carry, 1)
+        out.append((int(carry.opt_state.count),
+                    int(alone.opt_state.count),
+                    int((carry.replay.base if cfg.per
+                         else carry.replay).cursor)))
+    return out
+
+
+def drqn_gate(cfg_kw, num_envs, fills, steps):
+    mesh = M.make_mesh()
+    r = M.axis_index(mesh, "data")
+    cfg, ep = _dr_cfg(cfg_kw), EnvParams()
+    carry = spmd.spmd_drqn_init(0, cfg, ep, num_envs, mesh, device=CPU)
+    carry = dataclasses.replace(carry,
+                                replay=_prefilled(carry.replay, fills[r]))
+    out = []
+    for _ in range(steps):
+        alone = DR.drqn_train_step(cfg.replace(pmean_axis=None), ep,
+                                   _fork(carry))
+        carry = spmd.spmd_drqn_chunk(mesh, cfg, ep, carry, 1)
+        out.append((int(carry.learn_counter), int(alone.learn_counter),
+                    int(carry.replay.cursor)))
+    return out
+
+
+def _fork(carry):
+    """``carry`` with a copy of its generator (the copy advances alone)."""
+    g = torch.Generator()
+    g.set_state(carry.generator.get_state())
+    return dataclasses.replace(carry, generator=g)
+
+
+def rainbow_learn(params, target, noise, target_noise, items, cfg_kw):
+    """One ``agents.rainbow._learn`` over the data group from ``params``
+    / ``target`` and fresh moments, on this rank's noise (``noise[r]``)
+    and a uniform draw from a ring holding ``items[r]``: the batch drawn,
+    the new params and moments and the loss."""
+    mesh = M.make_mesh()
+    r = M.axis_index(mesh, "data")
+    cfg = _rb_cfg(cfg_kw)
+    mine = {k: torch.tensor(v) for k, v in items[r].items()}
+    n = len(mine["obs"])
+    carry = RB.rainbow_train_init(r, cfg.replace(memory_capacity=n),
+                                  EnvParams(), 8, device=CPU)
+    carry = dataclasses.replace(
+        carry, params=rainbow_params_from_numpy(params, CPU),
+        target_params=rainbow_params_from_numpy(target, CPU),
+        noise=rainbow_params_from_numpy(noise[r], CPU),
+        target_noise=rainbow_params_from_numpy(target_noise[r], CPU))
+    replay = rp.add_batch(carry.replay, mine)
+    batch, _ = rp.sample_valid(replay, _fork(carry).generator,
+                               cfg.batch_size)
+    p, opt, _, loss = RB._learn(carry, replay, cfg, mesh.get_group("data"))
+    return to_numpy({"batch": batch, "params": p, "mu": opt.mu,
+                     "loss": loss})
+
+
+def drqn_learn(params, target, batches, cfg_kw):
+    """One ``agents.drqn._learn`` over the data group on ``batches[r]``
+    from ``params`` / ``target`` at learn count 1 (no target sync) and
+    fresh moments."""
+    mesh = M.make_mesh()
+    r = M.axis_index(mesh, "data")
+    cfg = _dr_cfg(cfg_kw)
+    carry = DR.drqn_train_init(0, cfg.replace(memory_capacity=8),
+                               EnvParams(), 8, device=CPU)
+    carry = dataclasses.replace(
+        carry, params=drqn_params_from_numpy(params, CPU),
+        target_params=drqn_params_from_numpy(target, CPU),
+        learn_counter=torch.ones((), dtype=torch.int32))
+    batch = {k: torch.tensor(v) for k, v in batches[r].items()}
+    p, _, opt, loss = DR._learn(carry, batch, cfg, mesh.get_group("data"))
+    return to_numpy({"params": p, "mu": opt.mu, "loss": loss})
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9 under local SGD
+# ---------------------------------------------------------------------------
+
+def fused_rainbow(jax_carry, cfg_kw, ep_kw, T, seed, greedy, rounds, cols,
+                  us):
+    """A JAX ``spmd_fused_rainbow_init`` carry (numpy) -> this rank's
+    carry -> one ``spmd_fused_rainbow_chunk`` with this rank's streams."""
+    mesh = M.make_mesh()
+    r, w = M.axis_index(mesh, "data"), M.axis_size(mesh, "data")
+    carry = spmd.rainbow_fused_carry_from_numpy(jax_carry, r, w, device=CPU)
+    carry = spmd.spmd_fused_rainbow_chunk(
+        mesh, RB.RainbowConfig(**cfg_kw), EnvParams(**ep_kw), carry, T,
+        seed, greedy=greedy, rounds=rounds[r], cols=cols[r], us=us[r])
+    return to_numpy(carry)
+
+
+def fused_drqn(jax_carry, cfg_kw, ep_kw, T, seed, greedy, rounds, cols):
+    mesh = M.make_mesh()
+    r, w = M.axis_index(mesh, "data"), M.axis_size(mesh, "data")
+    carry = spmd.drqn_fused_carry_from_numpy(jax_carry, r, w, device=CPU)
+    carry = spmd.spmd_fused_drqn_chunk(
+        mesh, DR.DRQNConfig(**cfg_kw), EnvParams(**ep_kw), carry, T, seed,
+        greedy=greedy, rounds=rounds[r], cols=cols[r])
+    return to_numpy(carry)
+
+
+def fused_rb_fresh(family, cfg_kw, ep_kw, num_envs, chunks):
+    """``spmd_fused_{rainbow,drqn}_init`` from seed 0, then a chunk per
+    ``(seed, steps)`` in ``chunks`` in random mode."""
+    mesh = M.make_mesh()
+    ep = EnvParams(**ep_kw)
+    if family == "rainbow":
+        cfg = RB.RainbowConfig(**cfg_kw)
+        init, chunk = spmd.spmd_fused_rainbow_init, \
+            spmd.spmd_fused_rainbow_chunk
+    else:
+        cfg = DR.DRQNConfig(**cfg_kw)
+        init, chunk = spmd.spmd_fused_drqn_init, spmd.spmd_fused_drqn_chunk
+    carry = init(0, cfg, ep, num_envs, mesh, device=CPU)
+    for seed, T in chunks:
+        carry = chunk(mesh, cfg, ep, carry, T, seed)
+    return to_numpy(carry)
+
+
+def refusals_rb(num_envs):
+    """The messages of the Rainbow and DRQN refusals of a two-rank
+    world."""
+    mesh = M.make_mesh()
+    ep = EnvParams()
+    cases = {
+        "fused_rainbow_capacity": lambda: spmd.spmd_fused_rainbow_init(
+            0, RB.RainbowConfig(memory_capacity=2 * num_envs + 1), ep,
+            num_envs, mesh, device=CPU),
+        "fused_rainbow_envs": lambda: spmd.spmd_fused_rainbow_init(
+            0, RB.RainbowConfig(memory_capacity=2 * num_envs), ep,
+            num_envs + 1, mesh, device=CPU),
+        "fused_drqn_capacity": lambda: spmd.spmd_fused_drqn_init(
+            0, DR.DRQNConfig(memory_capacity=2 * num_envs + 1), ep,
+            num_envs, mesh, device=CPU),
+        "rainbow_axis": lambda: spmd.spmd_rainbow_init(
+            0, RB.RainbowConfig(), ep, 8, mesh, device=CPU),
+        "rainbow_envs": lambda: spmd.spmd_rainbow_init(
+            0, _rb_cfg({}), ep, 7, mesh, device=CPU),
+        "drqn_axis": lambda: spmd.spmd_drqn_init(
+            0, DR.DRQNConfig(), ep, 8, mesh, device=CPU),
+        "drqn_envs": lambda: spmd.spmd_drqn_init(
+            0, _dr_cfg({}), ep, 7, mesh, device=CPU),
+        "drqn_ring": lambda: spmd.spmd_drqn_init(
+            0, _dr_cfg({"memory_capacity": 3}), ep, 8, mesh, device=CPU),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def checkpoint_resume_rb(directory, T):
+    """Runs A, B and C (see :func:`checkpoint_resume`) of K8 (PER 3-step)
+    and K9 under local SGD and of the Rainbow and DRQN step loops."""
+    mesh = M.make_mesh()
+    ep = EnvParams(random_start=True)
+    k8 = RB.RainbowConfig(memory_capacity=2 * 4 * 128, per=True, n_step=3,
+                          batch_size=16, obs_scale=0.01,
+                          opponent=D.OPP_SELFPLAY)
+    k9 = DR.DRQNConfig(memory_capacity=2 * 2 * 128, seq_len=3, burn_in=1,
+                       opponent=D.OPP_SELFPLAY)
+    lrb = _rb_cfg(dict(memory_capacity=32, batch_size=4))
+    ldr = _dr_cfg(dict(memory_capacity=8, batch_size=2, seq_len=2))
+    runs = {
+        "k8": (lambda: spmd.spmd_fused_rainbow_init(3, k8, ep, 256, mesh,
+                                                    device=CPU),
+               lambda c, k: spmd.spmd_fused_rainbow_chunk(mesh, k8, ep, c,
+                                                          T, seed=k)),
+        "k9": (lambda: spmd.spmd_fused_drqn_init(3, k9, ep, 256, mesh,
+                                                 device=CPU),
+               lambda c, k: spmd.spmd_fused_drqn_chunk(mesh, k9, ep, c, T,
+                                                       seed=k)),
+        "rainbow_loop": (lambda: spmd.spmd_rainbow_init(3, lrb, ep, 8, mesh,
+                                                        device=CPU),
+                         lambda c, k: spmd.spmd_rainbow_chunk(mesh, lrb, ep,
+                                                              c, T)),
+        "drqn_loop": (lambda: spmd.spmd_drqn_init(3, ldr, ep, 8, mesh,
+                                                  device=CPU),
+                      lambda c, k: spmd.spmd_drqn_chunk(mesh, ldr, ep, c,
+                                                        T)),
+    }
+    out = {}
+    for name, (init, chunk) in runs.items():
+        mgr = CheckpointManager(os.path.join(directory, name))
+        a = init()
+        for k in (1, 2):
+            a = chunk(a, k)
+            assert mgr.save(k, a)
+        b = chunk(mgr.restore(init(), step=1), 2)
+        c = chunk(chunk(init(), 1), 2)
+        out[name] = {"b": to_numpy(b), "c": to_numpy(c),
+                     "steps": mgr.all_steps()}
     return out

@@ -58,7 +58,25 @@ Phases, each of which raises (non-zero exit) on failure:
      replicated tensors agree and whose gradients equal the single-device
      ones at rtol 1e-5 (``spmd_world_of_two``); then the port's dryrun
      (``python -m merging_gym_tpu_torch.parallel.dryrun``) at two
-     processes on the card (``dryrun_on_card``);
+     processes on the card (``dryrun_on_card``).  M16 (the ``m16`` line):
+     ``play``'s learned opponents (model_zoo/L2 as a reference DQN run
+     directory, HD_L1 as an h-DQN one, RB_L0 as a Rainbow ``eval.pth``,
+     loaded on the card by ``ui.human.load_opponent``) through two full
+     oracle episodes each, every K3 output of them (B = 1; 10->5, 10->3,
+     11->5) bit for bit against the plain version, the median host time of
+     a synchronised ``act`` (``play_opponents``); ``NativeMergeEnv`` at
+     1,024 envs against a Phi-greedy L2 on the card (K3 at B 1,024) for
+     500 steps, and the native core against the oracle bit for bit on one
+     episode (``native_with_card_opponent``); ``mpc_1d_qp`` / ``eq_qp`` in
+     f64 on the card (``control_on_card``); ``dump_batch_trajectories`` of
+     a rollout on the card (``dump_on_card``); ``utils.debug.checked`` on
+     CUDA tensors and a ``utils.profiling.trace`` naming K3's kernel
+     (``utilities_on_card``, run after the path's counts are read: its
+     launches stand under ``utils`` and not in K3's count); headless
+     ``run_session``, ``GymnasiumMergeEnv`` and ``NativeVectorEnv`` with
+     card opponents where pygame and gymnasium are installed
+     (``ui_layers``); then K3 at
+     B = 1 beside its bound and the ``addmm`` chain (``k3_b1_times``);
   4. greedy ``evaluate`` (K3) must equal greedy ``evaluate_fused`` (K6);
   5. time every kernel with CUDA events beside its plain version (K1 and
      K2 in both action sources and K2's 65,536-step launch:
@@ -3094,6 +3112,413 @@ def check_k1_k2(checks, torch, np, FR, EnvParams, dev):
     print(f"K1/K2: {2 * len(K1_K2_CASES)} cases bit-equal", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The m16 phase: play's opponents on K3, the native env with a card
+# opponent, the control QP, the trajectory dump, the utilities, and the
+# pygame / gymnasium layers where they are installed
+# ---------------------------------------------------------------------------
+
+M16_EPISODES = 2       # oracle episodes per learned opponent
+M16_NATIVE_ENVS = 1024
+M16_NATIVE_STEPS = 500
+M16_DUMP_ENVS = 256
+M16_DUMP_STEPS = 600
+M16_SESSION_STEPS = 200
+M16_VECTOR_STEPS = 200
+QP_ATOL = 1e-9         # tests/test_control.py's tolerances
+KKT_ATOL = 1e-8
+ZOO_HD = os.path.join(REPO, "model_zoo", "HD_L1", "params.npz")
+ZOO_RB_L0 = os.path.join(REPO, "model_zoo", "RB_L0", "params.npz")
+
+
+def rainbow_state_dict(torch, np, params):
+    """Rainbow params (``[in, out]`` weights) -> a ``RainbowDQN`` state
+    dict (``nn.Linear`` weights ``[out, in]``, the noisy layers' mu and
+    sigma): the inverse of ``io.torch_import.rainbow_from_state_dict``."""
+    sd = {}
+    for name, p in params.items():
+        p = {k: torch.tensor(np.asarray(v)) for k, v in p.items()}
+        if "w" in p:
+            sd[f"{name}.weight"] = p["w"].T.contiguous()
+            sd[f"{name}.bias"] = p["b"]
+            continue
+        sd[f"{name}.weight_mu"] = p["w_mu"].T.contiguous()
+        sd[f"{name}.weight_sigma"] = p["w_sigma"].T.contiguous()
+        sd[f"{name}.bias_mu"] = p["b_mu"]
+        sd[f"{name}.bias_sigma"] = p["b_sigma"]
+    return sd
+
+
+def play_run_dirs(torch, np, tmp, load_params_npz, qnet_to_state_dict):
+    """model_zoo/L2 as a reference DQN run directory, HD_L1 as an h-DQN
+    one (eval, target, meta_eval, meta_target) and RB_L0 as a Rainbow
+    ``eval.pth``."""
+    dirs = {m: os.path.join(tmp, f"play_{m}") for m in ("dqn", "hdqn",
+                                                         "rainbow")}
+    for d in dirs.values():
+        os.makedirs(d)
+    l2 = qnet_to_state_dict(load_params_npz(ZOO_L2))
+    for f in ("eval.pth", "target.pth"):
+        torch.save(l2, os.path.join(dirs["dqn"], f))
+    hd = load_params_npz(ZOO_HD)
+    for f, net in (("eval.pth", "lower"), ("target.pth", "lower"),
+                   ("meta_eval.pth", "upper"), ("meta_target.pth", "upper")):
+        torch.save(qnet_to_state_dict(hd[net]), os.path.join(dirs["hdqn"], f))
+    torch.save(rainbow_state_dict(torch, np, load_params_npz(ZOO_RB_L0)),
+               os.path.join(dirs["rainbow"], "eval.pth"))
+    return dirs
+
+
+def play_opponents(torch, kernels, human, OracleMergeEnv, dirs, dev):
+    """``M16_EPISODES`` full oracle episodes against each learned opponent
+    (loaded on the card from its run directory), the ego holding action 2
+    as a session with no key pressed does.  Returns the opponents, their
+    numbers (steps, K3 launches, median host ms of one synchronised
+    ``act``) and every K3 call as ``(params, x, q)``."""
+    calls = []
+    real = human.qnet_apply
+
+    def recording(params, x, compute_dtype="float32"):
+        q = real(params, x, compute_dtype)
+        calls.append((params, x, q))
+        return q
+    human.qnet_apply = recording
+    opponents, out = {}, {}
+    try:
+        for mode in ("dqn", "hdqn", "rainbow"):
+            opp = human.load_opponent(mode, dirs[mode], dev)
+            if opp.device.type != "cuda":
+                raise AssertionError(f"the {mode} opponent is on "
+                                     f"{opp.device}")
+            opponents[mode] = opp
+            env = OracleMergeEnv()
+            act_ms, steps, winners = [], 0, []
+
+            def episodes():
+                nonlocal steps
+                for _ in range(M16_EPISODES):
+                    state = env.reset()
+                    opp.reset()
+                    done = False
+                    while not done:
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        a2 = opp.act(state[5:] + state[:5])
+                        act_ms.append((time.perf_counter() - t) * 1e3)
+                        state, _, done, _ = env.step(2, a2)
+                        steps += 1
+                    winners.append(env.winner)
+            _, launches = counted(kernels, episodes)
+            out[mode] = {"steps": steps, "winners": winners,
+                         "k3_launches": launches["qnet_mlp"],
+                         "act_ms_median": statistics.median(act_ms)}
+    finally:
+        human.qnet_apply = real
+    return opponents, out, calls
+
+
+def native_with_card_opponent(torch, np, native, OracleMergeEnv, P,
+                              qnet_apply, params, dev):
+    """The native core against the port's oracle on one env's episode (bit
+    for bit), then ``M16_NATIVE_ENVS`` native envs against a Phi-greedy
+    card opponent (K3 at ``M16_NATIVE_ENVS`` rows a step) for
+    ``M16_NATIVE_STEPS`` steps, finished envs reset in place."""
+    rng = np.random.default_rng(0)
+    env, oracle = native.NativeMergeEnv(1), OracleMergeEnv()
+    steps = 0
+    while True:
+        a1, a2 = int(rng.integers(0, 5)), int(rng.integers(-1, 5))
+        obs_o, r_o, done_o, info_o = oracle.step(a1, None if a2 < 0 else a2)
+        obs_n, r_n, done_n, col_n, _ = env.step([a1], [a2])
+        steps += 1
+        if (not np.array_equal(obs_n[0], np.asarray(obs_o))
+                or not np.array_equal(r_n[0], np.asarray(r_o))
+                or bool(done_n[0]) != done_o
+                or bool(col_n[0]) != info_o["collision"]):
+            raise AssertionError(f"native core != oracle at step {steps}")
+        if done_o:
+            break
+    n, T = M16_NATIVE_ENVS, M16_NATIVE_STEPS
+    venv = native.NativeMergeEnv(n)
+    pol = P.q_policy(qnet_apply, params, greedy=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a1 = rng.integers(0, 5, (T, n)).astype(np.int32)
+    obs = venv.observe()
+    episodes = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(T):
+        swapped = torch.as_tensor(np.concatenate([obs[:, 5:], obs[:, :5]], 1),
+                                  dtype=torch.float32, device=dev)
+        a2 = pol.act(pol.params, swapped, gen).cpu().numpy()
+        obs, _, done, _, _ = venv.step(a1[t], a2)
+        if done.any():
+            episodes += int(done.sum())
+            venv.reset_envs(done)
+            obs = venv.observe()
+    wall = time.perf_counter() - t0
+    if episodes < n:
+        raise AssertionError(f"{episodes} native episodes in {T} steps")
+    return {"oracle_episode_steps": steps, "envs": n, "steps": T,
+            "episodes": episodes, "s": wall, "env_steps_per_s": n * T / wall}
+
+
+def control_on_card(torch, np, control, C, dev):
+    """``mpc_1d_qp`` and ``eq_qp`` in f64 on the card against the analytic
+    law (atol 1e-9) and a numpy KKT solve (atol 1e-8)."""
+    worst = 0.0
+    for v0 in (0.0, 7.3, 20.0, 39.9, 55.0):
+        for vt in C.TARGET_VELS:
+            u = control.mpc_1d_qp(v0, vt, device=dev)
+            if u.device.type != "cuda" or u.dtype != torch.float64:
+                raise AssertionError(f"mpc_1d_qp on {u.device} {u.dtype}")
+            worst = max(worst, float((u - (vt - v0) / C.PREDICTION_T).abs()
+                                     .max()))
+    if worst > QP_ATOL:
+        raise AssertionError(f"mpc_1d_qp off the analytic law by {worst}")
+    rng = np.random.default_rng(0)
+    n, m = 12, 3
+    a = rng.standard_normal((n, n))
+    P_ = a @ a.T + np.eye(n)
+    q, A, b = (rng.standard_normal(s) for s in (n, (m, n), m))
+    want = np.linalg.solve(np.block([[P_, A.T], [A, np.zeros((m, m))]]),
+                           np.concatenate([-q, b]))[:n]
+    got = control.eq_qp(*(torch.tensor(v, device=dev) for v in (P_, q, A, b)))
+    kkt_err = float(np.abs(got.cpu().numpy() - want).max())
+    if kkt_err > KKT_ATOL:
+        raise AssertionError(f"eq_qp off numpy's solve by {kkt_err}")
+    return {"mpc_max_abs_err": worst, "eq_qp_max_abs_err": kkt_err}
+
+
+def dump_on_card(torch, trajectory, P, EnvParams, reset_batch, rollout, tmp,
+                 dev):
+    """``dump_batch_trajectories`` of a ``core.vector.rollout`` on the card
+    (``M16_DUMP_ENVS`` x ``M16_DUMP_STEPS``, const 4 against L0): one file
+    per done, 14 columns in every row."""
+    import csv
+    ep = EnvParams()
+    fn, ps = P.two_player(P.constant_policy(4), P.l0_policy())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, traj = rollout(ep, reset_batch(ep, gen, M16_DUMP_ENVS, device=dev),
+                      fn, ps, gen, M16_DUMP_STEPS)
+    if traj.obs.device.type != "cuda":
+        raise AssertionError(f"rollout on {traj.obs.device}")
+    t = time.perf_counter()
+    paths = trajectory.dump_batch_trajectories(
+        trajectory.make_log_dir(os.path.join(tmp, "dump")), traj)
+    dump_s = time.perf_counter() - t
+    done = int(traj.done.sum())
+    rows = 0
+    for path in paths:
+        with open(path, newline="") as f:
+            for row in csv.reader(f):
+                if len(row) != 14:
+                    raise AssertionError(f"{path}: a row of {len(row)}")
+                rows += 1
+    if len(paths) != done or done == 0:
+        raise AssertionError(f"{len(paths)} files for {done} dones")
+    return {"files": len(paths), "dones": done, "rows": rows,
+            "dump_s": dump_s}
+
+
+def utilities_on_card(torch, debug, profiling, FM, params, tmp, dev):
+    """``utils.debug.checked`` catches a NaN and an out-of-range action in
+    CUDA tensors (read back once, in ``get``); ``utils.profiling.trace``
+    around one K3 launch writes a trace whose events name K3's kernel;
+    ``time_fn`` and ``ThroughputTimer`` on CUDA tensors."""
+    def f(x, a):
+        debug.assert_finite({"x": x}, "input")
+        debug.validate_actions(a)
+        return x * 2
+    fn = debug.checked(f)
+    ok_x = torch.ones(4, device=dev)
+    ok_a = torch.tensor([-1, 0, 4, 2], dtype=torch.int32, device=dev)
+    cases = {None: (ok_x, ok_a),
+             "non-finite value in input['x']": (
+                 torch.tensor([1.0, float("nan")], device=dev), ok_a),
+             "action out of range [-1, NUM_ACTIONS)": (
+                 ok_x, torch.tensor([0, 5], dtype=torch.int32, device=dev))}
+    for want, args in cases.items():
+        err, _ = fn(*args)
+        if err.get() != want:
+            raise AssertionError(f"checked: {err.get()!r} != {want!r}")
+    try:
+        err.throw()
+        raise AssertionError("err.throw() did not raise")
+    except debug.CheckError:
+        pass
+    x = torch.randn(1, 10, device=dev)
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir) as prof:
+        FM.qnet_apply_fused(params, x)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, name)) as f:
+        text = f.read()
+    if "qnet_kernel" not in text:
+        raise AssertionError(f"the trace {name} names no qnet_kernel")
+    k3_events = [e.key for e in prof.key_averages() if "qnet_kernel" in e.key]
+    mean_s, q = profiling.time_fn(FM.qnet_apply_fused, params, x, iters=20)
+    timer = profiling.ThroughputTimer()
+    timer.start()
+    q = FM.qnet_apply_fused(params, x)
+    timer.stop(1, q)
+    return {"trace_file": name, "trace_bytes": len(text),
+            "k3_profiler_keys": k3_events, "time_fn_k3_b1_ms": mean_s * 1e3,
+            "timer_calls_per_s": timer.per_second}
+
+
+def ui_layers(torch, human, P, qnet_apply, params, opponents, tmp, dev):
+    """Where pygame and gymnasium are installed (``find_spec``): a headless
+    ``run_session`` (``time_scale`` 0, ``M16_SESSION_STEPS`` steps, 2
+    episodes) against each learned opponent, and ``GymnasiumMergeEnv`` and
+    ``NativeVectorEnv`` with card opponents.  Returns what ran."""
+    import importlib.util
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("pygame", "gymnasium")}
+    ran = {}
+    if not all(have.values()):
+        return {"installed": have, "ran": ran}
+    import numpy as np
+    os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
+    from merging_gym_tpu_torch.envs.gym_env import GymnasiumMergeEnv
+    from merging_gym_tpu_torch.envs.vector_env import NativeVectorEnv
+    for mode, opp in opponents.items():
+        t = time.perf_counter()
+        res = human.run_session(opp, episodes=2,
+                                log_root=os.path.join(tmp, "log"),
+                                max_steps=M16_SESSION_STEPS, time_scale=0.0)
+        ran[f"run_session {mode}"] = {
+            "s": time.perf_counter() - t,
+            "files": len(os.listdir(res["log_dir"]))}
+    dqn = opponents["dqn"]
+    env = GymnasiumMergeEnv(opponent=lambda obs, rng: dqn.act(obs))
+    env.reset(seed=0)
+    for steps in range(1, 3001):
+        _, _, term, trunc, _ = env.step(2)
+        if term or trunc:
+            break
+    ran["GymnasiumMergeEnv dqn"] = {"steps": steps}
+    pol = P.q_policy(qnet_apply, params, greedy=False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    venv = NativeVectorEnv(M16_NATIVE_ENVS, opponent=lambda obs, rng: pol.act(
+        pol.params, torch.as_tensor(obs, dtype=torch.float32, device=dev),
+        gen).cpu().numpy())
+    venv.reset(seed=0)
+    ends = 0
+    for _ in range(M16_VECTOR_STEPS):
+        _, _, term, trunc, _ = venv.step(np.full(M16_NATIVE_ENVS, 3,
+                                                 np.int32))
+        ends += int((term | trunc).sum())
+    ran["NativeVectorEnv q_policy"] = {"envs": M16_NATIVE_ENVS,
+                                       "steps": M16_VECTOR_STEPS,
+                                       "episodes": ends}
+    return {"installed": have, "ran": ran}
+
+
+def k3_b1_times(torch, FM, nets, dev, rng):
+    """K3 at B = 1 (``play``'s shape) for each net of the play path, f32:
+    CUDA-event median of one launch (``cuda_ms``) and its device time
+    (``graph_ms``), the ``addmm`` + ReLU chain's (``library_ms``), the
+    plain version's, and the bound (x, the weights and q once)."""
+    out = {}
+    for label, p in nets:
+        w = FM.cast_weights(p, torch.float32, dev)
+        dims = (w[0].shape[0], w[0].shape[1], w[2].shape[1], w[4].shape[1])
+        x = torch.as_tensor(rng.standard_normal((1, dims[0])) * 100,
+                            dtype=torch.float32, device=dev)
+        q = torch.empty(1, dims[3], device=dev)
+
+        def library():
+            h = torch.relu(torch.addmm(w[1], x, w[0]))
+            h = torch.relu(torch.addmm(w[3], h, w[2]))
+            return torch.addmm(w[5], h, w[4])
+        b_ms, b_by = bound((dims[0] + dims[3]) * 4
+                           + sum(t.numel() * 4 for t in w), mlp_flops(*dims))
+        out[label] = {
+            "ms": cuda_ms(torch, lambda: FM.launch_mlp(w, x, q), 50),
+            "device_ms": graph_ms(torch, lambda: FM.launch_mlp(w, x, q)),
+            "library_ms": cuda_ms(torch, library, 50),
+            "library_device_ms": graph_ms(torch, library),
+            "plain_ms": cuda_ms(torch, lambda: FM.qnet_apply_plain(p, x), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "geometry": FM.qnet_geometry(1, dims, 4,
+                                         FM.sm_count(dev))._asdict()}
+    return out
+
+
+def m16_path(torch, np, kernels, checks, p_l2, rng, dev):
+    """The m16 phase, with every launch count set to 0 just before its
+    main path and read just after: ``play``'s learned opponents, the
+    native env with a card opponent, the control QP, the trajectory dump
+    and the UI layers; then the utilities, whose K3 launches time the
+    kernel and are reported under their own key (``m16`` line); then
+    every K3 output of the opponents' episodes against the plain version
+    (into ``checks``) and K3 at B = 1 timed.  Returns ``(line, launches)``."""
+    from merging_gym_tpu_torch.agents import policies as P
+    from merging_gym_tpu_torch.core import constants as C
+    from merging_gym_tpu_torch.core import control, native
+    from merging_gym_tpu_torch.core.env import EnvParams
+    from merging_gym_tpu_torch.core.oracle import OracleMergeEnv
+    from merging_gym_tpu_torch.core.vector import reset_batch, rollout
+    from merging_gym_tpu_torch.io import trajectory
+    from merging_gym_tpu_torch.io.checkpoint import load_params_npz
+    from merging_gym_tpu_torch.io.torch_import import qnet_to_state_dict
+    from merging_gym_tpu_torch.nn.mlp import (qnet_apply,
+                                              qnet_params_from_numpy)
+    from merging_gym_tpu_torch.ops import fused_mlp as FM
+    from merging_gym_tpu_torch.ui import human
+    from merging_gym_tpu_torch.utils import debug, profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        dirs = play_run_dirs(torch, np, tmp, load_params_npz,
+                             qnet_to_state_dict)
+        opponents, played, k3_calls = play_opponents(
+            torch, kernels, human, OracleMergeEnv, dirs, dev)
+        m16 = {"opponents": played}
+        m16["native"] = native_with_card_opponent(
+            torch, np, native, OracleMergeEnv, P, qnet_apply, p_l2, dev)
+        m16["control"] = control_on_card(torch, np, control, C, dev)
+        m16["dump"] = dump_on_card(torch, trajectory, P, EnvParams,
+                                   reset_batch, rollout, tmp, dev)
+        m16["ui_layers"] = ui_layers(torch, human, P, qnet_apply, p_l2,
+                                     opponents, tmp, dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        # The utilities time K3 (trace, time_fn, ThroughputTimer): their
+        # launches are reported apart, not as the path's.
+        m16["utils"], util_launches = counted(kernels, lambda: (
+            utilities_on_card(torch, debug, profiling, FM, p_l2, tmp, dev)))
+        m16["utils"]["launches"] = {k: v for k, v in util_launches.items()
+                                    if v}
+        m16["s"] = time.perf_counter() - t
+    if launches["qnet_mlp"] == 0:
+        raise AssertionError("m16 path launched no qnet_mlp")
+    # Every K3 output of the opponents' episodes against the plain version.
+    shapes, worst = set(), 0.0
+    for p, x, q in k3_calls:
+        if x.dim() != 1:
+            raise AssertionError(f"play called K3 on {tuple(x.shape)}")
+        want = FM.qnet_apply_plain(p, x)
+        checks.equal("K3", f"play B=1 {x.shape[0]}->{q.shape[0]}", q, want)
+        worst = max(worst, float((q - want).abs().max()))
+        shapes.add(f"{x.shape[0]}->{q.shape[0]}")
+    if shapes != {"10->5", "10->3", "11->5"}:
+        raise AssertionError(f"play's K3 shapes {shapes}")
+    m16["k3_outputs_checked"] = len(k3_calls)
+    m16["k3_max_abs_err"] = worst
+    hd = load_params_npz(ZOO_HD)
+    m16["k3_b1"] = k3_b1_times(torch, FM, [
+        ("10->5 L2", p_l2),
+        ("10->3 HD_L1 meta", qnet_params_from_numpy(hd["upper"], dev)),
+        ("11->5 HD_L1 lower", qnet_params_from_numpy(hd["lower"], dev))],
+        dev, rng)
+    m16["launches"] = {k: v for k, v in launches.items() if v}
+    return m16, launches
+
+
 def main():
     import torch
 
@@ -3322,9 +3747,18 @@ def main():
                if spmd_launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"spmd path launched no {missing}")
+    # The m16 path: play's learned opponents (K3 at B = 1), the native env
+    # against a card opponent (K3 at B = 1,024), the control QP, the
+    # trajectory dump and the utilities on the card, and the pygame and
+    # gymnasium layers where they are installed.
+    m16, m16_launches = m16_path(torch, np, kernels, checks, p_l2, rng, dev)
+    phase_s["m16"] = m16["s"]
+    print(json.dumps({"card": card, "m16": m16}), flush=True)
+
     launches = {k: bench_launches[k] + eval_launches[k] + train_launches[k]
                 + hdqn_launches[k] + rb_launches[k] + drqn_launches[k]
                 + resume_launches[k] + spmd_launches.get(k, 0)
+                + m16_launches[k]
                 for k in kernels.launch_counts}
     launches["dqn_trainer"] = sum(launches[k] for k in K5_COUNTS)
     launches["hdqn_trainer"] = sum(launches[k] for k in K7_COUNTS)
@@ -3706,7 +4140,8 @@ def main():
                              "Rainbow training": rb_launches,
                              "DRQN training": drqn_launches,
                              "resume": resume_launches,
-                             "spmd": spmd_launches},
+                             "spmd": spmd_launches,
+                             "m16": m16_launches},
         "k2_long_launch": {"steps": T_COUNTERS_LONG, "envs": N_ENVS,
                            "ms": k1k2["k2_long_ms"],
                            "bound_ms": k1k2["bounds"]["k2_long"][0],

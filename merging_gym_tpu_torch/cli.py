@@ -8,6 +8,9 @@
   python -m merging_gym_tpu_torch.cli [--cpu] eval --p1 SPEC --p2 SPEC \\
       [--fused] [--num-envs N] [--episodes E] [--seed S] [env flags]
   python -m merging_gym_tpu_torch.cli bench
+  python -m merging_gym_tpu_torch.cli [--cpu] play \\
+      [--op-model l0|dqn|hdqn|rainbow|pvp] [--load-path RUN_DIR] \\
+      [--episodes N] [--log-root DIR]
 
 SPEC is ``random``, ``l0``, ``const:<a>``, a Q-net ``params.npz`` (the
 JAX package's format, e.g. ``model_zoo/L2/params.npz``) or a reference run
@@ -41,6 +44,12 @@ default, saves none), ``--resume DIR`` restores the newest step of
 step loops' ``curves.png`` every N chunks (it is drawn at the end too).
 A frozen Q-net or h-DQN opponent may be a reference ``.pth`` run
 directory (``io.torch_import``).
+``play`` runs the human experiment session (``ui.human``, pygame; headless
+under ``SDL_VIDEODRIVER=dummy``) against a constant-velocity (``l0``),
+human (``pvp``) or learned opponent loaded from a reference ``.pth`` run
+directory (``--load-path``), whose Q-net forwards run on the card (K3),
+writes one trajectory CSV per episode under ``--log-root`` and prints the
+session's JSON.
 """
 
 from __future__ import annotations
@@ -596,6 +605,18 @@ def cmd_bench(args) -> dict:
     return bench.main()
 
 
+def cmd_play(args) -> dict:
+    from merging_gym_tpu_torch.device import resolve_device
+    from merging_gym_tpu_torch.ui.human import load_opponent, run_session
+
+    device = resolve_device("cpu" if args.cpu else None)
+    opponent = load_opponent(args.op_model, args.load_path, device)
+    result = run_session(opponent, episodes=args.episodes,
+                         log_root=args.log_root)
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="merging_gym_tpu_torch")
     p.add_argument("--cpu", action="store_true",
@@ -611,6 +632,16 @@ def main(argv=None):
     _train_args(pl)
     pl.add_argument("--levels", type=int, default=2)
     pl.set_defaults(fn=cmd_levelk)
+
+    pp = sub.add_parser("play", help="human experiment session")
+    pp.add_argument("--op-model", default="l0",
+                    choices=["l0", "dqn", "hdqn", "rainbow", "pvp"])
+    pp.add_argument("--load-path", default=None,
+                    help="reference .pth run dir of a dqn, hdqn or rainbow "
+                         "opponent")
+    pp.add_argument("--episodes", type=int, default=5)
+    pp.add_argument("--log-root", default="log")
+    pp.set_defaults(fn=cmd_play)
 
     pe = sub.add_parser("eval", help="head-to-head policy evaluation")
     _add_env_args(pe)

@@ -2,8 +2,9 @@
 
 ``merging_gym_tpu_torch`` re-exports every name of
 ``merging_gym_tpu.__all__`` that the port has, from the same modules as
-JAX's (``core.constants``, ``core.env``, ``core.vector``), and importing
-it builds no kernel and leaves CUDA untouched.
+JAX's (``core.constants``, ``core.env``, ``core.oracle``,
+``core.vector``), and importing it builds no kernel and leaves CUDA
+untouched.
 """
 
 import os
@@ -14,11 +15,10 @@ import pytest
 
 import merging_gym_tpu
 import merging_gym_tpu_torch
-from merging_gym_tpu_torch.core import constants, env, vector
+from merging_gym_tpu_torch.core import constants, env, oracle, vector
 
-# Names of merging_gym_tpu.__all__ whose modules are not ported yet
-# (OracleMergeEnv: core/oracle.py, ROADMAP Queue 1, M16).
-UNPORTED = {"OracleMergeEnv"}
+# Names of merging_gym_tpu.__all__ whose modules are not ported yet.
+UNPORTED = set()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -32,8 +32,8 @@ def test_all_covers_the_jax_package_less_the_unported():
 @pytest.mark.parametrize("name", sorted(set(merging_gym_tpu.__all__)
                                         - UNPORTED))
 def test_export_is_the_core_module_object(name):
-    home = {"constants": None}.get(name, env if hasattr(env, name)
-                                   else vector)
+    home = {"constants": None, "OracleMergeEnv": oracle}.get(
+        name, env if hasattr(env, name) else vector)
     want = constants if home is None else getattr(home, name)
     assert getattr(merging_gym_tpu_torch, name) is want
     assert callable(want) == callable(getattr(merging_gym_tpu, name))

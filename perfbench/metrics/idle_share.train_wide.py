@@ -1,0 +1,6 @@
+"""``idle_share.train``'s reading, for the device-paced training cell, where it
+moves ``train_env_steps_per_s.wide``."""
+
+from perfbench.harness import reader
+
+read = reader("idle_share.train").read

@@ -1,0 +1,6 @@
+"""``launches_per_step.train``'s reading, for the Rainbow cell, where it moves
+``train_device_us_per_step``."""
+
+from perfbench.harness import reader
+
+read = reader("launches_per_step.train").read

@@ -26,6 +26,7 @@ from merging_gym_tpu_torch.core.vector import (autoreset_step,
 from merging_gym_tpu_torch.device import tensor_device
 from merging_gym_tpu_torch.nn.lstm import drqn_step, lstm_zero_carry
 from merging_gym_tpu_torch.ops.fused_policy_rollout import fused_policy_rollout
+from merging_gym_tpu_torch.utils.profiling import span
 
 
 def evaluate(policy1: Policy, policy2: Policy, env_params: EnvParams,
@@ -118,8 +119,11 @@ def evaluate_fused(params1, params2=None, env_params: EnvParams | None = None,
         num_steps, num_envs, params1, params2, greedy=greedy,
         epsilon=epsilon, seed=seed, env_params=env_params or EnvParams(),
         compute_dtype=compute_dtype, device=device)
-    sums = fused_outcomes(out["done"], out["winner"], out["collision"],
-                          out["rewards"]).tolist()     # the one read-back
+    with span("mgt.eval.outcomes"):
+        sums = fused_outcomes(out["done"], out["winner"], out["collision"],
+                              out["rewards"])
+        with span("mgt.readback"):
+            sums = sums.tolist()                       # the one read-back
     counts = {k: int(v) for k, v in zip(OUTCOME_COUNTS, sums)}
     return _finalize(counts, sums[len(OUTCOME_COUNTS):])
 

@@ -51,6 +51,7 @@ from merging_gym_tpu_torch.ops.fused_mlp import (QNET_MIN_TILES,
 from merging_gym_tpu_torch.ops.fused_rollout import (as_events,
                                                      random_reset_vals,
                                                      rewards_cfg)
+from merging_gym_tpu_torch.utils.profiling import span
 
 # Bytes each env-step writes: actions (8), rewards (8), done/winner/col (12).
 K6_BYTES_PER_ENV_STEP = 28
@@ -214,19 +215,35 @@ def fused_policy_rollout(num_steps: int, num_envs: int, params1,
     Returns env-last events: ``actions`` i32[T, 2, N], ``rewards``
     f32[T, 2, N], ``done``/``collision`` bool[T, N], ``winner`` i32[T, N].
     """
-    env_params, dtype, dev = _prepare(params1, params2, env_params,
-                                      compute_dtype, device)
-    if dev.type == "cpu":
-        return fused_policy_rollout_plain(
-            num_steps, num_envs, params1, params2, greedy=greedy,
-            epsilon=epsilon, seed=seed, env_params=env_params,
-            compute_dtype=compute_dtype, device=dev)
-    out = empty_events(num_steps, num_envs, dev)
-    w1 = cast_weights(params1, dtype, dev)
-    w2 = cast_weights(params2, dtype, dev) if params2 is not None else None
-    launch_policy_rollout(out, w1, w2, greedy=greedy, epsilon=epsilon,
-                          seed=seed, env_params=env_params)
-    return as_events(out)
+    with span("mgt.eval.prologue"):
+        env_params, dtype, dev = _prepare(params1, params2, env_params,
+                                          compute_dtype, device)
+        on_card = dev.type != "cpu"
+        if on_card:
+            out = empty_events(num_steps, num_envs, dev)
+            w1 = _card_weights(params1, dtype, dev)
+            w2 = (_card_weights(params2, dtype, dev) if params2 is not None
+                  else None)
+    with span("mgt.eval.rollout"):
+        if not on_card:
+            return fused_policy_rollout_plain(
+                num_steps, num_envs, params1, params2, greedy=greedy,
+                epsilon=epsilon, seed=seed, env_params=env_params,
+                compute_dtype=compute_dtype, device=dev)
+        launch_policy_rollout(out, w1, w2, greedy=greedy, epsilon=epsilon,
+                              seed=seed, env_params=env_params)
+        return as_events(out)
+
+
+def _card_weights(params, dtype, dev) -> list:
+    """``ops.fused_mlp.cast_weights`` onto the card ``dev``: a net held in
+    host memory (arrays or CPU tensors) is uploaded, under the span
+    ``mgt.upload``."""
+    w = params["fc0"]["w"]
+    if isinstance(w, torch.Tensor) and w.device.type != "cpu":
+        return cast_weights(params, dtype, dev)
+    with span("mgt.upload"):
+        return cast_weights(params, dtype, dev)
 
 
 def launch_policy_rollout(out: dict, w1: list, w2: list | None, *,

@@ -108,6 +108,7 @@ from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, phi
 from merging_gym_tpu_torch.ops.fused_mlp import mlp_plain
 from merging_gym_tpu_torch.ops.fused_rollout import (random_reset_vals,
                                                      rewards_cfg)
+from merging_gym_tpu_torch.utils.profiling import span
 
 A = 5
 ATOMS = NUM_ATOMS
@@ -837,19 +838,29 @@ def working_state(carry) -> dict:
 
 
 def _finish(carry, st, num_steps, n_step, last_learned):
-    out = {k: st[k] for k in ("p", "tp", "m", "v", "eps", "teps", "env",
-                              "ring")}
-    met = st["met"].to(torch.float64).sum(dim=1).tolist()
-    loss = float(st["loss"]) if last_learned else 0.0
-    return apply_rainbow_chunk(carry, out, num_steps, met, loss,
-                               nwarm=n_step)
+    with span("mgt.chunk.fold"):
+        out = {k: st[k] for k in ("p", "tp", "m", "v", "eps", "teps", "env",
+                                  "ring")}
+        met = st["met"].to(torch.float64).sum(dim=1)
+        with span("mgt.readback"):
+            met = met.tolist()
+        loss = 0.0
+        if last_learned:
+            with span("mgt.readback"):
+                loss = float(st["loss"])
+        return apply_rainbow_chunk(carry, out, num_steps, met, loss,
+                                   nwarm=n_step)
 
 
 def _sync_start(env):
     """``(episode total, synced chunks)`` at a chunk's start: the integer
     sum of the per-lane counts of row 12, and row 11."""
-    return (int(env[12].to(torch.float64).sum().item()),
-            float(env[11, 0].item()))
+    total = env[12].to(torch.float64).sum()
+    with span("mgt.readback"):
+        total = int(total.item())
+    with span("mgt.readback"):
+        synced = float(env[11, 0].item())
+    return total, synced
 
 
 def _obs_of(env):
@@ -872,9 +883,22 @@ def fused_rainbow_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
 
 def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
                  cols, us) -> tuple:
-    rounds, cols, us = _prepare(cfg, env_params, carry, num_steps, seed,
-                                greedy, rounds, cols, us)
-    st = working_state(carry)
+    with span("mgt.chunk.prologue"):
+        rounds, cols, us = _prepare(cfg, env_params, carry, num_steps, seed,
+                                    greedy, rounds, cols, us)
+        st = working_state(carry)
+        total, synced = _sync_start(st["env"])
+    with span("mgt.chunk.issue"):
+        learned = _plain_steps(st, cfg, env_params, carry, num_steps, seed,
+                               greedy, rounds, cols, us, total, synced)
+    return st, learned
+
+
+def _plain_steps(st, cfg, env_params, carry, num_steps, seed, greedy, rounds,
+                 cols, us, total, synced) -> bool:
+    """The plain version's steps, on the working state ``st`` in place,
+    from the episode total and synced chunks of :func:`_sync_start`;
+    whether the last step learned."""
     n, R, B = carry["n"], carry["R"], carry.get("B", carry["n"])
     ns = cfg.n_step
     key = philox.seed_key(seed)
@@ -883,7 +907,6 @@ def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
     scale = 1.0 if cfg.obs_scale is None else float(cfg.obs_scale)
     thr = greedy_threshold(cfg.epsilon) if cfg.epsilon is not None else None
     thr70 = int(phi(0.7) * 4294967296.0)
-    total, synced = _sync_start(st["env"])
     inv_sync = np.float32(1.0 / cfg.target_sync_episodes)
     learned = False
     for i, r_cur, learn, t, stored in _schedule(carry, num_steps, ns):
@@ -1013,7 +1036,7 @@ def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
         st["env"][11] = synced
         st["wp"] = effective_weights(st["p"], st["eps"])
         st["wt"] = effective_weights(st["tp"], st["teps"])
-    return st, learned
+    return learned
 
 
 # ---------------------------------------------------------------------------
@@ -1414,12 +1437,13 @@ def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
     if carry["env"].device.type == "cpu":
         return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
                             rounds, cols, us)
-    rounds, cols, us = _prepare(cfg, env_params, carry, num_steps, seed,
-                                greedy, rounds, cols, us)
-    st = working_state(carry)
-    learned = launch_rainbow(st, carry, cfg, env_params, num_steps, seed,
-                             greedy, rounds, cols, us, act_geom=act_geom)
-    return st, learned
+    with span("mgt.chunk.prologue"):
+        rounds, cols, us = _prepare(cfg, env_params, carry, num_steps, seed,
+                                    greedy, rounds, cols, us)
+        st = working_state(carry)
+        issue = rainbow_launches(st, carry, cfg, env_params, num_steps, seed,
+                                 greedy, rounds, cols, us, act_geom=act_geom)
+    return st, issue()
 
 
 def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
@@ -1429,6 +1453,17 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     place; returns whether the last step learned.  ``geometry``: the
     learner's, in place of :func:`learn_geometry`'s; ``act_geom``: the act
     kernel's, in place of :func:`act_geometry`'s."""
+    return rainbow_launches(st, carry, cfg, env_params, num_steps, seed,
+                            greedy, rounds, cols, us, geometry, act_geom)()
+
+
+def rainbow_launches(st, carry, cfg, env_params, num_steps, seed, greedy,
+                     rounds, cols, us, geometry=None, act_geom=None):
+    """:func:`launch_rainbow` in two parts: the set-up (the geometry, the
+    learner's workspace, the read-backs of :func:`_sync_start`, the
+    uploads) now, and the function it returns, which issues the kernels
+    (the span ``mgt.chunk.issue``) and returns whether the last step
+    learned."""
     n, B = carry["n"], carry.get("B", carry["n"])
     ns = cfg.n_step
     frozen = cfg.opponent == FT.OPP_FROZEN
@@ -1447,11 +1482,15 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     total0, synced0 = _sync_start(st["env"])
     tot = torch.zeros(num_steps + 1, dtype=torch.int32)
     tot[0] = total0
-    tot = tot.to(dev)
+    with span("mgt.upload"):
+        tot = tot.to(dev)
     ep_step = torch.zeros(num_steps, dtype=torch.int32, device=dev)
-    rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
-    cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
-    us_d = torch.as_tensor(us, dtype=torch.float32, device=dev)
+    with span("mgt.upload"):
+        rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
+    with span("mgt.upload"):
+        cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
+    with span("mgt.upload"):
+        us_d = torch.as_tensor(us, dtype=torch.float32, device=dev)
     ce = torch.zeros(B, dtype=torch.float32, device=dev)
     sel = torch.zeros(2, B, dtype=torch.int32, device=dev)
     wts = torch.ones(B, dtype=torch.float32, device=dev)
@@ -1472,28 +1511,36 @@ def launch_rainbow(st, carry, cfg, env_params, num_steps, seed, greedy,
     thr = greedy_threshold(cfg.epsilon) if cfg.epsilon is not None else 0
     thr70 = int(phi(0.7) * 4294967296.0)
     gpow = torch.tensor([float(np.float32(cfg.gamma ** k)) for k in range(ns)],
-                        dtype=torch.float32).to(dev)
+                        dtype=torch.float32)
+    with span("mgt.upload"):
+        gpow = gpow.to(dev)
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
 
-    # The effective weights of the carry's nets, before the first step.
-    post(0, 0, 0, 0, 0)
-    learned = False
-    for i, r_cur, learn, t, stored in _schedule(carry, num_steps, ns):
-        gstep = (carry["steps"] + i) & philox.MASK32
-        rc = act(ptr(st["p"]), ptr(st["wp"]), ptr(st["opp"]), ptr(st["env"]),
-                 ptr(st["ring"]), ptr(st["met"]), ptr(ep_step[i:]), n,
-                 g.rows, g.rm, g.rn, g.resident, g.chunk, g.smem, opp_code,
-                 cfg.opponent_roll, int(has_eps), int(not greedy),
-                 int(env_params.random_start), int(cfg.per), r_cur,
-                 opp_dims[1], opp_dims[2], gstep, thr, thr70, *key, scale,
-                 float(cfg.per_alpha), *env_args, stream)
-        kernels.check("rainbow_trainer", rc, "rainbow_act launch")
-        kernels.launch_counts["rainbow_act"] += 1
-        learned = learn
-        if learn:
-            if cfg.per:
-                pick(r_cur, stored, us_d[i:])
-            learner.launch(cfg, rounds_d[i:], cols_d[i:], sel, wts, gpow, ce,
-                           t)
-        post(i, int(learn and not greedy), int(learn and cfg.per), 1, gstep)
-    return learned
+    def issue() -> bool:
+        with span("mgt.chunk.issue"):
+            # The effective weights of the carry's nets, before the first
+            # step.
+            post(0, 0, 0, 0, 0)
+            learned = False
+            for i, r_cur, learn, t, stored in _schedule(carry, num_steps, ns):
+                gstep = (carry["steps"] + i) & philox.MASK32
+                rc = act(ptr(st["p"]), ptr(st["wp"]), ptr(st["opp"]),
+                         ptr(st["env"]), ptr(st["ring"]), ptr(st["met"]),
+                         ptr(ep_step[i:]), n, g.rows, g.rm, g.rn, g.resident,
+                         g.chunk, g.smem, opp_code, cfg.opponent_roll,
+                         int(has_eps), int(not greedy),
+                         int(env_params.random_start), int(cfg.per), r_cur,
+                         opp_dims[1], opp_dims[2], gstep, thr, thr70, *key,
+                         scale, float(cfg.per_alpha), *env_args, stream)
+                kernels.check("rainbow_trainer", rc, "rainbow_act launch")
+                kernels.launch_counts["rainbow_act"] += 1
+                learned = learn
+                if learn:
+                    if cfg.per:
+                        pick(r_cur, stored, us_d[i:])
+                    learner.launch(cfg, rounds_d[i:], cols_d[i:], sel, wts,
+                                   gpow, ce, t)
+                post(i, int(learn and not greedy), int(learn and cfg.per), 1,
+                     gstep)
+            return learned
+    return issue

@@ -77,6 +77,7 @@ from merging_gym_tpu_torch.ops.fused_mlp import (QNET_MIN_TILES,
 from merging_gym_tpu_torch.ops.fused_policy_rollout import net_smem
 from merging_gym_tpu_torch.ops.fused_rollout import (random_reset_vals,
                                                      rewards_cfg)
+from merging_gym_tpu_torch.utils.profiling import span
 
 OPP_L0 = "L0"
 OPP_SELFPLAY = "selfplay"
@@ -502,10 +503,15 @@ def working_state(carry, dtype):
 
 
 def _finish(carry, st, dims, num_steps):
-    out = {k: _transposed(st[k], dims) for k in ("p", "tp", "m", "v")}
-    out["env"], out["ring"] = st["env"], st["ring"]
-    met = st["met"].to(torch.float64).sum(dim=1).tolist()
-    return apply_chunk(carry, out, num_steps, met, float(st["loss"]))
+    with span("mgt.chunk.fold"):
+        out = {k: _transposed(st[k], dims) for k in ("p", "tp", "m", "v")}
+        out["env"], out["ring"] = st["env"], st["ring"]
+        met = st["met"].to(torch.float64).sum(dim=1)
+        with span("mgt.readback"):
+            met = met.tolist()
+        with span("mgt.readback"):
+            loss = float(st["loss"])
+        return apply_chunk(carry, out, num_steps, met, loss)
 
 
 def _prepare(cfg, env_params, carry, num_steps, seed, greedy, rounds, cols):
@@ -546,10 +552,20 @@ def fused_dqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
 
 def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
                  cols) -> dict:
-    rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps, seed,
-                                   greedy, rounds, cols)
+    with span("mgt.chunk.prologue"):
+        rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps,
+                                       seed, greedy, rounds, cols)
+        st = working_state(carry, dtype)
+    with span("mgt.chunk.issue"):
+        _plain_steps(st, cfg, env_params, carry, num_steps, seed, greedy,
+                     rounds, cols, dtype)
+    return st
+
+
+def _plain_steps(st, cfg, env_params, carry, num_steps, seed, greedy, rounds,
+                 cols, dtype) -> None:
+    """The plain version's steps, on the working state ``st`` in place."""
     dims = _dims(carry["p"])
-    st = working_state(carry, dtype)
     n, K = carry["n"], carry.get("K", 1)
     W = carry.get("B", n) // K
     key = philox.seed_key(seed)
@@ -628,7 +644,6 @@ def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
             npos[:, 0], npos[:, 1], nvel[:, 0], nvel[:, 1], nx1, ny1, nx2,
             ny2, torch.where(done, 0, ns.winner).to(f32),
             torch.where(done, 0, ns.t).to(f32), ep])
-    return st
 
 
 def fused_dqn_chunk(cfg, env_params, carry, num_steps, seed, *,
@@ -656,11 +671,13 @@ def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
     if carry["env"].device.type == "cpu":
         return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
                             rounds, cols)
-    rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps, seed,
-                                   greedy, rounds, cols)
-    st = working_state(carry, dtype)
-    launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
-                   rounds, cols)
+    with span("mgt.chunk.prologue"):
+        rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps,
+                                       seed, greedy, rounds, cols)
+        st = working_state(carry, dtype)
+        issue = trainer_launches(st, carry, cfg, env_params, num_steps, seed,
+                                 greedy, rounds, cols)
+    issue()
     return st
 
 
@@ -670,6 +687,16 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
     updating the flat working state ``st`` (see :func:`working_state`) in
     place; the act kernel in ``act_geom`` (by default
     :func:`act_geometry`'s)."""
+    trainer_launches(st, carry, cfg, env_params, num_steps, seed, greedy,
+                     rounds, cols, act_geom)()
+
+
+def trainer_launches(st, carry, cfg, env_params, num_steps, seed, greedy,
+                     rounds, cols, act_geom=None):
+    """:func:`launch_trainer` in two parts: the set-up (the geometry, the
+    learner's workspace, the sample streams' uploads) now, and the
+    function it returns, which issues the kernels (the span
+    ``mgt.chunk.issue``)."""
     n, B, K = carry["n"], carry.get("B", carry["n"]), carry.get("K", 1)
     bf16 = st["pc"].dtype == torch.bfloat16
     elem = st["pc"].element_size()
@@ -681,8 +708,10 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
     g = act_geom or act_geometry(n, (dims,), elem, sm_count(dev),
                                  *act_seats(cfg.opponent))
     learner = Learner(st, "", dims, B, K, cfg, dev)
-    rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
-    cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
+    with span("mgt.upload"):
+        rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
+    with span("mgt.upload"):
+        cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
     k0, k1 = philox.seed_key(seed)
     stream = kernels.stream_ptr(dev)
     act_fn = kernels.function("dqn_trainer", "mgt_dqn_act", _ACT_ARGS)
@@ -693,20 +722,24 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
                 int(env_params.random_start))
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
     thr = greedy_threshold(cfg.epsilon)
-    for i, r_cur, learn, sync, t in _schedule(
-            launch_cfg(carry, env_params, seed), carry["R"], num_steps,
-            cfg.target_sync):
-        rc = act_fn(ptr(st["pc"]), ptr(opp), ptr(st["env"]), ptr(st["ring"]),
-                    ptr(st["met"]), n, *act_args,
-                    (carry["steps"] + i) & philox.MASK32, r_cur, thr, k0, k1,
-                    *env_args, stream)
-        kernels.check("dqn_trainer", rc, "dqn_act_env_store launch")
-        kernels.launch_counts["dqn_act_env_store"] += 1
-        if learn:
-            learner.launch(st["ring"], NUM_F, rounds_d[i * K:],
-                           cols_d[i * K:], st["loss"],
-                           ("dqn_learn_fwd", "dqn_learn_grad"), sync=sync,
-                           t=t)
+    schedule = launch_cfg(carry, env_params, seed)
+
+    def issue():
+        with span("mgt.chunk.issue"):
+            for i, r_cur, learn, sync, t in _schedule(
+                    schedule, carry["R"], num_steps, cfg.target_sync):
+                rc = act_fn(ptr(st["pc"]), ptr(opp), ptr(st["env"]),
+                            ptr(st["ring"]), ptr(st["met"]), n, *act_args,
+                            (carry["steps"] + i) & philox.MASK32, r_cur, thr,
+                            k0, k1, *env_args, stream)
+                kernels.check("dqn_trainer", rc, "dqn_act_env_store launch")
+                kernels.launch_counts["dqn_act_env_store"] += 1
+                if learn:
+                    learner.launch(st["ring"], NUM_F, rounds_d[i * K:],
+                                   cols_d[i * K:], st["loss"],
+                                   ("dqn_learn_fwd", "dqn_learn_grad"),
+                                   sync=sync, t=t)
+    return issue
 
 
 # ---------------------------------------------------------------------------

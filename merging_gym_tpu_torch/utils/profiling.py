@@ -10,7 +10,22 @@ the 50 ms render pacing.  Here:
 * :class:`ThroughputTimer` -- items/s over intervals fenced by
   synchronising the devices of the given tensors;
 * :func:`time_fn` -- warm-up-then-time helper, on CUDA events where the
-  output lies on the card.
+  output lies on the card;
+* :func:`span` -- a named ``record_function`` span of the program's own
+  host phases, entered only while a ``torch.profiler`` runs (the
+  profiler is the switch: no flag or setting turns spans on), so it
+  lands in the profiler's trace on the clock of the card's intervals.
+
+Span names: ``mgt.<layer>.<phase>`` for a phase of a layer's host path
+(``mgt.chunk.prologue``, ``mgt.chunk.issue`` and ``mgt.chunk.fold`` of
+the fused trainers K5 and K8; ``mgt.eval.prologue``, ``mgt.eval.rollout``
+and ``mgt.eval.outcomes`` of ``agents.evaluate.evaluate_fused``), and two
+names without a layer, one span per transfer, nested in the phase that
+makes it: ``mgt.readback`` around each blocking read of the card into
+host memory (``.tolist()``, ``.item()``, ``float`` of a tensor) and
+``mgt.upload`` around each copy from pageable host memory to the card.
+No span wraps a single kernel launch: ``kernels.launch_counts`` counts
+those.
 """
 
 from __future__ import annotations
@@ -34,6 +49,18 @@ def trace(log_dir: str):
             activities=activities,
             on_trace_ready=profiler.tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs,
+    else one shared null context: outside a profile a span costs one
+    check of the profiler's state (a fraction of a microsecond)."""
+    if torch.autograd._profiler_enabled():
+        return profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _tensors(tree):

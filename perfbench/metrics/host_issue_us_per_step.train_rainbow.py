@@ -1,0 +1,6 @@
+"""``host_issue_us_per_step.train``'s reading, for the Rainbow cell, where it
+moves ``train_device_us_per_step``."""
+
+from perfbench.harness import reader
+
+read = reader("host_issue_us_per_step.train").read

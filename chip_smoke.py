@@ -490,6 +490,73 @@ def check_k5(checks, torch, FT, D, EnvParams, lon2coord, qnet_init, dev):
     print("K5: two runs on the same inputs give the same bits", flush=True)
 
 
+def check_k5_graph(checks, torch, FT, D, EnvParams, lon2coord, qnet_init,
+                   kernels, dev):
+    """K5's chunk graph at 1,024 envs, R = 4: after a 4-step warm-up
+    chunk, four fully warm 200-step chunks -- the first issued launch by
+    launch, the second captured, each one replayed from then on -- each
+    against the plain version (compare_k5) and, bit for bit, against the
+    same chunk issued launch by launch (launch_trainer); 1 capture and 3
+    replays, and 600 launches counted for every chunk."""
+    n, T = N_TRAIN, 200
+    base = D.DQNConfig(lr=1e-3, target_sync=150, memory_capacity=4 * n)
+    ep = EnvParams(max_steps=60)
+    frozen = dict(opp_params=qnet_init(
+        torch.Generator(device=dev).manual_seed(8), 10, 5))
+    cases = {  # (cfg, init kwargs, greedy)
+        "graph L0 f32": (base.replace(opponent="L0"), {}, True),
+        "graph L0 bf16": (base.replace(opponent="L0",
+                                       compute_dtype="bfloat16"), {}, True),
+        "graph frozen opponent": (base.replace(opponent="frozen"), frozen,
+                                  True),
+        "graph phi-greedy selfplay": (base.replace(opponent="selfplay"), {},
+                                      False),
+    }
+
+    def eager(cfg, carry, seed, greedy):
+        rounds, cols, dtype = FT._prepare(cfg, ep, carry, T, seed, greedy,
+                                          None, None)
+        st = FT.working_state(carry, dtype)
+        FT.launch_trainer(st, carry, cfg, ep, T, seed, greedy, rounds, cols)
+        return FT._finish(carry, st, FT._dims(carry["p"]), T)
+
+    for what, (cfg, kw, greedy) in cases.items():
+        FT._GRAPH.update(graph=None, seen=None)
+        c0 = race_carry(torch, FT, lon2coord, cfg, ep, n, dev, **kw)
+        got = alone = FT.fused_dqn_chunk(cfg, ep, c0, 4, 0, greedy=greedy)
+        want = FT.fused_dqn_chunk_plain(cfg, ep, c0, 4, 0, greedy=greedy)
+        graphs = dict(kernels.graph_counts)
+        for seed in range(1, 5):
+            if not FT.fully_warm(got, T):
+                raise AssertionError(f"K5 {what}: chunk {seed} not warm")
+            before = dict(kernels.launch_counts)
+            got = FT.fused_dqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+            launched = {k: kernels.launch_counts[k] - before[k]
+                        for k in FT.K5_KERNELS}
+            if launched != dict.fromkeys(FT.K5_KERNELS, T):
+                raise AssertionError(f"K5 {what} chunk {seed}: launches "
+                                     f"counted {launched}")
+            want = FT.fused_dqn_chunk_plain(cfg, ep, want, T, seed,
+                                            greedy=greedy)
+            alone = eager(cfg, alone, seed, greedy)
+            compare_k5(checks, torch, f"{what} chunk {seed}", got, want)
+            same = all(torch.equal(got[k], alone[k]) for k in ("env", "ring"))
+            same = same and all(torch.equal(a, b)
+                                for k in ("p", "tp", "m", "v")
+                                for a, b in zip(got[k], alone[k]))
+            if not same or any(got[k] != alone[k] for k in (
+                    "learns", "episodes", "collisions", "wins",
+                    "sum_ep_reward", "last_loss")):
+                raise AssertionError(f"K5 {what} chunk {seed}: the graph "
+                                     "and the launch-by-launch path differ")
+        counted = {k: kernels.graph_counts[k] - graphs[k] for k in graphs}
+        if counted != {"dqn_chunk_capture": 1, "dqn_chunk_replay": 3}:
+            raise AssertionError(f"K5 {what}: graph counts {counted}")
+        print(f"K5 {what}: 1 capture, 3 replays, {got['learns']} learns, "
+              f"{int(got['episodes'])} episodes agree with the plain "
+              "version; bit for bit the launch-by-launch path", flush=True)
+
+
 def hdqn_race_carry(torch, FH, lon2coord, cfg, ep, n, dev, seed=0, **kw):
     """A K7 carry with small centred weights and mid-race starts (the
     ``_mk`` of tests/test_fused_hdqn_e2e.py:59-75)."""
@@ -3599,6 +3666,8 @@ def main():
 
     k4_kept = check_k4(checks, torch, FA, FM, p_l2, hdqn_nets, dev, rng)
     check_k5(checks, torch, FT, D, EnvParams, lon2coord, qnet_init, dev)
+    check_k5_graph(checks, torch, FT, D, EnvParams, lon2coord, qnet_init,
+                   kernels, dev)
     check_k7(checks, torch, FH, H, EnvParams, lon2coord, qnet_init, dev)
     check_k8(checks, torch, FRB, RB, EnvParams, lon2coord, p_l1, dev)
     check_rb_post_pick(checks, torch, np, FRB, dev)

@@ -8,7 +8,9 @@ plain PyTorch versions, and ``sinf``/``logf`` are the accurate library
 functions.  A missing ``nvcc`` or a failed build raises; nothing falls back.
 
 ``launch_counts`` holds one integer per kernel; each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else (a replay of a CUDA graph adds
+the launches it holds).  ``graph_counts`` says how often K5's chunk graph
+(``ops.fused_trainer.ChunkGraph``) was captured and replayed.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ launch_counts = {"env_rollout": 0, "env_counters": 0, "qnet_mlp": 0,
                  # side, its recurrence, its gradients + Adam
                  "drqn_act": 0, "drqn_learn_in": 0, "drqn_learn_rec": 0,
                  "drqn_learn_grad": 0}
+
+graph_counts = {"dqn_chunk_capture": 0, "dqn_chunk_replay": 0}
 
 _libs: dict = {}
 _funcs: dict = {}

@@ -38,6 +38,16 @@
 //      version's order, then, in the same thread, tp := p on a sync step
 //      and Adam.
 //
+// A fully warm chunk (every step learns) runs as one CUDA graph of its
+// 3 x T launches, captured once per chunk shape and replayed
+// (ops/fused_trainer.py:ChunkGraph).  A graph's launch arguments are fixed,
+// so what changes from chunk to chunk -- the Philox step and key, the
+// ring's base round, the learn count and Adam's bias corrections, the
+// learner's draws -- lies in a device-resident chunk header (ChunkHeader)
+// that the host uploads before each replay; each launch reads it with its
+// own constant step index i.  A null header pointer selects the launch
+// arguments instead (the warm-up chunk, K7, direct launches).
+//
 // Every sum is one thread's chain in a fixed order, with one rounding per
 // multiply and per add (-fmad=false): two runs on the same inputs give
 // the same bits, and the plain version (fused_dqn_chunk_plain) sums in
@@ -74,6 +84,9 @@
 // reduction over 133 blocks.  The measured times are in PERF.md
 // (chip_smoke.py).
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "act_tiled.cuh"
 #include "env_math.cuh"
@@ -85,9 +98,43 @@ namespace mgt {
 constexpr int kNumF = 24;  // K5's ring fields per round: obs 10, next obs
                            // 10, action, reward, done, pad
 
+// The chunk header of a graph replay; ops/fused_trainer.py:HEADER mirrors
+// it.  Step i of the chunk draws at Philox step step0 + i (mod 2**32) under
+// the key (k0, k1), stores into ring round (base + i) mod R, and learns with
+// learn count prior + i: it syncs the target iff (prior + i) % target_sync
+// == 0, and Adam's bias corrections for step prior + i + 1 are the floats
+// 2 i and 2 i + 1 of the table that follows the header in its buffer.
+struct ChunkHeader {
+  uint32_t step0, k0, k1;
+  int32_t base;
+  int64_t prior;
+};
+static_assert(sizeof(ChunkHeader) == 24, "the header's layout is fixed");
+
+// mlp.cuh's allow_smem once per (device, kernel) and larger size, not on
+// every launch: a captured chunk then holds nothing but its launches.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> granted;
+  const std::lock_guard<std::mutex> lock(mu);
+  size_t& have = granted[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (have >= bytes) return cudaSuccess;
+  err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess) have = bytes;
+  else cudaGetLastError();  // returned here, not left for the next launch
+  return err;
+}
+
 struct ActCfg {
   int n, r_cur, opp, greedy, random_start;  // opp: kOppL0, kOppSelf, kOppFrozen
   uint32_t step, threshold, k0, k1;
+  const ChunkHeader* hdr;  // non-null: step, r_cur, k0, k1 from it
+  int i, rounds;           // with hdr: the step's index, the ring's rounds
 };
 
 // Kernel 1: a block owns `rows` envs, thread e < rows env env0 + e (its
@@ -102,6 +149,12 @@ act_env_store_kernel(Net<T> pnet, Net<T> onet, float* __restrict__ env,
                      float* __restrict__ ring, float* __restrict__ met,
                      ActGeom g, MlpDims d, ActCfg ac, EnvCfg cfg) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (ac.hdr != nullptr) {  // a graph replay: this step's values
+    ac.step = ac.hdr->step0 + static_cast<uint32_t>(ac.i);
+    ac.r_cur = static_cast<int>((ac.hdr->base + ac.i) % ac.rounds);
+    ac.k0 = ac.hdr->k0;
+    ac.k1 = ac.hdr->k1;
+  }
   const int seats = ac.opp == kOppSelf ? 2 : 1;
   const ActSmem S(&d, 1, g, sizeof(T), seats);
   T* const s_in = reinterpret_cast<T*>(smem + S.in);
@@ -225,11 +278,14 @@ struct LearnCfg {
 // the number of steps j in [first_open, step) with any_end[j] != 0 (the
 // host gate is open from first_open on).  bias[2k], bias[2k + 1] are Adam's
 // bias corrections for count prior + k, computed on the host.  any_end ==
-// nullptr: no device gate (K5, K7's lower learner); the host decides.
+// nullptr: no device gate (K5, K7's lower learner); the host decides, or
+// with `hdr` (K5's graph replay) the chunk header at step `step`: bias is
+// then the header's table.
 struct DevGate {
   const int32_t* any_end;
   const float* bias;
   int step, first_open, prior, target_sync;
+  const ChunkHeader* hdr;
 };
 
 // -1 where the gate is shut, else the learns of this chunk before this one.
@@ -242,6 +298,10 @@ __device__ __forceinline__ int gate_count(const DevGate& g) {
 
 __device__ __forceinline__ bool gate_syncs(const DevGate& g, int k) {
   return (static_cast<long long>(g.prior) + k) % g.target_sync == 0;
+}
+
+__device__ __forceinline__ bool header_syncs(const DevGate& g) {
+  return (g.hdr->prior + g.step) % g.target_sync == 0;
 }
 
 // The learner's workspace: one row of f32 per sampled lane, written by
@@ -346,6 +406,8 @@ learn_fwd_kernel(Net<T> pnet, Net<T> tnet, const T* __restrict__ w1t,
     const int k = gate_count(g);
     if (k < 0) return;
     if (gate_syncs(g, k)) tnet = pnet;  // the sync comes before the update
+  } else if (g.hdr != nullptr && header_syncs(g)) {
+    tnet = pnet;
   }
   extern __shared__ __align__(16) unsigned char smem[];
   const QnetSmem S(d, QnetGeom{2 * lg.lanes, lg.chunk, lg.smem}, sizeof(T),
@@ -501,6 +563,10 @@ learn_grad_kernel(const float* __restrict__ ws, int width,
     gc.sync = gate_syncs(gate, k) ? 1 : 0;
     gc.h.c1 = gate.bias[2 * k];
     gc.h.c2 = gate.bias[2 * k + 1];
+  } else if (gate.hdr != nullptr) {
+    gc.sync = header_syncs(gate) ? 1 : 0;
+    gc.h.c1 = gate.bias[2 * gate.step];
+    gc.h.c2 = gate.bias[2 * gate.step + 1];
   }
   const bool bf16 = pb != nullptr;
   const WsCols c(d, bf16);
@@ -615,7 +681,7 @@ template <typename T, int RM, int RN>
 cudaError_t launch_act_tile(Net<T> p, Net<T> o, float* env, float* ring,
                             float* met, ActGeom g, MlpDims d, ActCfg ac,
                             EnvCfg cfg, cudaStream_t stream) {
-  cudaError_t err = allow_smem(act_env_store_kernel<T, RM, RN>, g.smem);
+  cudaError_t err = allow_smem_once(act_env_store_kernel<T, RM, RN>, g.smem);
   if (err != cudaSuccess) return err;
   const int blocks = (ac.n + g.rows - 1) / g.rows;
   act_env_store_kernel<T, RM, RN><<<blocks, kQnetThreads, g.smem, stream>>>(
@@ -650,7 +716,7 @@ cudaError_t launch_fwd_tile(Net<T> pnet, Net<T> tnet, const T* w1t,
                             const int32_t* cols, float* ws, MlpDims d,
                             LearnCfg lc, LearnGeom lg, DevGate g,
                             cudaStream_t stream) {
-  cudaError_t err = allow_smem(learn_fwd_kernel<T, RM, RN>, lg.smem);
+  cudaError_t err = allow_smem_once(learn_fwd_kernel<T, RM, RN>, lg.smem);
   if (err != cudaSuccess) return err;
   const int blocks = (lc.B + lg.lanes - 1) / lg.lanes;
   learn_fwd_kernel<T, RM, RN><<<blocks, kQnetThreads, lg.smem, stream>>>(
@@ -683,8 +749,10 @@ cudaError_t launch_fwd(const void* p, const void* tgt, const void* w1t,
 
 // Kernel 1 of a step (act_env_store_kernel) on `n` envs in the geometry
 // (rows, rm x rn, resident, chunk, smem) of ops/fused_trainer.py:
-// act_geometry; opp: kOppL0, kOppSelf (opp unused) or kOppFrozen.  A
-// geometry its layout does not fit is refused (cudaErrorInvalidValue).
+// act_geometry; opp: kOppL0, kOppSelf (opp unused) or kOppFrozen.  With a
+// chunk header `hdr` (a ChunkHeader on the device), step, r_cur, k0 and k1
+// are read from it for step i of a ring of `rounds` rounds.  A geometry its
+// layout does not fit is refused (cudaErrorInvalidValue).
 extern "C" int mgt_dqn_act(const void* p, const void* opp, float* env,
                            float* ring, float* met, int n, int in, int h1,
                            int h2, int a, int rows, int rm, int rn,
@@ -694,15 +762,17 @@ extern "C" int mgt_dqn_act(const void* p, const void* opp, float* env,
                            uint32_t k0, uint32_t k1, int max_steps,
                            float r_first, float r_second, float r_collision,
                            float vel_penalty, float time_penalty,
+                           const void* hdr, int i, int rounds,
                            cudaStream_t stream) {
   using namespace mgt;
   if (n <= 0) return 0;
-  if (in != 10 || opp_mode < kOppL0 || opp_mode > kOppFrozen)
+  if (in != 10 || opp_mode < kOppL0 || opp_mode > kOppFrozen ||
+      (hdr != nullptr && (i < 0 || rounds <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims d{in, h1, h2, a};
   ActGeom g{rows, resident, chunk, smem};
   ActCfg ac{n, r_cur, opp_mode, greedy, random_start, step, threshold, k0,
-            k1};
+            k1, static_cast<const ChunkHeader*>(hdr), i, rounds};
   EnvCfg cfg{r_first, r_second, r_collision, vel_penalty, time_penalty,
              max_steps};
   cudaError_t err =
@@ -714,7 +784,9 @@ extern "C" int mgt_dqn_act(const void* p, const void* opp, float* env,
 }
 
 // Kernel A of one learn (learn_fwd_kernel); `ws` holds B rows of
-// WsCols(d).width floats, `w1t` the online w1 transposed, in T.
+// WsCols(d).width floats, `w1t` the online w1 transposed, in T.  With a
+// chunk header `hdr`, `tgt` is the target net and the header decides at
+// step `step` whether p takes its place.
 extern "C" int mgt_dqn_learn_fwd(const void* p, const void* tgt,
                                  const void* w1t, const float* ring,
                                  const int32_t* rounds, const int32_t* cols,
@@ -724,15 +796,18 @@ extern "C" int mgt_dqn_learn_fwd(const void* p, const void* tgt,
                                  float two_over_b, int lanes, int rm, int rn,
                                  int chunk, int smem, const int32_t* any_end,
                                  int step, int first_open, int prior,
-                                 int target_sync, cudaStream_t stream) {
+                                 int target_sync, const void* hdr,
+                                 cudaStream_t stream) {
   using namespace mgt;
   if (B <= 0 || K <= 0 || B % K != 0 || num_f < 2 * in + 3 ||
-      (any_end != nullptr && target_sync <= 0))
+      (any_end != nullptr && target_sync <= 0) ||
+      (hdr != nullptr && (any_end != nullptr || target_sync <= 0 || step < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims d{in, h1, h2, a};
   LearnCfg lc{n, B / K, num_f, mask_terminal, B, gamma, two_over_b};
   LearnGeom lg{lanes, chunk, smem};
-  DevGate g{any_end, nullptr, step, first_open, prior, target_sync};
+  DevGate g{any_end, nullptr, step, first_open, prior, target_sync,
+            static_cast<const ChunkHeader*>(hdr)};
   cudaError_t err =
       bf16 ? launch_fwd<__nv_bfloat16>(p, tgt, w1t, ring, rounds, cols, ws, d,
                                        lc, lg, rm, rn, g, stream)
@@ -744,6 +819,8 @@ extern "C" int mgt_dqn_learn_fwd(const void* p, const void* tgt,
 // Kernel B of one learn (learn_grad_kernel): the gradients and the loss
 // from `ws`, summed in tiles of `tile` lanes, then Adam (the target sync
 // first on a sync step), the bf16 copies pb/tpb (nullptr in f32) and w1t.
+// With a chunk header `hdr`, the sync and c1, c2 (from `bias`, the
+// header's table) are those of step `step`.
 extern "C" int mgt_dqn_learn_grad(const float* ws, float* p, float* tp,
                                   float* m, float* v, void* pb, void* tpb,
                                   void* w1t, float* loss, int in, int h1,
@@ -752,16 +829,19 @@ extern "C" int mgt_dqn_learn_grad(const float* ws, float* p, float* tp,
                                   float omb2, float eps, float c1, float c2,
                                   int smem, const int32_t* any_end,
                                   const float* bias, int step, int first_open,
-                                  int prior, int target_sync,
+                                  int prior, int target_sync, const void* hdr,
                                   cudaStream_t stream) {
   using namespace mgt;
   if (B <= 0 || tile <= 0 || tile > 16 || B % tile != 0 ||
       grad_smem(tile) > static_cast<size_t>(smem) ||
-      (any_end != nullptr && (bias == nullptr || target_sync <= 0)))
+      ((any_end != nullptr || hdr != nullptr) &&
+       (bias == nullptr || target_sync <= 0)) ||
+      (hdr != nullptr && (any_end != nullptr || step < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   MlpDims d{in, h1, h2, a};
   GradCfg gc{B, tile, sync, {lr, b1, b2, omb1, omb2, eps, c1, c2}};
-  DevGate g{any_end, bias, step, first_open, prior, target_sync};
+  DevGate g{any_end, bias, step, first_open, prior, target_sync,
+            static_cast<const ChunkHeader*>(hdr)};
   const WsCols c(d, pb != nullptr);
   int blocks = 0;
   const int kj[3][2] = {{in, h1}, {h1, h2}, {h2, a}};
@@ -769,7 +849,7 @@ extern "C" int mgt_dqn_learn_grad(const float* ws, float* p, float* tp,
     blocks += (w[0] + kGradK - 1) / kGradK * ((w[1] + kGradJ - 1) / kGradJ) +
               (w[1] + kGradJ - 1) / kGradJ;
   blocks += (a + 1 + kGradJ - 1) / kGradJ - (a + kGradJ - 1) / kGradJ;
-  cudaError_t err = allow_smem(learn_grad_kernel, smem);
+  cudaError_t err = allow_smem_once(learn_grad_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   learn_grad_kernel<<<blocks, kGradThreads, smem, stream>>>(
       ws, c.width, p, tp, m, v, static_cast<__nv_bfloat16*>(pb),

@@ -12,7 +12,10 @@ Adam, the metrics and the auto-reset.
 On the TPU the T steps of a chunk were the sequential grid of one launch
 with all state in VMEM.  On the H100 a step is up to three hand-written
 kernels (``kernels/csrc/dqn_trainer.cu``) issued by :func:`fused_dqn_chunk`
-in a host loop on the current stream: the act/env/store kernel, then, on a
+on the current stream -- launch by launch from a host loop, or, in a
+chunk whose every step learns, as a replay of one CUDA graph of the whole
+chunk (:class:`ChunkGraph`) that reads what changes from chunk to chunk
+from a chunk header on the card: the act/env/store kernel, then, on a
 learning step, the learner (:class:`Learner`): its forward/backward kernel,
 which writes each sampled lane's operands to a workspace, and its
 gradient kernel, which sums them over the lanes and applies Adam.  Its
@@ -24,7 +27,8 @@ over the batch every step, so a step needs a reduction across blocks; a
 per-step sequence gives it without a grid-wide sync, keeps the order of
 JAX's step (the learner samples the ring after this step's store; the
 actor of step i+1 sees the params after learn i), and needs no read-back: the learn gate, learn count, target sync and
-Adam's bias corrections depend only on host counters.
+Adam's bias corrections depend only on host counters (in a graph replay
+they reach the card in the chunk header, :func:`chunk_header`).
 
 The plain version (:func:`fused_dqn_chunk_plain`) repeats the kernels'
 arithmetic and their summation order (``learn_math`` sums each gradient
@@ -55,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -106,13 +111,26 @@ OPP_MODES = {OPP_L0: 0, OPP_SELFPLAY: 1, OPP_FROZEN: 2}
 
 _ACT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
              + [ctypes.c_uint32, ctypes.c_int] + [ctypes.c_uint32] * 3
-             + [ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 _GRAD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
               + [ctypes.c_float] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+
+# K5's chunk header (dqn_trainer.cu:ChunkHeader), what a graph replay of a
+# fully warm chunk reads in place of launch arguments: the Philox step of
+# the chunk's first step and the key, the ring round of its first step,
+# and the learn count before it.  In its buffer it is followed by Adam's
+# bias corrections ``f32[num_steps, 2]`` and the learner's draws ``rounds``
+# and ``cols`` (``i32[num_steps * K]`` each): :func:`header_layout`.
+HEADER = np.dtype([("step0", np.uint32), ("k0", np.uint32),
+                   ("k1", np.uint32), ("base", np.int32),
+                   ("prior", np.int64)])
+# K5's kernels, by their keys in kernels.launch_counts.
+K5_KERNELS = ("dqn_act_env_store", "dqn_learn_fwd", "dqn_learn_grad")
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +165,14 @@ def _shapes(dims):
     return [(d_in, h1), (h1,), (h1, h2), (h2,), (h2, a), (a,)]
 
 
+def _flat_parts(pt) -> list:
+    return [(x.T if i % 2 == 0 else x).reshape(-1) for i, x in enumerate(pt)]
+
+
 def _flat(pt) -> torch.Tensor:
     """Transposed 6-tuple -> one flat f32 buffer in the ``[in, out]``
     layout: w0 [in][h1], b0, w1 [h1][h2], b1, w2 [h2][a], b2."""
-    return torch.cat([(x.T if i % 2 == 0 else x).reshape(-1)
-                      for i, x in enumerate(pt)]).to(torch.float32)
+    return torch.cat(_flat_parts(pt)).to(torch.float32)
 
 
 def _natural(flat, dims) -> list:
@@ -266,6 +287,16 @@ def adam_bias_corrections(t: int) -> tuple:
     c1 = 1.0 - torch.exp(tf * math.log(ADAM_B1))
     c2 = 1.0 - torch.exp(tf * math.log(ADAM_B2))
     return float(c1), float(c2)
+
+
+def bias_table(prior: int, num_steps: int) -> torch.Tensor:
+    """``f32[num_steps, 2]``: :func:`adam_bias_corrections` of Adam's steps
+    ``prior + 1 .. prior + num_steps``, by the same f32 operations on all
+    of them at once (bit for bit the scalar function's values)."""
+    t = torch.arange(prior + 1, prior + num_steps + 1,
+                     dtype=torch.int64).to(torch.float32)
+    return torch.stack([1.0 - torch.exp(t * math.log(ADAM_B1)),
+                        1.0 - torch.exp(t * math.log(ADAM_B2))], dim=1)
 
 
 def _adam_plain(p, m, v, g, t, lr):
@@ -484,21 +515,110 @@ def _schedule(launch, R, num_steps, target_sync):
         yield i, (base + i) % R, learn, learn and lc % target_sync == 0, lc + 1
 
 
+def fully_warm(carry, num_steps) -> bool:
+    """Whether every step of a ``num_steps`` chunk learns (``chunk_learns
+    == num_steps``): the carry's warm gate is open, so :func:`_schedule`
+    learns at step i with learn count ``learns + i``.  On the card such a
+    chunk runs as a graph replay (:class:`ChunkGraph`)."""
+    return num_steps >= 1 and bool(carry["warm"])
+
+
+def header_layout(num_steps: int, K: int) -> tuple:
+    """Byte offsets ``(bias, rounds, cols, end)`` in a chunk header's
+    buffer: the :data:`HEADER`, Adam's bias corrections ``f32[num_steps,
+    2]``, then ``rounds`` and ``cols``, ``i32[num_steps * K]`` each."""
+    bias = HEADER.itemsize
+    rounds = bias + 8 * num_steps
+    cols = rounds + 4 * num_steps * K
+    return bias, rounds, cols, cols + 4 * num_steps * K
+
+
+def chunk_header(carry, num_steps, seed, rounds, cols, out=None):
+    """The chunk header of a fully warm chunk (:func:`fully_warm`) of
+    ``carry``, in the bytes ``out`` (by default a new ``u8`` array of
+    :func:`header_layout`'s length): step i draws at Philox step ``(steps +
+    i) & MASK32`` under ``seed``'s key, stores into ring round ``(steps % R
+    + i) % R`` and learns with count ``learns + i``: the values
+    :func:`_schedule` gives the launches of the eager path."""
+    b, r, c, end = header_layout(num_steps, carry.get("K", 1))
+    out = np.zeros(end, np.uint8) if out is None else out
+    k0, k1 = philox.seed_key(seed)
+    out[:b].view(HEADER)[0] = (carry["steps"] & philox.MASK32, k0, k1,
+                               carry["steps"] % carry["R"], carry["learns"])
+    out[b:r].view(np.float32)[:] = bias_table(carry["learns"],
+                                              num_steps).numpy().reshape(-1)
+    out[r:c].view(np.int32)[:] = rounds
+    out[c:end].view(np.int32)[:] = cols
+    return out
+
+
 # ---------------------------------------------------------------------------
 # One chunk: plain version and kernels
 # ---------------------------------------------------------------------------
 
+def _state_parts(carry) -> dict:
+    """The shapes of the working state's parts that a chunk returns."""
+    P = sum(math.prod(s) for s in _shapes(_dims(carry["p"])))
+    n = carry["n"]
+    return {"p": (P,), "tp": (P,), "m": (P,), "v": (P,),
+            "env": (ENV_ROWS, n), "ring": (carry["R"] * NUM_F, n),
+            "met": (4, n), "loss": ()}
+
+
+def _align64(n: int) -> int:
+    return (n + 63) // 64 * 64
+
+
+def _state_views(block, parts) -> dict:
+    out, o = {}, 0
+    for k, shape in parts.items():
+        size = math.prod(shape)
+        out[k] = block[o:o + size].view(shape)
+        o += _align64(size)
+    return out
+
+
+def state_buffers(carry, dtype) -> tuple:
+    """``(block, st)``: an unfilled working state of ``carry``'s shapes.
+    ``p``, ``tp``, ``m``, ``v``, ``env``, ``ring``, ``met`` and ``loss``
+    are views of the one f32 buffer ``block``, each on a 256-byte boundary
+    (the kernels' 16-byte copies); ``opp`` and the compute-dtype copies
+    ``pc``, ``tpc``, ``oppc`` (in f32 the sets themselves) lie beside
+    it."""
+    parts = _state_parts(carry)
+    P, dev = parts["p"][0], carry["env"].device
+    block = torch.empty(sum(_align64(math.prod(s)) for s in parts.values()),
+                        dtype=torch.float32, device=dev)
+    st = _state_views(block, parts)
+    st["opp"] = torch.empty(P, dtype=torch.float32, device=dev)
+    for k in ("p", "tp", "opp"):
+        st[k + "c"] = (st[k] if dtype == torch.float32 else
+                       torch.empty(P, dtype=dtype, device=dev))
+    return block, st
+
+
+def load_state(st, carry, held=False) -> None:
+    """``carry`` copied into the working state ``st`` (its tensors stay
+    untouched), the forward operands in the compute dtype, the metrics
+    and the loss zeroed.  ``held``: ``st`` already holds the carry's env
+    and ring, which are not copied."""
+    for k in ("p", "tp", "m", "v", "opp"):
+        torch.cat(_flat_parts(carry[k]), out=st[k])
+    if not held:
+        st["env"].copy_(carry["env"])
+        st["ring"].copy_(carry["ring"])
+    for k in ("p", "tp", "opp"):
+        if st[k + "c"] is not st[k]:
+            st[k + "c"].copy_(st[k])
+    st["met"].zero_()
+    st["loss"].zero_()
+
+
 def working_state(carry, dtype):
-    """Flat working copies of a carry (its tensors stay untouched)."""
-    st = {k: _flat(carry[k]).contiguous()
-          for k in ("p", "tp", "m", "v", "opp")}
-    for k in ("p", "tp", "opp"):  # forward operands in the compute dtype
-        st[k + "c"] = st[k].to(dtype) if dtype != torch.float32 else st[k]
-    st["env"] = carry["env"].to(torch.float32).contiguous().clone()
-    st["ring"] = carry["ring"].to(torch.float32).contiguous().clone()
-    dev = st["env"].device
-    st["met"] = torch.zeros(4, carry["n"], dtype=torch.float32, device=dev)
-    st["loss"] = torch.zeros((), dtype=torch.float32, device=dev)
+    """Flat working copies of a carry (its tensors stay untouched), in
+    :func:`state_buffers`' layout."""
+    st = state_buffers(carry, dtype)[1]
+    load_state(st, carry)
     return st
 
 
@@ -656,7 +776,9 @@ def fused_dqn_chunk(cfg, env_params, carry, num_steps, seed, *,
     ``seed ^ 0x5EED``) the chunk is then deterministic.  A carry on the
     CPU runs the plain version; on the card K5 runs, three launches per
     learning step (one before the ring has filled), with no read-back
-    until the chunk ends.  The input carry is left as it was.
+    until the chunk ends; a chunk whose every step learns replays them as
+    one CUDA graph (:class:`ChunkGraph`).  The input carry is left as it
+    was, and the carry returned shares no memory with the next chunk's.
     """
     st = chunk_state(cfg, env_params, carry, num_steps, seed, greedy=greedy,
                      rounds=rounds, cols=cols)
@@ -667,18 +789,30 @@ def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
                 rounds=None, cols=None) -> dict:
     """The flat working state (:func:`working_state`) after a chunk, not
     yet folded into a carry: K5 on the card, the plain version on the
-    CPU (``parallel.spmd`` averages it over the ranks before the fold)."""
+    CPU (``parallel.spmd`` averages it over the ranks before the fold).
+    On the card a fully warm chunk (:func:`fully_warm`) is a replay of its
+    shape's :class:`ChunkGraph` once :func:`chunk_graph` has one, any other
+    chunk is issued launch by launch."""
     if carry["env"].device.type == "cpu":
         return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
                             rounds, cols)
     with span("mgt.chunk.prologue"):
         rounds, cols, dtype = _prepare(cfg, env_params, carry, num_steps,
                                        seed, greedy, rounds, cols)
-        st = working_state(carry, dtype)
-        issue = trainer_launches(st, carry, cfg, env_params, num_steps, seed,
-                                 greedy, rounds, cols)
-    issue()
-    return st
+        graph = (chunk_graph(cfg, env_params, carry, num_steps, greedy, dtype)
+                 if fully_warm(carry, num_steps) else None)
+        if graph is not None:
+            graph.load(carry, seed, rounds, cols)
+            issue = functools.partial(graph.run, carry, seed)
+        else:
+            st = working_state(carry, dtype)
+            launches = trainer_launches(st, carry, cfg, env_params,
+                                        num_steps, seed, greedy, rounds, cols)
+
+            def issue():
+                launches()
+                return st
+    return issue()
 
 
 def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
@@ -691,55 +825,222 @@ def launch_trainer(st, carry, cfg, env_params, num_steps, seed, greedy,
                      rounds, cols, act_geom)()
 
 
+def chunk_geometries(carry, cfg, dtype) -> tuple:
+    """``(act, learner)``: the geometries of K5's act kernel
+    (:func:`act_geometry`) and learner (:func:`learn_geometry`) for
+    ``carry``'s chunks in the compute dtype ``dtype``."""
+    dev, dims = carry["env"].device, _dims(carry["p"])
+    elem, sms = torch.finfo(dtype).bits // 8, sm_count(dev)
+    return (act_geometry(carry["n"], (dims,), elem, sms,
+                         *act_seats(cfg.opponent)),
+            learn_geometry(carry.get("B", carry["n"]), dims, elem, sms))
+
+
 def trainer_launches(st, carry, cfg, env_params, num_steps, seed, greedy,
                      rounds, cols, act_geom=None):
     """:func:`launch_trainer` in two parts: the set-up (the geometry, the
     learner's workspace, the sample streams' uploads) now, and the
     function it returns, which issues the kernels (the span
     ``mgt.chunk.issue``)."""
-    n, B, K = carry["n"], carry.get("B", carry["n"]), carry.get("K", 1)
-    bf16 = st["pc"].dtype == torch.bfloat16
-    elem = st["pc"].element_size()
     dev = kernels.require_cuda(*(st[k] for k in (
         "p", "tp", "m", "v", "opp", "pc", "tpc", "oppc", "env", "ring",
         "met", "loss")))
     dims = _dims(carry["p"])
-    d_in, h1, h2, a = dims
-    g = act_geom or act_geometry(n, (dims,), elem, sm_count(dev),
-                                 *act_seats(cfg.opponent))
-    learner = Learner(st, "", dims, B, K, cfg, dev)
+    act_g, learn_g = chunk_geometries(carry, cfg, st["pc"].dtype)
+    learner = Learner(st, "", dims, carry.get("B", carry["n"]),
+                      carry.get("K", 1), cfg, dev, learn_g)
+    act = act_launcher(st, dims, cfg, env_params, greedy, act_geom or act_g)
     with span("mgt.upload"):
         rounds_d = torch.as_tensor(rounds, dtype=torch.int32, device=dev)
     with span("mgt.upload"):
         cols_d = torch.as_tensor(cols, dtype=torch.int32, device=dev)
-    k0, k1 = philox.seed_key(seed)
     stream = kernels.stream_ptr(dev)
-    act_fn = kernels.function("dqn_trainer", "mgt_dqn_act", _ACT_ARGS)
-    ptr = kernels.ptr
-    opp = st["oppc"] if cfg.opponent == OPP_FROZEN else st["pc"]
-    act_args = (d_in, h1, h2, a, g.rows, g.rm, g.rn, g.resident, g.chunk,
-                g.smem, int(bf16), OPP_MODES[cfg.opponent], int(greedy),
-                int(env_params.random_start))
-    env_args = (env_params.max_steps, *rewards_cfg(env_params))
-    thr = greedy_threshold(cfg.epsilon)
-    schedule = launch_cfg(carry, env_params, seed)
 
     def issue():
         with span("mgt.chunk.issue"):
-            for i, r_cur, learn, sync, t in _schedule(
-                    schedule, carry["R"], num_steps, cfg.target_sync):
-                rc = act_fn(ptr(st["pc"]), ptr(opp), ptr(st["env"]),
-                            ptr(st["ring"]), ptr(st["met"]), n, *act_args,
-                            (carry["steps"] + i) & philox.MASK32, r_cur, thr,
-                            k0, k1, *env_args, stream)
-                kernels.check("dqn_trainer", rc, "dqn_act_env_store launch")
-                kernels.launch_counts["dqn_act_env_store"] += 1
-                if learn:
-                    learner.launch(st["ring"], NUM_F, rounds_d[i * K:],
-                                   cols_d[i * K:], st["loss"],
-                                   ("dqn_learn_fwd", "dqn_learn_grad"),
-                                   sync=sync, t=t)
+            launch_steps(act, learner, carry, cfg, env_params, num_steps,
+                         seed, rounds_d, cols_d, stream)
     return issue
+
+
+def launch_steps(act, learner, carry, cfg, env_params, num_steps, seed,
+                 rounds, cols, stream, header=None) -> None:
+    """Every launch of ``carry``'s next ``num_steps`` steps on ``stream``:
+    the act kernel (:func:`act_launcher`), then on a learning step the
+    learner, on the draws from ``K * i`` on of the i32 device streams
+    ``rounds``/``cols``, as :func:`_schedule` says.  With ``header=(hdr,
+    bias)``, K5's chunk header and its bias table (:class:`ChunkGraph`),
+    the kernels read each step's values from it instead."""
+    K, st = carry.get("K", 1), learner.st
+    k0, k1 = philox.seed_key(seed)
+    for i, r_cur, learn, sync, t in _schedule(
+            launch_cfg(carry, env_params, seed), carry["R"], num_steps,
+            cfg.target_sync):
+        act((carry["steps"] + i) & philox.MASK32, r_cur, k0, k1, stream,
+            header=header and (header[0], i))
+        if learn:
+            learner.launch(st["ring"], NUM_F, rounds[i * K:], cols[i * K:],
+                           st["loss"], K5_KERNELS[1:], sync=sync, t=t,
+                           header=header and (*header, i), stream=stream)
+
+
+def act_launcher(st, dims, cfg, env_params, greedy, g):
+    """The act kernel's launch on the working state ``st`` of nets ``dims``
+    in the geometry ``g``, as a function of one step's ``(philox step, ring
+    round, k0, k1, stream)``, or with ``header=(hdr, i)`` of step i of a
+    chunk header on the card (the step, round and key then come from
+    it)."""
+    n = st["env"].shape[1]
+    ptr = kernels.ptr
+    opp = st["oppc"] if cfg.opponent == OPP_FROZEN else st["pc"]
+    fixed = (ptr(st["pc"]), ptr(opp), ptr(st["env"]), ptr(st["ring"]),
+             ptr(st["met"]), n, *dims, g.rows, g.rm, g.rn, g.resident,
+             g.chunk, g.smem, int(st["pc"].dtype == torch.bfloat16),
+             OPP_MODES[cfg.opponent], int(greedy),
+             int(env_params.random_start))
+    thr = greedy_threshold(cfg.epsilon)
+    env_args = (env_params.max_steps, *rewards_cfg(env_params))
+    rounds = st["ring"].shape[0] // NUM_F
+    act_fn = kernels.function("dqn_trainer", "mgt_dqn_act", _ACT_ARGS)
+
+    def act(step, r_cur, k0, k1, stream, header=None):
+        hdr, i = header or (None, 0)
+        rc = act_fn(*fixed, step, r_cur, thr, k0, k1, *env_args, ptr(hdr),
+                    i, rounds, stream)
+        kernels.check("dqn_trainer", rc, "dqn_act_env_store launch")
+        kernels.launch_counts["dqn_act_env_store"] += 1
+    return act
+
+
+# ---------------------------------------------------------------------------
+# A fully warm chunk on the card as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# The one chunk graph kept (the last shape captured) and the key of the
+# last fully warm chunk issued launch by launch.
+_GRAPH: dict = {"graph": None, "seen": None}
+
+
+def chunk_graph(cfg, env_params, carry, num_steps, greedy,
+                dtype) -> "ChunkGraph | None":
+    """The :class:`ChunkGraph` of ``carry``'s fully warm chunks of
+    ``num_steps`` steps, or ``None`` where this chunk is to be issued
+    launch by launch.  A shape is a device, net widths, envs, batch,
+    draws, ring rounds, steps, compute dtype, opponent, greedy mode, act
+    and learner geometry, and the config's scalars.  Its graph is made
+    when two fully warm chunks of it come in a row (so a set-up chunk that
+    comes once is not captured) and kept until another shape's is made:
+    a run of chunks of one shape, as ``cli train`` makes, replays one
+    graph."""
+    act_g, learn_g = chunk_geometries(carry, cfg, dtype)
+    key = (carry["env"].device, _dims(carry["p"]), carry["n"],
+           carry.get("B", carry["n"]), carry.get("K", 1), carry["R"],
+           num_steps, dtype, cfg.opponent, bool(greedy), act_g, learn_g,
+           cfg.gamma, cfg.lr, bool(cfg.mask_terminal), cfg.target_sync,
+           greedy_threshold(cfg.epsilon), env_params.max_steps,
+           bool(env_params.random_start), tuple(rewards_cfg(env_params)))
+    graph = _GRAPH["graph"]
+    if graph is not None and graph.key == key:
+        return graph
+    if _GRAPH["seen"] != key:
+        _GRAPH["seen"] = key
+        return None
+    _GRAPH["graph"] = None  # the old shape's state goes first
+    _GRAPH["graph"] = ChunkGraph(key, cfg, env_params, carry, num_steps,
+                                 greedy, dtype, act_g, learn_g)
+    return _GRAPH["graph"]
+
+
+class ChunkGraph:
+    """K5's fully warm chunk of one shape as one CUDA graph of its 3 x
+    ``num_steps`` launches (:func:`launch_steps`) on a working state of
+    its own (:func:`state_buffers`); each launch reads what changes from
+    chunk to chunk from the chunk header (:data:`HEADER`,
+    :func:`chunk_header`) in place of launch arguments.  The first chunk
+    run captures the graph, and every chunk replays it.  A chunk copies
+    its carry in on the card (:meth:`load`; of the carry it returned last,
+    all but the env and ring) and the state out (:meth:`run`): neither the
+    carry nor the state returned shares memory with the graph's."""
+
+    def __init__(self, key, cfg, env_params, carry, num_steps, greedy,
+                 dtype, act_geom, learn_geom):
+        dev, dims = carry["env"].device, _dims(carry["p"])
+        self.key, self.cfg, self.env_params = key, cfg, env_params
+        self.dims, self.num_steps = dims, num_steps
+        self.parts = _state_parts(carry)
+        self.block, self.st = state_buffers(carry, dtype)
+        self.learner = Learner(self.st, "", dims, carry.get("B", carry["n"]),
+                               carry.get("K", 1), cfg, dev, learn_geom)
+        self.act = act_launcher(self.st, dims, cfg, env_params, greedy,
+                                act_geom)
+        b, r, c, end = header_layout(num_steps, carry.get("K", 1))
+        self.header = torch.empty(end, dtype=torch.uint8, device=dev)
+        self.staging = torch.empty(end, dtype=torch.uint8, pin_memory=True)
+        self.staged = torch.cuda.Event()
+        self.bias = self.header[b:r].view(torch.float32)
+        self.rounds = self.header[r:c].view(torch.int32)
+        self.cols = self.header[c:end].view(torch.int32)
+        self.graph, self.launches, self.last = None, {}, None
+
+    def _holds(self, carry) -> bool:
+        """Whether ``carry``'s env and ring are those :meth:`run` returned
+        last, unchanged since, so that the working state still holds them."""
+        env, ring, version = self.last or (None, None, None)
+        return (ring is not None and carry["ring"] is ring()
+                and carry["env"] is env() and ring()._version == version)
+
+    def load(self, carry, seed, rounds, cols) -> None:
+        """``carry`` copied into the working state (:func:`load_state`, and
+        the learner's ``w1t``), and the chunk header of its next chunk
+        uploaded in one copy from pinned memory, on the current stream.  A
+        carry that :meth:`run` returned last (the next chunk of a run)
+        leaves its env and ring, by far the most of the state, uncopied."""
+        torch.cuda.set_device(self.header.device)
+        held, self.last = self._holds(carry), None
+        load_state(self.st, carry, held)
+        self.learner.w1t.copy_(_natural(self.st["pc"], self.dims)[2].T)
+        self.staged.synchronize()  # the last upload has left the staging
+        chunk_header(carry, self.num_steps, seed, rounds, cols,
+                     out=self.staging.numpy())
+        with span("mgt.upload"):
+            self.header.copy_(self.staging, non_blocking=True)
+        self.staged.record()
+
+    def run(self, carry, seed) -> dict:
+        """The chunk of ``carry`` under ``seed`` that :meth:`load` loaded,
+        on the current stream; returns a copy of the working state after
+        it (:func:`working_state`'s ``p``, ``tp``, ``m``, ``v``, ``env``,
+        ``ring``, ``met`` and ``loss``)."""
+        with span("mgt.chunk.issue"):
+            if self.graph is None:
+                self._capture(carry, seed)
+            with span("mgt.chunk.graph"):
+                self.graph.replay()
+            kernels.graph_counts["dqn_chunk_replay"] += 1
+            for k, count in self.launches.items():
+                kernels.launch_counts[k] += count
+            out = _state_views(self.block.clone(), self.parts)
+            self.last = (weakref.ref(out["env"]), weakref.ref(out["ring"]),
+                         out["ring"]._version)
+            return out
+
+    def _capture(self, carry, seed) -> None:
+        """The graph of the chunk's launches, captured (not run), and the
+        launches that each key of ``kernels.launch_counts`` counted in it,
+        which every replay adds."""
+        before = dict(kernels.launch_counts)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            launch_steps(self.act, self.learner, carry, self.cfg,
+                         self.env_params, self.num_steps, seed, self.rounds,
+                         self.cols, kernels.stream_ptr(self.header.device),
+                         header=(self.header, self.bias))
+        self.launches = {k: n - before[k]
+                         for k, n in kernels.launch_counts.items()
+                         if n != before[k]}
+        kernels.launch_counts.update(before)  # a capture runs nothing
+        self.graph = graph
+        kernels.graph_counts["dqn_chunk_capture"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -962,23 +1263,32 @@ class Learner:
                                         _GRAD_ARGS)
 
     def launch(self, ring, num_f, rounds, cols, loss, counts, *,
-               sync=False, t=1, gate=None):
+               sync=False, t=1, gate=None, header=None, stream=None):
         """One learn on ``ring`` (``num_f`` fields per round) from the
         first K draws of the i32 device streams ``rounds``/``cols``; the
         loss goes to the 0-d ``loss``, the launches to the two
-        ``launch_counts`` keys ``counts``.  ``gate``: ``None`` (the host
-        decided: ``sync`` and Adam's step ``t``), or ``(any_end, bias,
-        step, first_open, prior)`` for the device gate of K7's upper
-        learner (``dqn_trainer.cu:DevGate``)."""
+        ``launch_counts`` keys ``counts``, on ``stream`` (by default the
+        current stream when the learner was made).  The host decides the
+        sync and Adam's step ``t``, unless ``gate`` or ``header`` lets the
+        card decide: ``gate=(any_end, bias, step, first_open, prior)`` for
+        the device gate of K7's upper learner (``dqn_trainer.cu:DevGate``),
+        ``header=(hdr, bias, i)`` for step i of K5's chunk header ``hdr``
+        and its bias table ``bias`` (:class:`ChunkGraph`)."""
         st, pre, ptr, cfg, g = self.st, self.prefix, kernels.ptr, self.cfg, \
             self.geom
-        if gate is None:
+        hdr = None
+        if header is not None:
+            hdr, bias, i = header
+            dev_gate = (ptr(None), ptr(bias), i, 0, 0)
+            sync, c1, c2 = False, 1.0, 1.0  # decided on the device
+        elif gate is None:
             dev_gate = (ptr(None), ptr(None), 0, 0, 0)
             c1, c2 = adam_bias_corrections(t)
         else:
             any_end, bias, step, first_open, prior = gate
             dev_gate = (ptr(any_end), ptr(bias), step, first_open, prior)
             sync, c1, c2 = False, 1.0, 1.0  # decided on the device
+        stream = self.stream if stream is None else stream
         pc, tpc = st[pre + "pc"], st[pre + "tpc"]
         rc = self.fwd_fn(
             ptr(pc), ptr(pc if sync else tpc), ptr(self.w1t), ptr(ring),
@@ -986,7 +1296,7 @@ class Learner:
             self.K, num_f, *self.dims, int(self.bf16),
             int(cfg.mask_terminal), cfg.gamma, 2.0 / self.B, g.lanes, g.rm,
             g.rn, g.chunk, g.smem, dev_gate[0], *dev_gate[2:],
-            cfg.target_sync, self.stream)
+            cfg.target_sync, ptr(hdr), stream)
         kernels.check("dqn_trainer", rc, "learn_fwd launch")
         kernels.launch_counts[counts[0]] += 1
         pb, tpb = (ptr(pc), ptr(tpc)) if self.bf16 else (ptr(None),) * 2
@@ -995,6 +1305,7 @@ class Learner:
             ptr(st[pre + "m"]), ptr(st[pre + "v"]), pb, tpb, ptr(self.w1t),
             ptr(loss), *self.dims, self.B, self.tile, int(sync), cfg.lr,
             ADAM_B1, ADAM_B2, 1.0 - ADAM_B1, 1.0 - ADAM_B2, ADAM_EPS, c1, c2,
-            grad_smem(self.tile), *dev_gate, cfg.target_sync, self.stream)
+            grad_smem(self.tile), *dev_gate, cfg.target_sync, ptr(hdr),
+            stream)
         kernels.check("dqn_trainer", rc, "learn_grad launch")
         kernels.launch_counts[counts[1]] += 1

@@ -18,14 +18,15 @@ the 50 ms render pacing.  Here:
 
 Span names: ``mgt.<layer>.<phase>`` for a phase of a layer's host path
 (``mgt.chunk.prologue``, ``mgt.chunk.issue`` and ``mgt.chunk.fold`` of
-the fused trainers K5 and K8; ``mgt.eval.prologue``, ``mgt.eval.rollout``
-and ``mgt.eval.outcomes`` of ``agents.evaluate.evaluate_fused``), and two
-names without a layer, one span per transfer, nested in the phase that
-makes it: ``mgt.readback`` around each blocking read of the card into
-host memory (``.tolist()``, ``.item()``, ``float`` of a tensor) and
-``mgt.upload`` around each copy from pageable host memory to the card.
-No span wraps a single kernel launch: ``kernels.launch_counts`` counts
-those.
+the fused trainers K5 and K8, and ``mgt.chunk.graph`` inside K5's issue
+around each replay of its chunk graph; ``mgt.eval.prologue``,
+``mgt.eval.rollout`` and ``mgt.eval.outcomes`` of
+``agents.evaluate.evaluate_fused``), and two names without a layer, one
+span per transfer, nested in the phase that makes it: ``mgt.readback``
+around each blocking read of the card into host memory (``.tolist()``,
+``.item()``, ``float`` of a tensor) and ``mgt.upload`` around each copy
+from host memory to the card.  No span wraps a single kernel launch:
+``kernels.launch_counts`` counts those.
 """
 
 from __future__ import annotations

@@ -474,6 +474,125 @@ def test_k7_cli_shape_equals_plain_and_repeats(cuda):
     assert FH.upper_learns(got["state"]) > 0 and got["episodes"] > 0
 
 
+def _snapshot(carry):
+    return {k: [t.clone() for t in carry[k]] if isinstance(carry[k], tuple)
+            else carry[k].clone() for k in ("p", "tp", "m", "v", "env", "ring")}
+
+
+def _unchanged(carry, snap):
+    for k, want in snap.items():
+        got = carry[k]
+        if isinstance(got, tuple):
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+        else:
+            assert torch.equal(got, want), k
+
+
+def _carries_equal(got, want):
+    for k in ("env", "ring"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("p", "tp", "m", "v"):
+        for a, b in zip(got[k], want[k]):
+            assert torch.equal(a, b), k
+    for k in ("steps", "learns", "episodes", "collisions", "wins",
+              "sum_ep_reward", "last_loss"):
+        assert got[k] == want[k], k
+
+
+# K5's fully warm chunks as replays of one CUDA graph (ChunkGraph): after
+# the warm-up chunk (issued launch by launch), five 200-step chunks -- the
+# first issued launch by launch, the second captured, four replays -- cross
+# target syncs (every 150 learns) and episode ends, bit for bit with the
+# plain version; no chunk's carry changes when the next one runs.
+@pytest.mark.parametrize("case", ["l0_f32", "l0_bf16", "selfplay_phi",
+                                  "frozen_bf16"])
+def test_k5_chunk_graph_equals_plain(cuda, case):
+    n, T = 256, 200
+    opponent = {"l0": "L0", "selfplay": "selfplay",
+                "frozen": "frozen"}[case.split("_")[0]]
+    cfg = D.DQNConfig(lr=1e-3, target_sync=150, memory_capacity=3 * n,
+                      opponent=opponent,
+                      compute_dtype="bfloat16" if "bf16" in case
+                      else "float32")
+    kw = {}
+    if opponent == "frozen":
+        kw = dict(opp_params=qnet_init(
+            torch.Generator(device=cuda).manual_seed(5), 10, 5))
+    ep, greedy = EnvParams(max_steps=40), case != "selfplay_phi"
+    FT._GRAPH.update(graph=None, seen=None)
+    carry = _race_carry(cfg, ep, n, cuda, **kw)
+    got = FT.fused_dqn_chunk(cfg, ep, carry, 2, 0, greedy=greedy)
+    want = FT.fused_dqn_chunk_plain(cfg, ep, carry, 2, 0, greedy=greedy)
+    assert got["warm"] and FT.fully_warm(got, T)
+    graphs, launches = dict(kernels.graph_counts), dict(kernels.launch_counts)
+    returned = [(carry, _snapshot(carry))]
+    for seed in range(1, 6):
+        returned.append((got, _snapshot(got)))
+        got = FT.fused_dqn_chunk(cfg, ep, got, T, seed, greedy=greedy)
+        want = FT.fused_dqn_chunk_plain(cfg, ep, want, T, seed,
+                                        greedy=greedy)
+        _carries_equal(got, want)
+        for c, snap in returned:
+            _unchanged(c, snap)
+    assert got["learns"] == 5 * T and got["episodes"] > 0
+    assert {k: kernels.graph_counts[k] - graphs[k] for k in graphs} == {
+        "dqn_chunk_capture": 1, "dqn_chunk_replay": 4}
+    for k in FT.K5_KERNELS:
+        assert kernels.launch_counts[k] - launches[k] == 5 * T, k
+
+
+def test_k5_chunk_graph_reruns_an_older_carry(cuda):
+    """After a run of graph chunks (the next chunk of a run leaves its env
+    and ring uncopied), a chunk from an older carry, which the graph's
+    state no longer holds, gives what it gave the first time, bit for
+    bit, and so does the chunk after it."""
+    n, T = 256, 20
+    cfg = D.DQNConfig(lr=1e-3, target_sync=7, memory_capacity=2 * n,
+                      opponent="L0")
+    ep = EnvParams(max_steps=40)
+    FT._GRAPH.update(graph=None, seen=None)
+    carries = [FT.fused_dqn_chunk_plain(cfg, ep, _race_carry(cfg, ep, n, cuda),
+                                        1, 0, greedy=True)]
+    graphs = dict(kernels.graph_counts)
+    for seed in range(1, 5):
+        carries.append(FT.fused_dqn_chunk(cfg, ep, carries[-1], T, seed,
+                                          greedy=True))
+    again = FT.fused_dqn_chunk(cfg, ep, carries[2], T, 3, greedy=True)
+    _carries_equal(again, carries[3])
+    _carries_equal(FT.fused_dqn_chunk(cfg, ep, again, T, 4, greedy=True),
+                   carries[4])
+    assert {k: kernels.graph_counts[k] - graphs[k] for k in graphs} == {
+        "dqn_chunk_capture": 1, "dqn_chunk_replay": 5}
+
+
+def test_k5_chunk_graph_per_shape(cuda):
+    """A 4,096-env carry gets a graph of its own after a 256-env one: two
+    chunks of each, the second of each shape captured and replayed, bit
+    for bit with the plain version; the graph kept is the last shape's;
+    and the vectorised bias table is the scalar one on this host."""
+    cfg = D.DQNConfig(lr=1e-3, target_sync=3, opponent="L0")
+    ep = EnvParams(max_steps=40)
+    FT._GRAPH.update(graph=None, seen=None)
+    graphs = dict(kernels.graph_counts)
+    for n in (256, 4096):
+        ncfg = cfg.replace(memory_capacity=2 * n)
+        got = want = FT.fused_dqn_chunk_plain(
+            ncfg, ep, _race_carry(ncfg, ep, n, cuda), 1, 0, greedy=True)
+        for seed in (1, 2):
+            got = FT.fused_dqn_chunk(ncfg, ep, got, 20, seed, greedy=True)
+            want = FT.fused_dqn_chunk_plain(ncfg, ep, want, 20, seed,
+                                            greedy=True)
+            _carries_equal(got, want)
+        assert FT._GRAPH["graph"].key[2] == n
+    assert {k: kernels.graph_counts[k] - graphs[k] for k in graphs} == {
+        "dqn_chunk_capture": 2, "dqn_chunk_replay": 2}
+    t = torch.arange(1, 5001)
+    want = torch.tensor([FT.adam_bias_corrections(int(x)) for x in t],
+                        dtype=torch.float32)
+    assert torch.equal(FT.bias_table(0, 5000).view(torch.int32),
+                       want.view(torch.int32))
+
+
 # The act kernels of K5 and K7 (act_tiled.cuh) at the training CLI's 1,024
 # envs, 8 a block in 128 blocks, against each opponent (self-play: both
 # seats in one pass of 16 rows; frozen: the opponent's nets streamed); with

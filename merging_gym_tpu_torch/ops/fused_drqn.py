@@ -87,6 +87,7 @@ from merging_gym_tpu_torch.ops import philox
 from merging_gym_tpu_torch.ops.fused_actor import greedy_threshold, select
 from merging_gym_tpu_torch.ops.fused_rollout import (random_reset_vals,
                                                      rewards_cfg)
+from merging_gym_tpu_torch.utils.profiling import span
 
 HID = LSTM_HIDDEN   # 16
 H1 = 200            # fc1 width (main.py:60-61)
@@ -523,9 +524,14 @@ def working_state(carry) -> dict:
 
 
 def _finish(carry, st, num_steps):
-    out = {k: st[k] for k in ("p", "tp", "m", "v", "env", "win", "ring")}
-    met = st["met"].to(torch.float64).sum(dim=1).tolist()
-    return apply_drqn_chunk(carry, out, num_steps, met, float(st["loss"]))
+    with span("mgt.chunk.fold"):
+        out = {k: st[k] for k in ("p", "tp", "m", "v", "env", "win", "ring")}
+        met = st["met"].to(torch.float64).sum(dim=1)
+        with span("mgt.readback"):
+            met = met.tolist()
+        with span("mgt.readback"):
+            loss = float(st["loss"])
+        return apply_drqn_chunk(carry, out, num_steps, met, loss)
 
 
 def _prepare(cfg, env_params, carry, num_steps, seed, greedy, rounds, cols):
@@ -566,9 +572,19 @@ def fused_drqn_chunk_plain(cfg, env_params, carry, num_steps, seed, *,
 
 def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
                  cols) -> dict:
-    rounds, cols = _prepare(cfg, env_params, carry, num_steps, seed, greedy,
-                            rounds, cols)
-    st = working_state(carry)
+    with span("mgt.chunk.prologue"):
+        rounds, cols = _prepare(cfg, env_params, carry, num_steps, seed,
+                                greedy, rounds, cols)
+        st = working_state(carry)
+    with span("mgt.chunk.issue"):
+        _plain_steps(st, cfg, env_params, carry, num_steps, seed, greedy,
+                     rounds, cols)
+    return st
+
+
+def _plain_steps(st, cfg, env_params, carry, num_steps, seed, greedy, rounds,
+                 cols) -> None:
+    """The plain version's steps, on the working state ``st`` in place."""
     n, B, L = carry["n"], carry["B"], carry["L"]
     WF = (L + 1) * SLOT
     key = philox.seed_key(seed)
@@ -657,7 +673,6 @@ def _plain_state(cfg, env_params, carry, num_steps, seed, greedy, rounds,
             torch.where(done, 0, ns.winner).to(f32),
             torch.where(done, 0, ns.t).to(f32), ep]),
             torch.where(d, 0.0, hc_new).T])
-    return st
 
 
 def fused_drqn_chunk(cfg, env_params, carry, num_steps, seed, *,
@@ -688,11 +703,13 @@ def chunk_state(cfg, env_params, carry, num_steps, seed, *, greedy=False,
     if carry["env"].device.type == "cpu":
         return _plain_state(cfg, env_params, carry, num_steps, seed, greedy,
                             rounds, cols)
-    rounds, cols = _prepare(cfg, env_params, carry, num_steps, seed, greedy,
-                            rounds, cols)
-    st = working_state(carry)
-    launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
-                cols, act_geom)
+    with span("mgt.chunk.prologue"):
+        rounds, cols = _prepare(cfg, env_params, carry, num_steps, seed,
+                                greedy, rounds, cols)
+        st = working_state(carry)
+        issue = drqn_launches(st, carry, cfg, env_params, num_steps, seed,
+                              greedy, rounds, cols, act_geom)
+    issue()
     return st
 
 
@@ -886,7 +903,9 @@ def new_workspace(B: int, L: int, device) -> torch.Tensor:
     """The learner's workspace, B * L rows of :data:`WS_WIDTH` floats:
     zeros, and the ones of the bias rows (the kernels write the rest)."""
     ws = torch.zeros(B * L, WS_WIDTH, device=device)
-    ws[:, list(WS_ONES)] = 1.0
+    with span("mgt.upload"):
+        ones = torch.tensor(WS_ONES, device=device)
+    ws[:, ones] = 1.0
     return ws
 
 
@@ -954,6 +973,15 @@ def launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
     updating the working state ``st`` (see :func:`working_state`) in
     place; the act kernel in ``act_geom`` (by default
     :func:`act_geometry`'s)."""
+    drqn_launches(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
+                  cols, act_geom)()
+
+
+def drqn_launches(st, carry, cfg, env_params, num_steps, seed, greedy,
+                  rounds, cols, act_geom=None):
+    """:func:`launch_drqn` in two parts: the set-up (the geometries, the
+    learner's workspace and its upload) now, and the function it returns,
+    which issues the kernels (the span ``mgt.chunk.issue``)."""
     n, B, L = carry["n"], carry["B"], carry["L"]
     names = ("p", "tp", "m", "v", "opp", "env", "win", "ring", "met", "loss")
     dev = kernels.require_cuda(*(st[k] for k in names))
@@ -971,15 +999,20 @@ def launch_drqn(st, carry, cfg, env_params, num_steps, seed, greedy, rounds,
     opp = st["opp"] if cfg.opponent == FT.OPP_FROZEN else st["p"]
     thr = greedy_threshold(cfg.epsilon)
     env_args = (env_params.max_steps, *rewards_cfg(env_params))
-    for i, wl, emit, r_cur, learn, sync, t in _schedule(
-            carry, env_params, seed, num_steps, cfg.target_sync):
-        gstep = (carry["steps"] + i) & philox.MASK32
-        rc = act(ptr(st["p"]), ptr(opp), ptr(st["env"]), ptr(st["win"]),
-                 ptr(st["ring"]), ptr(st["met"]), n, L, wl, int(emit), r_cur,
-                 opp_code, int(greedy), int(env_params.random_start), g.rows,
-                 g.rm, g.rn, g.resident, g.chunk, g.smem, gstep, thr, k0, k1,
-                 *env_args, stream)
-        kernels.check("drqn_trainer", rc, "drqn_act launch")
-        kernels.launch_counts["drqn_act"] += 1
-        if learn:
-            learner.launch(cfg, rounds[i], cols[i], sync, t)
+
+    def issue():
+        with span("mgt.chunk.issue"):
+            for i, wl, emit, r_cur, learn, sync, t in _schedule(
+                    carry, env_params, seed, num_steps, cfg.target_sync):
+                gstep = (carry["steps"] + i) & philox.MASK32
+                rc = act(ptr(st["p"]), ptr(opp), ptr(st["env"]),
+                         ptr(st["win"]), ptr(st["ring"]), ptr(st["met"]), n,
+                         L, wl, int(emit), r_cur, opp_code, int(greedy),
+                         int(env_params.random_start), g.rows, g.rm, g.rn,
+                         g.resident, g.chunk, g.smem, gstep, thr, k0, k1,
+                         *env_args, stream)
+                kernels.check("drqn_trainer", rc, "drqn_act launch")
+                kernels.launch_counts["drqn_act"] += 1
+                if learn:
+                    learner.launch(cfg, rounds[i], cols[i], sync, t)
+    return issue

@@ -18,7 +18,7 @@ the 50 ms render pacing.  Here:
 
 Span names: ``mgt.<layer>.<phase>`` for a phase of a layer's host path
 (``mgt.chunk.prologue``, ``mgt.chunk.issue`` and ``mgt.chunk.fold`` of
-the fused trainers K5 and K8, and ``mgt.chunk.graph`` inside K5's issue
+the fused trainers K5, K8 and K9, and ``mgt.chunk.graph`` inside K5's issue
 around each replay of its chunk graph; ``mgt.eval.prologue``,
 ``mgt.eval.rollout`` and ``mgt.eval.outcomes`` of
 ``agents.evaluate.evaluate_fused``), and two names without a layer, one

@@ -1,0 +1,6 @@
+"""``learner_roofline.train``'s reading, for the DRQN cell, where it moves
+``train_device_us_per_step``."""
+
+from perfbench.harness import reader
+
+read = reader("learner_roofline.train").read

@@ -1,0 +1,6 @@
+"""``mfu.train``'s reading, for the DRQN cell, where it moves
+``train_device_us_per_step``."""
+
+from perfbench.harness import reader
+
+read = reader("mfu.train").read
